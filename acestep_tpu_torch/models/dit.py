@@ -1,0 +1,455 @@
+"""ACE-Step v1.5 DiT and condition encoders, text2music subset.
+
+Port of `acestep_tpu/models/dit.py` as plain functions on the JAX package's
+parameter tree (tensors; layers as per-layer lists, see `params.py`):
+
+- `attention_block`, `encoder_layer`, `encoder_stack`, `lyric_encoder`,
+  `timbre_encoder`, `condition_encoder`, `prepare_condition` (precomputed-hints
+  path; audio codes and the FSQ tokenizer chain raise until they are ported);
+- `timestep_embedding`, `dit_layer`, `precompute_cross_kv`, `dit_forward`;
+- `build_t_schedule`, `build_linspace_schedule`, `prepare_noise`;
+- `denoise` (the ODE loop of `denoise_scan` without CFG, as a Python loop)
+  and `generate_audio` with the `noise=` injection hook.
+
+The bf16 rounding points follow the JAX package: modulation in fp32 then cast
+(`dit_layer`), rope in fp32, the ODE step size cast to the latent dtype.
+Decoder padding masks stay on, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from acestep_tpu_torch.config import AceStepConfig
+from acestep_tpu_torch.ops.attention import attention
+from acestep_tpu_torch.ops.basic import linear, mlp_swiglu, rms_norm
+from acestep_tpu_torch.ops.conv import conv1d, conv_transpose1d
+from acestep_tpu_torch.ops.packing import pack_sequences
+from acestep_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+
+Params = Dict[str, Any]
+
+# The 8-step turbo schedules per discrete shift (ref turbo :1819-1823).
+SHIFT_TIMESTEPS = {
+    1.0: [1.0, 0.875, 0.75, 0.625, 0.5, 0.375, 0.25, 0.125],
+    2.0: [1.0, 14 / 15, 6 / 7, 10 / 13, 2 / 3, 6 / 11, 0.4, 2 / 9],
+    3.0: [1.0, 21 / 22, 0.9, 5 / 6, 0.75, 9 / 14, 0.5, 0.3],
+}
+VALID_TIMESTEPS = sorted({t for v in SHIFT_TIMESTEPS.values() for t in v}, reverse=True)
+
+
+def _split_heads(x: torch.Tensor, num_heads: int, head_dim: int) -> torch.Tensor:
+    b, l, _ = x.shape
+    return x.reshape(b, l, num_heads, head_dim)
+
+
+def _window(cfg: AceStepConfig, i: int) -> Optional[int]:
+    if cfg.use_sliding_window and cfg.layer_type(i) == "sliding_attention":
+        return cfg.sliding_window
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Attention block and encoder stacks
+# ---------------------------------------------------------------------------
+
+
+def cross_attention_kv(p: Params, cfg: AceStepConfig, enc: torch.Tensor):
+    """Cross-attention K/V, computed once per trajectory."""
+    k = _split_heads(linear(p["k_proj"], enc), cfg.num_key_value_heads, cfg.head_dim)
+    k = rms_norm(p["k_norm"]["weight"], k, cfg.rms_norm_eps)
+    v = _split_heads(linear(p["v_proj"], enc), cfg.num_key_value_heads, cfg.head_dim)
+    return k, v
+
+
+def attention_block(
+    p: Params,
+    cfg: AceStepConfig,
+    x: torch.Tensor,
+    *,
+    cos: Optional[torch.Tensor] = None,
+    sin: Optional[torch.Tensor] = None,
+    kv_mask: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
+    kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Self-attention (kv None) or cross-attention on precomputed kv."""
+    q = _split_heads(linear(p["q_proj"], x), cfg.num_attention_heads, cfg.head_dim)
+    q = rms_norm(p["q_norm"]["weight"], q, cfg.rms_norm_eps)
+    if kv is not None:
+        k, v = kv
+    else:
+        k = _split_heads(linear(p["k_proj"], x), cfg.num_key_value_heads, cfg.head_dim)
+        k = rms_norm(p["k_norm"]["weight"], k, cfg.rms_norm_eps)
+        v = _split_heads(linear(p["v_proj"], x), cfg.num_key_value_heads, cfg.head_dim)
+        if cos is not None:
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+    out = attention(q, k, v, kv_mask=kv_mask, window=window, scale=cfg.head_dim**-0.5)
+    return linear(p["o_proj"], out.reshape(x.shape[0], x.shape[1], -1))
+
+
+def encoder_layer(p, cfg, x, cos, sin, kv_mask, window=None) -> torch.Tensor:
+    h = rms_norm(p["input_layernorm"]["weight"], x, cfg.rms_norm_eps)
+    x = x + attention_block(p["self_attn"], cfg, h, cos=cos, sin=sin, kv_mask=kv_mask, window=window)
+    h = rms_norm(p["post_attention_layernorm"]["weight"], x, cfg.rms_norm_eps)
+    return x + mlp_swiglu(p["mlp"], h)
+
+
+def encoder_stack(layers, norm_w, cfg: AceStepConfig, x, seq_mask) -> torch.Tensor:
+    """Bidirectional encoder layers, alternating sliding/full attention."""
+    cos, sin = rope_cos_sin(x.shape[1], cfg.head_dim, cfg.rope_theta, device=x.device)
+    for i, lp in enumerate(layers):
+        x = encoder_layer(lp, cfg, x, cos, sin, seq_mask, _window(cfg, i))
+    return rms_norm(norm_w, x, cfg.rms_norm_eps)
+
+
+def lyric_encoder(p: Params, cfg: AceStepConfig, lyric_embeds, lyric_mask) -> torch.Tensor:
+    """(B, L, text_hidden_dim) -> (B, L, hidden)."""
+    x = linear(p["embed_tokens"], lyric_embeds)
+    return encoder_stack(p["layers"], p["norm"]["weight"], cfg, x, lyric_mask)
+
+
+def timbre_encoder(
+    p: Params,
+    cfg: AceStepConfig,
+    packed_refs: torch.Tensor,  # (N, T_ref, 64)
+    order_mask: torch.Tensor,  # (N,) batch index per packed ref
+    batch_size: int,
+    max_refs: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed reference latents -> per-ref timbre vectors, unpacked per batch item.
+
+    The first frame's output is the timbre embedding; unpacking is the same
+    one-hot product as the JAX version, and refs beyond max_refs are dropped.
+    """
+    x = linear(p["embed_tokens"], packed_refs)
+    x = encoder_stack(p["layers"], p["norm"]["weight"], cfg, x, None)
+    timbre = x[:, 0, :]
+    n = timbre.shape[0]
+    order = order_mask.long()
+    idx = torch.arange(n, device=x.device)
+    same = order[:, None] == order[None, :]
+    earlier = idx[None, :] < idx[:, None]
+    pos_in_batch = (same & earlier).sum(dim=1)
+    flat_idx = torch.where(pos_in_batch < max_refs, order * max_refs + pos_in_batch, -1)
+    slots = batch_size * max_refs
+    one_hot = (flat_idx[:, None] == torch.arange(slots, device=x.device)[None, :]).to(timbre.dtype)
+    unpacked = (one_hot.T @ timbre).reshape(batch_size, max_refs, -1)
+    mask = (one_hot.sum(dim=0) > 0).to(torch.int32).reshape(batch_size, max_refs)
+    return unpacked, mask
+
+
+def condition_encoder(
+    p: Params,
+    cfg: AceStepConfig,
+    text_hidden_states,
+    text_attention_mask,
+    lyric_hidden_states,
+    lyric_attention_mask,
+    refer_packed,
+    refer_order_mask,
+    max_refs: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pack lyric -> timbre -> text conditions, valid tokens first."""
+    b = text_hidden_states.shape[0]
+    text = linear(p["text_projector"], text_hidden_states)
+    lyric = lyric_encoder(p["lyric_encoder"], cfg, lyric_hidden_states, lyric_attention_mask)
+    timbre, timbre_mask = timbre_encoder(
+        p["timbre_encoder"], cfg, refer_packed, refer_order_mask, b, max_refs
+    )
+    enc, enc_mask = pack_sequences(
+        lyric, timbre.to(lyric.dtype), lyric_attention_mask.to(torch.int32), timbre_mask
+    )
+    return pack_sequences(enc, text, enc_mask, text_attention_mask.to(torch.int32))
+
+
+def prepare_condition(
+    params: Params,
+    cfg: AceStepConfig,
+    *,
+    text_hidden_states,
+    text_attention_mask,
+    lyric_hidden_states,
+    lyric_attention_mask,
+    refer_packed,
+    refer_order_mask,
+    src_latents,  # (B, T, 64)
+    chunk_masks,  # (B, T) or (B, T, 64)
+    is_covers,  # (B,)
+    silence_latent: Optional[torch.Tensor] = None,  # (1, >=T, 64)
+    precomputed_lm_hints_25hz: Optional[torch.Tensor] = None,
+    audio_codes: Optional[torch.Tensor] = None,
+    max_refs: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """-> (encoder_hidden_states, encoder_mask, context_latents)."""
+    if audio_codes is not None or precomputed_lm_hints_25hz is None:
+        raise NotImplementedError(
+            "audio codes and the FSQ tokenize/detokenize chain are not ported yet "
+            "(cover slice); pass precomputed_lm_hints_25hz"
+        )
+    enc, enc_mask = condition_encoder(
+        params["encoder"], cfg, text_hidden_states, text_attention_mask,
+        lyric_hidden_states, lyric_attention_mask, refer_packed, refer_order_mask, max_refs,
+    )
+    t = src_latents.shape[1]
+    h = precomputed_lm_hints_25hz[:, :t, :]
+    short = t - h.shape[1]
+    if short > 0:
+        if silence_latent is not None:
+            fill = silence_latent[:1, :short, :].expand(h.shape[0], short, h.shape[2])
+        else:
+            fill = torch.zeros((h.shape[0], short, h.shape[2]), dtype=h.dtype, device=h.device)
+        h = torch.cat([h, fill.to(h.dtype)], dim=1)
+    is_c = is_covers.to(torch.bool)[:, None, None]
+    src = torch.where(is_c, h.to(src_latents.dtype), src_latents)
+    cm = chunk_masks if chunk_masks.dim() == 3 else chunk_masks[..., None].expand(src.shape)
+    context_latents = torch.cat([src, cm.to(src.dtype)], dim=-1)
+    return enc, enc_mask, context_latents
+
+
+# ---------------------------------------------------------------------------
+# Timestep embedding + DiT
+# ---------------------------------------------------------------------------
+
+
+def timestep_embedding(p: Params, t: torch.Tensor, in_channels: int = 256, scale: float = 1000.0):
+    """Returns (temb (B, D), proj (B, 6, D))."""
+    half = in_channels // 2
+    freqs = torch.exp(
+        -np.log(10000.0) * torch.arange(half, dtype=torch.float32, device=t.device) / half
+    )
+    args = t.float()[:, None] * scale * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    dtype = p["linear_1"]["kernel"].dtype
+    temb = linear(p["linear_1"], emb.to(dtype))
+    temb = linear(p["linear_2"], F.silu(temb))
+    proj = linear(p["time_proj"], F.silu(temb))
+    return temb, proj.reshape(t.shape[0], 6, -1)
+
+
+def dit_layer(
+    p: Params,
+    cfg: AceStepConfig,
+    x: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    tproj: torch.Tensor,  # (B, 6, D)
+    self_kv_mask: Optional[torch.Tensor],
+    window: Optional[int],
+    cross_kv_mask: Optional[torch.Tensor],
+    cross_kv: Tuple[torch.Tensor, torch.Tensor],
+) -> torch.Tensor:
+    """AdaLN-zero DiT layer (ref AceStepDiTLayer)."""
+    mod = p["scale_shift_table"].float() + tproj.float()
+    shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = [
+        m.to(x.dtype) for m in torch.chunk(mod, 6, dim=1)
+    ]
+    h = rms_norm(p["self_attn_norm"]["weight"], x, cfg.rms_norm_eps)
+    h = h * (1 + scale_msa) + shift_msa
+    h = attention_block(p["self_attn"], cfg, h, cos=cos, sin=sin, kv_mask=self_kv_mask, window=window)
+    x = x + h * gate_msa
+    h = rms_norm(p["cross_attn_norm"]["weight"], x, cfg.rms_norm_eps)
+    x = x + attention_block(p["cross_attn"], cfg, h, kv_mask=cross_kv_mask, kv=cross_kv)
+    h = rms_norm(p["mlp_norm"]["weight"], x, cfg.rms_norm_eps)
+    h = h * (1 + c_scale) + c_shift
+    return x + mlp_swiglu(p["mlp"], h) * c_gate
+
+
+def precompute_cross_kv(p_decoder: Params, cfg: AceStepConfig, encoder_hidden_states):
+    """condition_embedder + per-layer cross K/V (a list of (k, v))."""
+    enc = linear(p_decoder["condition_embedder"], encoder_hidden_states)
+    return [cross_attention_kv(lp["cross_attn"], cfg, enc) for lp in p_decoder["layers"]]
+
+
+def dit_forward(
+    p: Params,  # decoder params
+    cfg: AceStepConfig,
+    xt: torch.Tensor,  # (B, T, 64)
+    timestep: torch.Tensor,  # (B,)
+    timestep_r: torch.Tensor,  # (B,)
+    context_latents: torch.Tensor,  # (B, T, 128)
+    cross_kvs: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    *,
+    encoder_mask: Optional[torch.Tensor] = None,  # (B, L_enc)
+    latent_mask: Optional[torch.Tensor] = None,  # (B, T)
+) -> torch.Tensor:
+    """One denoise forward pass -> velocity (B, T, 64)."""
+    temb_t, proj_t = timestep_embedding(p["time_embed"], timestep)
+    temb_r, proj_r = timestep_embedding(p["time_embed_r"], timestep - timestep_r)
+    temb = temb_t + temb_r
+    tproj = proj_t + proj_r
+
+    h = torch.cat([context_latents, xt], dim=-1)
+    orig_len = h.shape[1]
+    pad = (-orig_len) % cfg.patch_size
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+    h = conv1d(h, p["proj_in"]["kernel"], p["proj_in"].get("bias"), stride=cfg.patch_size)
+    l = h.shape[1]
+    cos, sin = rope_cos_sin(l, cfg.head_dim, cfg.rope_theta, device=h.device)
+
+    patched_mask = None
+    if latent_mask is not None:
+        pm = latent_mask
+        if pad:
+            pm = F.pad(pm, (0, pad))
+        patched_mask = pm.reshape(pm.shape[0], l, cfg.patch_size).amax(dim=-1)
+
+    for i, lp in enumerate(p["layers"]):
+        h = dit_layer(lp, cfg, h, cos, sin, tproj, patched_mask, _window(cfg, i), encoder_mask, cross_kvs[i])
+
+    mod = p["scale_shift_table"].float() + temb.float()[:, None]
+    shift, scale = [m.to(h.dtype) for m in torch.chunk(mod, 2, dim=1)]
+    h = rms_norm(p["norm_out"]["weight"], h, cfg.rms_norm_eps) * (1 + scale) + shift
+    h = conv_transpose1d(h, p["proj_out"]["kernel"], p["proj_out"].get("bias"), stride=cfg.patch_size)
+    return h[:, :orig_len, :]
+
+
+# ---------------------------------------------------------------------------
+# Schedules, noise, denoise loop, generation
+# ---------------------------------------------------------------------------
+
+
+def prepare_noise(
+    shape: Tuple[int, int, int], seeds: Sequence[int], dtype=torch.bfloat16, device=None
+) -> torch.Tensor:
+    """Per-sample seeded Gaussian noise from one CPU `torch.Generator` per seed.
+
+    The numbers differ from `jax.random` for the same seed (a deliberate
+    deviation); they are the same on the CPU and on the card.
+    """
+    _, t, d = shape
+    rows = []
+    for s in seeds:
+        g = torch.Generator(device="cpu").manual_seed(int(s) & 0x7FFFFFFF)
+        rows.append(torch.randn((t, d), generator=g, dtype=torch.float32))
+    return torch.stack(rows).to(device=device, dtype=dtype)
+
+
+def build_t_schedule(shift: float = 3.0, timesteps: Optional[Sequence[float]] = None) -> List[float]:
+    """Turbo discrete schedule: snap custom timesteps to the valid set."""
+    if timesteps is not None:
+        ts = [float(t) for t in timesteps]
+        while ts and ts[-1] == 0:
+            ts.pop()
+        ts = ts[:20]
+        if ts:
+            return [min(VALID_TIMESTEPS, key=lambda v: abs(v - t)) for t in ts]
+    shift = min(SHIFT_TIMESTEPS.keys(), key=lambda v: abs(v - shift))
+    return list(SHIFT_TIMESTEPS[shift])
+
+
+def build_linspace_schedule(infer_steps: int, shift: float = 1.0) -> List[float]:
+    """Base-model continuous schedule without the terminal 0."""
+    t = np.linspace(1.0, 0.0, infer_steps + 1)
+    if shift != 1.0:
+        t = shift * t / (1 + (shift - 1) * t)
+    return [float(v) for v in t[:-1]]
+
+
+def denoise(
+    decoder_params: Params,
+    cfg: AceStepConfig,
+    xt: torch.Tensor,  # (B, T, 64) initial state
+    schedule: Sequence[float],
+    context_latents: torch.Tensor,
+    cross_kvs,
+    encoder_mask: Optional[torch.Tensor],
+    latent_mask: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """ODE (Euler) trajectory without CFG: x <- x - v(x, t) * (t - t_next)."""
+    t_sched = np.asarray(schedule, np.float32)
+    t_next = np.asarray(list(schedule[1:]) + [0.0], np.float32)
+    b = xt.shape[0]
+    for t_curr, t_nxt in zip(t_sched, t_next):
+        tvec = torch.full((b,), float(t_curr), dtype=torch.float32, device=xt.device)
+        vt = dit_forward(
+            decoder_params, cfg, xt, tvec, tvec, context_latents, cross_kvs,
+            encoder_mask=encoder_mask, latent_mask=latent_mask,
+        )
+        dt = torch.tensor(float(t_curr - t_nxt), dtype=torch.float32).to(xt.dtype)
+        xt = (xt - vt * dt.to(xt.device)).to(xt.dtype)
+    return xt
+
+
+def generate_audio(
+    params: Params,
+    cfg: AceStepConfig,
+    *,
+    text_hidden_states,
+    text_attention_mask,
+    lyric_hidden_states,
+    lyric_attention_mask,
+    refer_packed,
+    refer_order_mask,
+    src_latents,
+    chunk_masks,
+    is_covers,
+    silence_latent: Optional[torch.Tensor] = None,
+    attention_mask: Optional[torch.Tensor] = None,
+    seeds: Optional[Sequence[int]] = None,
+    shift: float = 3.0,
+    timesteps: Optional[Sequence[float]] = None,
+    infer_method: str = "ode",
+    audio_cover_strength: float = 1.0,
+    cover_noise_strength: float = 0.0,
+    precomputed_lm_hints_25hz: Optional[torch.Tensor] = None,
+    audio_codes: Optional[torch.Tensor] = None,
+    guidance_scale: float = 1.0,
+    infer_steps: Optional[int] = None,
+    max_refs: int = 1,
+    return_condition: bool = False,
+    noise: Optional[torch.Tensor] = None,  # injection hook (tests)
+) -> Dict[str, Any]:
+    """Turbo generation: prepare_condition, cross K/V once, ODE loop."""
+    if infer_method != "ode":
+        raise NotImplementedError("SDE sampling is not ported yet")
+    if guidance_scale > 1.0:
+        raise NotImplementedError("CFG/APG/ADG guidance is not ported yet")
+    if audio_cover_strength < 1.0 or cover_noise_strength > 0.0:
+        raise NotImplementedError("cover strength / cover noise are not ported yet (cover slice)")
+    if cfg.model_version == "turbo" and infer_steps is None:
+        schedule = build_t_schedule(shift, timesteps)
+    elif infer_steps is not None:
+        schedule = build_linspace_schedule(infer_steps, shift)
+    else:
+        schedule = build_t_schedule(shift, timesteps)
+
+    enc, enc_mask, context_latents = prepare_condition(
+        params, cfg,
+        text_hidden_states=text_hidden_states,
+        text_attention_mask=text_attention_mask,
+        lyric_hidden_states=lyric_hidden_states,
+        lyric_attention_mask=lyric_attention_mask,
+        refer_packed=refer_packed,
+        refer_order_mask=refer_order_mask,
+        src_latents=src_latents,
+        chunk_masks=chunk_masks,
+        is_covers=is_covers,
+        silence_latent=silence_latent,
+        precomputed_lm_hints_25hz=precomputed_lm_hints_25hz,
+        audio_codes=audio_codes,
+        max_refs=max_refs,
+    )
+    b, t, d = src_latents.shape
+    seeds = list(seeds) if seeds is not None else list(range(b))
+    if noise is None:
+        noise = prepare_noise((b, t, d), seeds, src_latents.dtype, src_latents.device)
+    xt = noise.to(device=src_latents.device, dtype=src_latents.dtype)
+
+    dec = params["decoder"]
+    kvs = precompute_cross_kv(dec, cfg, enc)
+    xt = denoise(dec, cfg, xt, schedule, context_latents, kvs, enc_mask, attention_mask)
+    out = {"target_latents": xt, "num_steps": len(schedule)}
+    if return_condition:
+        out["condition"] = {
+            "encoder_hidden_states": enc,
+            "encoder_attention_mask": enc_mask,
+            "context_latents": context_latents,
+        }
+    return out

@@ -1,0 +1,71 @@
+"""Elementary neural-net ops: linear, RMSNorm, SwiGLU MLP, sin².
+
+Port of `acestep_tpu/ops/basic.py`. A linear layer is a dict
+``{"kernel": (in, out)[, "bias": (out,)]}`` applied as ``x @ kernel``, the
+JAX package's layout. RMSNorm statistics are float32, the output is cast back
+to the input dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def linear(params, x: torch.Tensor) -> torch.Tensor:
+    """Apply a linear layer in the dtype of x.
+
+    The product accumulates in fp32 inside the matmul. The JAX version adds
+    the bias to the fp32 product and rounds once; PyTorch has no portable
+    fp32-output low-precision matmul, so a biased layer in bf16 rounds the
+    product, adds the bias in fp32 and rounds again. In fp32 the two agree.
+    """
+    y = torch.matmul(x, params["kernel"].to(x.dtype))
+    bias = params.get("bias")
+    if bias is not None:
+        y = (y.float() + bias.float()).to(x.dtype)
+    return y
+
+
+def rms_norm(weight: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with float32 statistics (Qwen3RMSNorm semantics)."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    xf = xf * torch.rsqrt(var + eps)
+    return (weight.float() * xf).to(x.dtype)
+
+
+# cos(r) on [-π, π] as an even least-squares polynomial; the Oobleck kernels
+# in csrc/oobleck.cu evaluate the same polynomial, so Snake matches the JAX
+# package's `sin2_f32` and not `torch.sin`.
+_COS_EVEN_COEF = (
+    9.9999999980e-01,
+    -4.9999999880e-01,
+    4.1666664136e-02,
+    -1.3888867452e-03,
+    2.4800691382e-05,
+    -2.7536992140e-07,
+    2.0620751417e-09,
+    -9.7751781371e-12,
+)
+_TWO_PI = 6.283185307179586
+_INV_TWO_PI = 0.15915494309189535
+
+
+def sin2_f32(u: torch.Tensor) -> torch.Tensor:
+    """sin²(u) via ½ − ½·cos(2u) with a range-reduced even polynomial (fp32)."""
+    v = 2.0 * u
+    k = torch.round(v * _INV_TWO_PI)
+    r = v - k * _TWO_PI
+    r2 = r * r
+    c = torch.full_like(r2, _COS_EVEN_COEF[-1])
+    for coef in _COS_EVEN_COEF[-2::-1]:
+        c = c * r2 + coef
+    return 0.5 - 0.5 * c
+
+
+def mlp_swiglu(params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP: down(silu(gate(x)) * up(x)) — Qwen3MLP semantics."""
+    g = linear(params["gate_proj"], x)
+    u = linear(params["up_proj"], x)
+    return linear(params["down_proj"], F.silu(g) * u)

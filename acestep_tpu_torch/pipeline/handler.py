@@ -1,0 +1,444 @@
+"""Generation orchestration for turbo text2music on the card.
+
+Port of the text2music path of `acestep_tpu/pipeline/handler.py`
+(`AceStepHandler`): host-side prompt formatting, seeds, chunk masks, bucketing
+and tokenization in numpy; text encoding, condition preparation, the 8-step
+ODE denoise, the chunked Oobleck decode and the peak normalisation in torch on
+the handler's device.
+
+Not ported yet, each raising `NotImplementedError` where a caller asks for it:
+checkpoint loading, cover/repaint/extract/lego/complete, audio codes, CFG
+(APG/ADG), SDE sampling, LoRA, meshes, streaming sinks and pipelined finish.
+"""
+
+from __future__ import annotations
+
+import random
+import time
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from acestep_tpu_torch.config import (
+    LATENT_FPS,
+    LATENT_HOP,
+    SAMPLE_RATE,
+    AceStepConfig,
+    OobleckConfig,
+    Qwen3Config,
+)
+from acestep_tpu_torch.device import resolve_device
+from acestep_tpu_torch.models import dit, qwen3, vae
+from acestep_tpu_torch.params import init_acestep_params, init_oobleck_params, init_qwen3_params
+from acestep_tpu_torch.utils.constants import SFT_GEN_PROMPT, TASK_INSTRUCTIONS
+from acestep_tpu_torch.utils.tokenizer import load_tokenizer, pick_bucket, tokenize_padded
+
+LATENT_BUCKETS = (250, 500, 750, 1500, 2250, 3000, 4500, 6000, 7500, 15000)
+TEXT_BUCKETS = (64, 128, 256)
+LYRIC_BUCKETS = (64, 128, 256, 512, 1024, 2048)
+DECODE_OVERLAP = 16  # latent frames on each side of a decode chunk
+
+
+class AceStepHandler:
+    """Holds the three models and runs the DiT-side text2music pipeline."""
+
+    sample_rate = SAMPLE_RATE
+
+    def __init__(
+        self,
+        config: Optional[AceStepConfig] = None,
+        vae_config: Optional[OobleckConfig] = None,
+        text_config: Optional[Qwen3Config] = None,
+        dtype: torch.dtype = torch.bfloat16,
+        device=None,
+    ):
+        self.config = config or AceStepConfig()
+        self.vae_config = vae_config or OobleckConfig()
+        self.text_config = text_config or Qwen3Config()
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.params: Optional[Dict[str, Any]] = None
+        self.vae_params: Optional[Dict[str, Any]] = None
+        self.text_params: Optional[Dict[str, Any]] = None
+        self.text_tokenizer = None
+        self.silence_latent: Optional[np.ndarray] = None  # (1, T, 64)
+        self.initialized = False
+
+    def initialize_service(
+        self, checkpoint_dir: Optional[str] = None, *, random_init: Optional[bool] = None, seed: int = 0
+    ) -> str:
+        """Random weights from `seed` (dev mode, the JAX package's `--random-init`)."""
+        t0 = time.time()
+        if random_init is None:
+            random_init = checkpoint_dir is None
+        if not random_init:
+            raise NotImplementedError("loading the reference checkpoint layout is not ported yet")
+        self.params = init_acestep_params(self.config, seed=seed, device=self.device, dtype=self.dtype)
+        self.vae_params = init_oobleck_params(self.vae_config, seed=seed + 1, device=self.device)
+        self.text_params = init_qwen3_params(
+            self.text_config, seed=seed + 2, device=self.device, dtype=self.dtype
+        )
+        self.silence_latent = np.zeros((1, 750, self.config.audio_acoustic_hidden_dim), np.float32)
+        self.text_tokenizer = load_tokenizer(None)
+        self.initialized = True
+        self._sync()
+        return f"initialized in {time.time() - t0:.1f}s (random_init=True, device={self.device})"
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+    # Host-side conditioning helpers (copies of the JAX handler's)
+    # ------------------------------------------------------------------
+
+    def prepare_seeds(self, batch_size: int, seed, use_random: bool) -> Tuple[List[int], str]:
+        """Per-item seeds."""
+        seeds: List[int] = []
+        if use_random or seed is None:
+            seeds = [random.randint(0, 2**32 - 1) for _ in range(batch_size)]
+        else:
+            if isinstance(seed, str):
+                vals = []
+                for s in (s.strip() for s in seed.split(",")):
+                    try:
+                        vals.append(int(float(s)) if s not in ("", "-1") else -1)
+                    except ValueError:
+                        vals.append(-1)
+            elif isinstance(seed, (int, float)):
+                vals = [int(seed)]
+            elif isinstance(seed, (list, tuple)):
+                vals = [int(s) for s in seed]
+            else:
+                vals = [-1]
+            single = len(vals) == 1 and vals[0] != -1
+            for i in range(batch_size):
+                v = vals[i] if i < len(vals) else -1
+                if (single and batch_size > 1 and i > 0) or v == -1:
+                    seeds.append(random.randint(0, 2**32 - 1))
+                else:
+                    seeds.append(v)
+        return seeds, ", ".join(str(s) for s in seeds)
+
+    def _default_meta(self) -> str:
+        return "- bpm: N/A\n- timesignature: N/A\n- keyscale: N/A\n- duration: 30 seconds\n"
+
+    def _dict_to_meta_string(self, meta: Dict[str, Any]) -> str:
+        bpm = meta.get("bpm", meta.get("tempo", "N/A"))
+        ts = meta.get("timesignature", meta.get("time_signature", "N/A"))
+        ks = meta.get("keyscale", meta.get("key", meta.get("scale", "N/A")))
+        dur = meta.get("duration", meta.get("length", 30))
+        if isinstance(dur, (int, float)):
+            dur = f"{int(dur)} seconds"
+        return f"- bpm: {bpm}\n- timesignature: {ts}\n- keyscale: {ks}\n- duration: {dur}\n"
+
+    def parse_metas(self, metas: Optional[List[Union[str, Dict[str, Any], None]]], batch: int) -> List[str]:
+        if metas is None:
+            return [self._default_meta()] * batch
+        out = []
+        for m in metas:
+            if isinstance(m, str):
+                out.append(m)
+            elif isinstance(m, dict):
+                out.append(self._dict_to_meta_string(m))
+            else:
+                out.append(self._default_meta())
+        while len(out) < batch:
+            out.append(self._default_meta())
+        return out
+
+    @staticmethod
+    def format_lyrics(lyrics: str, language: str) -> str:
+        return f"# Languages\n{language}\n\n# Lyric\n{lyrics}<|endoftext|>"
+
+    @staticmethod
+    def format_instruction(instruction: str) -> str:
+        return instruction if instruction.endswith(":") else instruction + ":"
+
+    def build_chunk_masks_and_src_latents(
+        self,
+        batch_size: int,
+        t_latent: int,
+        instructions: List[str],
+        has_code_hints: List[bool],
+        target_latents: Optional[np.ndarray],  # (B, T, 64) or None
+        has_target_audio: List[bool],
+        repainting_start: Optional[List[Optional[float]]],
+        repainting_end: Optional[List[Optional[float]]],
+        silence_tiled: np.ndarray,  # (T, 64)
+    ) -> Tuple[np.ndarray, List[Tuple[str, int, int]], np.ndarray, np.ndarray]:
+        """Repaint spans, chunk masks, is_covers, src latents (ref conditioning_masks.py:15-83)."""
+        chunk_masks = np.zeros((batch_size, t_latent), bool)
+        spans: List[Tuple[str, int, int]] = []
+        is_covers = np.zeros((batch_size,), bool)
+        repaint_ranges: Dict[int, Tuple[int, int, int]] = {}
+        for i in range(batch_size):
+            rs = repainting_start[i] if repainting_start else None
+            re_ = repainting_end[i] if repainting_end else None
+            if rs is not None and re_ is not None and re_ > (rs or 0.0):
+                start_sec = rs or 0.0
+                left_pad = max(0.0, -start_sec)
+                pad_lat = min(int(left_pad * self.sample_rate // LATENT_HOP), t_latent - 1)
+                s_lat = int((start_sec + left_pad) * self.sample_rate // LATENT_HOP)
+                e_lat = int((re_ + left_pad) * self.sample_rate // LATENT_HOP)
+                s_lat = max(0, min(s_lat, t_latent - 1))
+                e_lat = max(s_lat + 1, min(e_lat, t_latent))
+                chunk_masks[i, s_lat:e_lat] = True
+                spans.append(("repainting", s_lat, e_lat))
+                repaint_ranges[i] = (s_lat, e_lat, pad_lat)
+                continue
+            chunk_masks[i, :] = True
+            spans.append(("full", 0, t_latent))
+            instr = (instructions[i] if i < len(instructions) else "").lower()
+            is_covers[i] = (
+                "generate audio semantic tokens" in instr and "based on the given conditions" in instr
+            ) or has_code_hints[i]
+
+        src = np.zeros((batch_size, t_latent, silence_tiled.shape[-1]), np.float32)
+        for i in range(batch_size):
+            if has_code_hints[i] or has_target_audio[i]:
+                base = target_latents[i] if target_latents is not None else silence_tiled
+                if i in repaint_ranges and repaint_ranges[i][2] > 0:
+                    pad_lat = repaint_ranges[i][2]
+                    row = np.array(silence_tiled, np.float32, copy=True)
+                    n = min(base.shape[0], t_latent - pad_lat)
+                    row[pad_lat : pad_lat + n] = base[:n]
+                    base = row
+                src[i] = base
+                if i in repaint_ranges:
+                    s_lat, e_lat = repaint_ranges[i][:2]
+                    src[i, s_lat:e_lat] = silence_tiled[s_lat:e_lat]
+            else:
+                src[i] = silence_tiled
+        return chunk_masks, spans, is_covers, src
+
+    def _silence_tiled(self, t_latent: int) -> np.ndarray:
+        sil = self.silence_latent[0]
+        reps = -(-t_latent // sil.shape[0])
+        return np.tile(sil, (reps, 1))[:t_latent]
+
+    # ------------------------------------------------------------------
+    # Device stages
+    # ------------------------------------------------------------------
+
+    def _tensor(self, a, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), device=self.device, dtype=dtype)
+
+    def infer_text_embeddings(self, ids: np.ndarray) -> torch.Tensor:
+        """Prompt embeddings: full causal forward, no key mask."""
+        return qwen3.forward_hidden(self.text_params, self.text_config, self._tensor(ids))
+
+    def infer_lyric_embeddings(self, ids: np.ndarray) -> torch.Tensor:
+        return qwen3.embed_tokens(self.text_params, self._tensor(ids))
+
+    @staticmethod
+    def _decode_chunk_core(t: int, b: int) -> int:
+        """Overlap-discard decode chunk size: about 4 chunks, capped so the
+        decode working set stays about constant with batch."""
+        core = max(192, min(512, -(-t // 4), 4096 // max(b, 1)))
+        return core + (-core) % 8
+
+    def decode_latents(
+        self,
+        latents: torch.Tensor,  # (B, T, 64)
+        *,
+        chunk_frames: Optional[int] = None,
+        normalize_db: Optional[float] = None,
+        return_int16: bool = False,
+    ) -> np.ndarray:
+        """Latents -> audio (B, 2, L): int16 PCM, or float32 = PCM / 32767.
+
+        Overlap-discard chunks of `core` frames with 16 edge-replicated
+        frames each side; the last chunk's padding is trimmed before the
+        global per-sample peak, which drives normalisation to `normalize_db`
+        (or only a clip guard when None).
+        """
+        z = latents.to(device=self.device, dtype=self.dtype)
+        b, t, _ = z.shape
+        hop = self.vae_config.hop_length
+        ov = DECODE_OVERLAP
+        core = self._decode_chunk_core(t, b) if chunk_frames is None else max(8, chunk_frames - 2 * ov)
+        n = -(-t // core) if t > core else 1
+        if n == 1:
+            wav = vae.decode(self.vae_params, self.vae_config, z)
+        else:
+            pad_t = n * core - t
+            padded = F.pad(z.transpose(1, 2), (ov, pad_t + ov), mode="replicate").transpose(1, 2)
+            chunks = []
+            for ci in range(n):
+                w = vae.decode(self.vae_params, self.vae_config, padded[:, ci * core : ci * core + core + 2 * ov])
+                valid = core if ci < n - 1 else t - (n - 1) * core
+                chunks.append(w[:, ov * hop : (ov + valid) * hop])
+            wav = torch.cat(chunks, dim=1)
+        pcm = self._to_pcm(wav[:, : t * hop], normalize_db).cpu().numpy()
+        if return_int16:
+            return pcm
+        return pcm.astype(np.float32) / 32767.0
+
+    @staticmethod
+    def _to_pcm(wav: torch.Tensor, normalize_db: Optional[float]) -> torch.Tensor:
+        """(B, L, 2) -> peak-normalised int16 (B, 2, L)."""
+        wavf = wav.float()
+        peak = wavf.abs().amax(dim=(1, 2), keepdim=True)
+        if normalize_db is not None:
+            scale = (10.0 ** (normalize_db / 20.0)) / peak.clamp_min(1e-9)
+        else:
+            scale = 1.0 / peak.clamp_min(1.0)  # clip guard only
+        pcm = torch.clamp(wavf * scale, -1.0, 1.0)
+        return torch.round(pcm * 32767.0).to(torch.int16).transpose(1, 2).contiguous()
+
+    # ------------------------------------------------------------------
+    # generate_music (text2music)
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def generate_music(
+        self,
+        captions: Union[str, List[str]],
+        lyrics: Union[str, List[str]],
+        *,
+        batch_size: Optional[int] = None,
+        metas: Optional[List[Union[str, Dict[str, Any], None]]] = None,
+        vocal_languages: Optional[List[str]] = None,
+        audio_duration: float = -1.0,
+        task_type: str = "text2music",
+        instructions: Optional[List[str]] = None,
+        seeds: Optional[Union[str, int, List[int]]] = None,
+        use_random_seed: bool = True,
+        inference_steps: Optional[int] = None,
+        shift: float = 3.0,
+        timesteps: Optional[List[float]] = None,
+        infer_method: str = "ode",
+        guidance_scale: float = 1.0,
+        audio_code_strings: Optional[List[Optional[str]]] = None,
+        target_latents: Optional[np.ndarray] = None,
+        reference_audios: Optional[List[Optional[np.ndarray]]] = None,
+        repainting_start: Optional[List[Optional[float]]] = None,
+        repainting_end: Optional[List[Optional[float]]] = None,
+        audio_cover_strength: float = 1.0,
+        cover_noise_strength: float = 0.0,
+        latent_shift: float = 0.0,
+        latent_rescale: float = 1.0,
+        decode_audio: bool = True,
+        normalize_db: Optional[float] = None,
+        return_int16: bool = False,
+        return_condition: bool = False,
+    ) -> Dict[str, Any]:
+        """Run turbo text2music. Returns latents, audio and stage timings."""
+        if not self.initialized:
+            raise RuntimeError("call initialize_service() first")
+        if task_type != "text2music":
+            raise NotImplementedError(f"task {task_type!r} is not ported yet (text2music only)")
+        if audio_code_strings and any(c and c.strip() for c in audio_code_strings):
+            raise NotImplementedError("audio-code hints are not ported yet")
+        if target_latents is not None or (reference_audios and any(r is not None for r in reference_audios)):
+            raise NotImplementedError("source/reference audio inputs are not ported yet")
+        if repainting_start or repainting_end:
+            raise NotImplementedError("repaint is not ported yet")
+        time_costs: Dict[str, float] = {}
+        t_start = time.time()
+
+        captions = [captions] if isinstance(captions, str) else list(captions)
+        lyrics = [lyrics] if isinstance(lyrics, str) else list(lyrics)
+        b = batch_size or len(captions)
+        captions = (captions * b)[:b]
+        lyrics = (lyrics * b)[:b]
+        parsed_metas = self.parse_metas(metas, b)
+        vocal_languages = vocal_languages or ["unknown"] * b
+        seed_list, seed_str = self.prepare_seeds(b, seeds, use_random_seed and seeds is None)
+
+        duration = audio_duration if audio_duration and audio_duration > 0 else 30.0
+        t_exact = int(duration * LATENT_FPS)
+        t_latent = pick_bucket(t_exact, LATENT_BUCKETS)
+        t_exact = min(t_exact, t_latent)
+        latent_mask = np.zeros((b, t_latent), np.int32)
+        latent_mask[:, :t_exact] = 1
+
+        instructions = instructions or [TASK_INSTRUCTIONS["text2music"]] * b
+        instructions = [self.format_instruction(i) for i in instructions]
+        silence_tiled = self._silence_tiled(t_latent)
+        chunk_masks, spans, is_covers, _ = self.build_chunk_masks_and_src_latents(
+            b, t_latent, instructions, [False] * b, None, [False] * b, None, None, silence_tiled
+        )
+        if is_covers.any():
+            raise NotImplementedError("cover instructions need the FSQ chain, not ported yet")
+
+        text_prompts = [SFT_GEN_PROMPT.format(instructions[i], captions[i], parsed_metas[i]) for i in range(b)]
+        lyric_texts = [self.format_lyrics(lyrics[i], vocal_languages[i]) for i in range(b)]
+        text_ids, text_mask = tokenize_padded(self.text_tokenizer, text_prompts, 256, buckets=TEXT_BUCKETS)
+        lyric_ids, lyric_mask = tokenize_padded(self.text_tokenizer, lyric_texts, 2048, buckets=LYRIC_BUCKETS)
+
+        t0 = time.time()
+        text_hidden = self.infer_text_embeddings(text_ids)
+        lyric_hidden = self.infer_lyric_embeddings(lyric_ids)
+        tf = self.config.timbre_fix_frame
+        silence_ref = silence_tiled[:tf] if silence_tiled.shape[0] >= tf else self._silence_tiled(tf)
+        refer_packed = self._tensor(np.stack([silence_ref] * b), self.dtype)
+        refer_order = self._tensor(np.arange(b), torch.int32)
+        self._sync()
+        time_costs["encoder_time_cost"] = time.time() - t0
+
+        t0 = time.time()
+        silence_dev = self._tensor(silence_tiled[None], self.dtype)
+        src = silence_dev.expand(b, -1, -1)
+        outputs = dit.generate_audio(
+            self.params,
+            self.config,
+            text_hidden_states=text_hidden.to(self.dtype),
+            text_attention_mask=self._tensor(text_mask),
+            lyric_hidden_states=lyric_hidden.to(self.dtype),
+            lyric_attention_mask=self._tensor(lyric_mask),
+            refer_packed=refer_packed,
+            refer_order_mask=refer_order,
+            src_latents=src,
+            chunk_masks=self._tensor(chunk_masks),
+            is_covers=self._tensor(is_covers.astype(np.int32)),
+            silence_latent=silence_dev,
+            attention_mask=self._tensor(latent_mask),
+            seeds=seed_list,
+            shift=shift,
+            timesteps=timesteps,
+            infer_method=infer_method,
+            audio_cover_strength=audio_cover_strength,
+            cover_noise_strength=cover_noise_strength,
+            precomputed_lm_hints_25hz=src,
+            guidance_scale=guidance_scale,
+            infer_steps=inference_steps,
+            max_refs=1,
+            return_condition=return_condition,
+        )
+        pred = outputs["target_latents"]
+        if latent_shift != 0.0 or latent_rescale != 1.0:
+            pred = pred * latent_rescale + latent_shift
+        pred = pred[:, :t_exact, :]
+        pred_np = pred.float().cpu().numpy()
+        time_costs["diffusion_time_cost"] = time.time() - t0
+        time_costs["diffusion_per_step_time_cost"] = time_costs["diffusion_time_cost"] / max(outputs["num_steps"], 1)
+        if not np.isfinite(pred_np).all():
+            raise RuntimeError("Generation produced NaN or Inf latents.")
+        if pred_np.size and np.abs(pred_np).sum() == 0:
+            raise RuntimeError("Generation produced zero latents.")
+
+        result: Dict[str, Any] = {
+            "latents": pred_np,
+            "seeds": seed_list,
+            "seed_str": seed_str,
+            "spans": spans,
+            "num_steps": outputs["num_steps"],
+        }
+        if return_condition:
+            cond = outputs["condition"]
+            result["condition"] = {
+                "encoder_hidden_states": cond["encoder_hidden_states"].float().cpu().numpy(),
+                "encoder_attention_mask": cond["encoder_attention_mask"].cpu().numpy(),
+                "context_latents": cond["context_latents"].float().cpu().numpy(),
+            }
+        if decode_audio:
+            t1 = time.time()
+            result["audios"] = self.decode_latents(pred, normalize_db=normalize_db, return_int16=return_int16)
+            time_costs["vae_decode_time_cost"] = time.time() - t1
+        time_costs["total_time_cost"] = time.time() - t_start
+        result["time_costs"] = time_costs
+        return result

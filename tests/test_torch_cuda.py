@@ -1,0 +1,122 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `cuda`; each test skips without a CUDA device (decided in the
+fixture, not at import). On a machine with an H100:
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+The plain versions run in fp32 (TF32 off) on the same bf16 inputs; the
+tolerances cover the kernels' bf16 rounding of P (attention) and of the
+intermediate activations (Oobleck), which the fp32 plain run does not do.
+"""
+
+import pytest
+import torch
+
+from acestep_tpu_torch.config import OobleckConfig
+from acestep_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from acestep_tpu_torch.ops.oobleck_kernels import (
+    decoder_block_kernel,
+    decoder_block_plain,
+    res_units_kernel,
+    res_units_plain,
+)
+from acestep_tpu_torch.params import init_oobleck_params
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(shape, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "b,lq,lk,nq,nkv,kw",
+    [
+        (2, 384, 384, 4, 2, {}),
+        (2, 384, 384, 4, 2, dict(window=64)),
+        (2, 384, 384, 4, 2, dict(causal=True)),
+        (2, 384, 384, 4, 2, dict(causal=True, window=64)),
+        (1, 200, 200, 4, 2, dict(pad=150)),
+        (2, 256, 130, 4, 2, dict(pad=100)),
+        (1, 7500, 7500, 16, 8, dict(window=128)),  # DiT sliding layer at 600 s
+        (1, 3000, 3000, 16, 8, {}),  # DiT full layer at 240 s
+    ],
+)
+def test_flash_kernel_matches_plain(dev, b, lq, lk, nq, nkv, kw):
+    kw = dict(kw)
+    pad = kw.pop("pad", None)
+    q, k, v = _randn((b, lq, nq, 128), 1, dev), _randn((b, lk, nkv, 128), 2, dev), _randn((b, lk, nkv, 128), 3, dev)
+    mask = None
+    if pad is not None:
+        mask = torch.ones((b, lk), dtype=torch.int32, device=dev)
+        mask[:, pad:] = 0
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, mask, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q.float(), k.float(), v.float(), mask, **kw)
+    assert torch.isfinite(got).all()
+    assert (got.float() - want).abs().max().item() < 1e-2
+
+
+def test_flash_kernel_reads_strided_views(dev):
+    """K/V as views into a wider buffer (no copy): batch/row strides differ."""
+    q = _randn((2, 300, 4, 128), 4, dev)
+    kv = _randn((2, 300, 2, 2, 128), 5, dev)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    assert not k.is_contiguous()
+    got = flash_attention(q, k, v, None, window=32)
+    want = flash_attention_plain(q.float(), k.float(), v.float(), None, window=32)
+    assert (got.float() - want).abs().max().item() < 1e-2
+
+
+def test_flash_kernel_refuses_fp32(dev):
+    q = torch.zeros((1, 256, 2, 128), device=dev)
+    with pytest.raises(ValueError):
+        flash_attention(q, q[:, :, :1], q[:, :, :1])
+
+
+@pytest.fixture
+def oobleck(dev):
+    p = init_oobleck_params(OobleckConfig(), seed=3, device=dev)["decoder"]
+    g = torch.Generator(device=dev).manual_seed(9)
+    for blk in p["block"]:
+        for part in [blk["snake1"]] + [blk[f"res_unit{i}"][s] for i in (1, 2, 3) for s in ("snake1", "snake2")]:
+            for key in ("alpha", "beta"):
+                part[key] = 0.3 * torch.randn(part[key].shape, generator=g, device=dev)
+    return p
+
+
+@pytest.mark.parametrize("block,l_in", [(1, 100), (2, 37), (3, 50), (4, 129)])
+def test_decoder_block_kernel_matches_plain(dev, oobleck, block, l_in):
+    stride = (10, 6, 4, 4, 2)[block]
+    bp = oobleck["block"][block]
+    ci = bp["conv_t1"]["kernel"].shape[1]
+    x = _randn((2, l_in, ci), 10 + block, dev)
+    before = decoder_block_kernel.launches
+    got = decoder_block_kernel(x, bp, stride)
+    torch.cuda.synchronize()
+    assert decoder_block_kernel.launches == before + 1
+    want = decoder_block_plain(x.float(), bp, stride)
+    assert got.shape == want.shape
+    assert (got.float() - want).abs().max().item() <= 3e-2 * max(1.0, want.abs().max().item())
+
+
+def test_res_units_kernel_matches_plain(dev, oobleck):
+    bp = oobleck["block"][0]
+    units = (bp["res_unit1"], bp["res_unit2"], bp["res_unit3"])
+    x = _randn((2, 333, 1024), 20, dev)
+    got = res_units_kernel(x, units)
+    want = res_units_plain(x.float(), units)
+    assert (got.float() - want).abs().max().item() <= 3e-2 * max(1.0, want.abs().max().item())

@@ -1,0 +1,51 @@
+"""The PyTorch port stands alone: no JAX, no `acestep_tpu`, no silent CPU run."""
+
+import os
+import subprocess
+import sys
+import wave
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import acestep_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(acestep_tpu_torch.__path__, "acestep_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "acestep_tpu.")) or m == "acestep_tpu")
+print(len(names), bad)
+sys.exit(1 if bad or len(names) < 15 else 0)
+"""
+
+
+def test_port_imports_no_jax_and_no_acestep_tpu():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_entry_points_refuse_a_silent_cpu_run(monkeypatch):
+    from acestep_tpu_torch.device import resolve_device
+    from acestep_tpu_torch.pipeline.handler import AceStepHandler
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AceStepHandler()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_cli_writes_stereo_int16_wav(tmp_path):
+    from acestep_tpu_torch.cli import write_wav
+
+    pcm = (np.arange(2 * 480, dtype=np.int64).reshape(2, 480) % 200 - 100).astype(np.int16)
+    path = str(tmp_path / "a.wav")
+    write_wav(path, pcm, 48000)
+    with wave.open(path, "rb") as f:
+        assert (f.getnchannels(), f.getsampwidth(), f.getframerate(), f.getnframes()) == (2, 2, 48000, 480)
+        back = np.frombuffer(f.readframes(480), "<i2").reshape(480, 2).T
+    np.testing.assert_array_equal(back, pcm)

@@ -1,0 +1,99 @@
+"""Whole text2music slice: the port's AceStepHandler vs the JAX handler (CPU, fp32).
+
+Both handlers run the tiny configs of tests/test_pipeline.py with one set of
+weights (the JAX random init, carried over with `from_jax_params`) and the
+same injected numpy noise: `prepare_noise` is patched in both packages for
+this test only, because `jax.random` and `torch.Generator` give different
+numbers for one seed.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import acestep_tpu.models.dit as jdit
+import acestep_tpu.pipeline.handler as JH
+import acestep_tpu_torch.models.dit as tdit
+import acestep_tpu_torch.pipeline.handler as TH
+from acestep_tpu.config import AceStepConfig as JA, OobleckConfig as JO, Qwen3Config as JQ
+from acestep_tpu_torch.config import AceStepConfig as TA, OobleckConfig as TO, Qwen3Config as TQ
+from acestep_tpu_torch.params import from_jax_params
+
+_DIT = dict(
+    hidden_size=64, intermediate_size=128, num_hidden_layers=2, num_attention_heads=4,
+    num_key_value_heads=2, head_dim=16, sliding_window=8, text_hidden_dim=32,
+    num_lyric_encoder_hidden_layers=2, num_timbre_encoder_hidden_layers=1,
+    num_attention_pooler_hidden_layers=1, fsq_dim=64, timbre_fix_frame=10,
+)
+_VAE = dict(
+    encoder_hidden_size=128, downsampling_ratios=(2, 4, 4), channel_multiples=(1, 1, 1),
+    decoder_channels=16, decoder_input_channels=64, audio_channels=2, sampling_rate=800,
+)
+_TEXT = dict(
+    vocab_size=300, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+    num_attention_heads=4, num_key_value_heads=2, head_dim=8,
+)
+BUCKETS = dict(LATENT_BUCKETS=(64, 128, 256), TEXT_BUCKETS=(32, 64), LYRIC_BUCKETS=(32, 64))
+
+# Latents: fp32 on both sides through 8 DiT steps. Audio: both sides quantise
+# to int16 and divide by 32767, so allow two PCM steps plus fp32 drift.
+LATENT_TOL = dict(rtol=1e-4, atol=1e-4)
+AUDIO_ATOL = 2.5 / 32767
+
+
+def _noise(shape):
+    return np.random.default_rng(sum(shape)).standard_normal(shape).astype(np.float32)
+
+
+@pytest.fixture
+def handlers(monkeypatch):
+    for mod in (JH, TH):
+        for name, val in BUCKETS.items():
+            monkeypatch.setattr(mod, name, val)
+    monkeypatch.setattr(jdit, "prepare_noise", lambda shape, seeds, dtype=jnp.bfloat16: jnp.asarray(_noise(shape), dtype))
+    monkeypatch.setattr(
+        tdit, "prepare_noise",
+        lambda shape, seeds, dtype=torch.bfloat16, device=None: torch.tensor(_noise(shape), dtype=dtype, device=device),
+    )
+    jh = JH.AceStepHandler(JA(**_DIT), JO(**_VAE), JQ(**_TEXT), dtype=jnp.float32)
+    jh.initialize_service(random_init=True)
+    th = TH.AceStepHandler(TA(**_DIT), TO(**_VAE), TQ(**_TEXT), dtype=torch.float32, device="cpu")
+    th.initialize_service(random_init=True)
+    th.params = from_jax_params(jax.tree.map(np.asarray, jh.params), th.config)
+    th.vae_params = from_jax_params(jax.tree.map(np.asarray, jh.vae_params), th.vae_config)
+    th.text_params = from_jax_params(jax.tree.map(np.asarray, jh.text_params), th.text_config)
+    return jh, th
+
+
+@pytest.mark.parametrize("duration", [2.0, 8.0])  # one decode chunk; two chunks with overlap
+def test_generate_music_text2music_matches_jax(handlers, duration):
+    jh, th = handlers
+    kw = dict(
+        captions=["an energetic synthwave track", "slow piano ballad"],
+        lyrics=["[Instrumental]", "[Verse]\nhello world"],
+        batch_size=2, audio_duration=duration, seeds=[3, 4], use_random_seed=False, shift=3.0,
+        normalize_db=-1.0,
+    )
+    want = jh.generate_music(**kw)
+    got = th.generate_music(**kw)
+    t_exact = int(duration * 25)
+    assert got["latents"].shape == want["latents"].shape == (2, t_exact, 64)
+    np.testing.assert_allclose(got["latents"], want["latents"], **LATENT_TOL)
+    assert got["audios"].shape == want["audios"].shape == (2, 2, t_exact * 32)
+    assert np.abs(got["audios"]).max() > 0
+    np.testing.assert_allclose(got["audios"], want["audios"], rtol=0, atol=AUDIO_ATOL)
+    assert got["num_steps"] == 8
+
+
+def test_unported_requests_raise(handlers):
+    _, th = handlers
+    with pytest.raises(NotImplementedError):
+        th.generate_music("x", "y", task_type="cover")
+    with pytest.raises(NotImplementedError):
+        th.generate_music("x", "y", guidance_scale=3.0, audio_duration=2.0)
+    with pytest.raises(NotImplementedError):
+        th.generate_music("x", "y", infer_method="sde", audio_duration=2.0)
+    with pytest.raises(NotImplementedError):
+        th.initialize_service("/nonexistent", random_init=False)

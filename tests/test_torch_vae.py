@@ -1,0 +1,106 @@
+"""PyTorch port Oobleck decoder vs the JAX package on the CPU (fp32).
+
+The Pallas kernels `decoder_block_pallas` and `res_units_pallas` run in
+interpret mode, as tests/test_vae.py runs them; the port's wrappers take their
+plain versions on a CPU tensor. Weights are one JAX init carried over with
+`from_jax_params`.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from acestep_tpu.config import OobleckConfig as JOobleckConfig
+from acestep_tpu.models import vae as jvae
+from acestep_tpu.ops.pallas_vae import TOTAL_HALO, _upsample_halo, decoder_block_pallas, res_units_pallas
+from acestep_tpu_torch.config import OobleckConfig
+from acestep_tpu_torch.models import vae as tvae
+from acestep_tpu_torch.ops.oobleck_kernels import decoder_block_kernel, res_units_kernel
+from acestep_tpu_torch.params import from_jax_params
+
+_TINY = dict(
+    encoder_hidden_size=16,
+    downsampling_ratios=(2, 4, 4),
+    channel_multiples=(1, 2, 4),
+    decoder_channels=16,
+    decoder_input_channels=8,
+    audio_channels=2,
+    sampling_rate=320,
+)
+J_TINY, T_TINY = JOobleckConfig(**_TINY), OobleckConfig(**_TINY)
+
+# fp32 on both sides; the kernels and the split path sum in different orders
+# (the tolerance of tests/test_vae.py's fused-kernel checks).
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _perturb(tree, rng):
+    """Random Snake logs and biases so every channel differs (init has zeros)."""
+    if isinstance(tree, dict):
+        return {
+            k: (jnp.asarray(rng.standard_normal(v.shape).astype(np.float32) * 0.3)
+                if k in ("alpha", "beta", "bias") else _perturb(v, rng))
+            for k, v in tree.items()
+        }
+    if isinstance(tree, list):
+        return [_perturb(v, rng) for v in tree]
+    return tree
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jp = _perturb(jvae.init_oobleck_params(jax.random.PRNGKey(0), J_TINY, jnp.float32), np.random.default_rng(0))
+    tp = from_jax_params(jax.tree.map(np.asarray, jp), T_TINY)
+    return jp, tp
+
+
+def _x(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("block,l_in", [(0, 40), (1, 24), (2, 40), (2, _upsample_halo(2)), (0, _upsample_halo(4))])
+def test_decoder_block_plain_matches_pallas(weights, block, l_in):
+    """Every TINY decoder block, including the shortest gate-passing inputs."""
+    jp, tp = weights
+    stride = tuple(reversed(J_TINY.downsampling_ratios))[block]
+    jb, tb = jp["decoder"]["block"][block], tp["decoder"]["block"][block]
+    ci = jb["conv_t1"]["kernel"].shape[1]
+    x = _x((2, l_in, ci), 1 + block)
+    want = np.asarray(decoder_block_pallas(jnp.asarray(x), jb, stride, interpret=True))
+    split = np.asarray(jvae.decoder_block(jb, jnp.asarray(x), stride))
+    got = decoder_block_kernel(torch.tensor(x), tb, stride).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got, split, **TOL)
+
+
+@pytest.mark.parametrize("length", [TOTAL_HALO, 300])
+def test_res_units_plain_matches_pallas(weights, length):
+    jp, tp = weights
+    jb, tb = jp["decoder"]["block"][0], tp["decoder"]["block"][0]
+    names = ("res_unit1", "res_unit2", "res_unit3")
+    c = jb["res_unit1"]["conv1"]["kernel"].shape[2]
+    x = _x((2, length, c), 5)
+    want = np.asarray(res_units_pallas(jnp.asarray(x), tuple(jb[n] for n in names), interpret=True))
+    got = res_units_kernel(torch.tensor(x), tuple(tb[n] for n in names)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_gates_match_jax():
+    for l in range(1, 64):
+        assert tvae._res_units_supports(l) == jvae._res_units_supports(l)
+        for s in (2, 4, 6, 10):
+            assert tvae._fused_block_supports(l, s) == jvae._fused_block_supports(l, s)
+
+
+def test_decode_and_tiled_decode_match_jax(weights):
+    jp, tp = weights
+    z = _x((2, 40, J_TINY.latent_dim), 6)
+    want = np.asarray(jvae.decode(jp, J_TINY, jnp.asarray(z)))
+    got = tvae.decode(tp, T_TINY, torch.tensor(z)).numpy()
+    assert got.shape == (2, 40 * J_TINY.hop_length, 2)
+    np.testing.assert_allclose(got, want, **TOL)
+    want_t = np.asarray(jvae.tiled_decode(jp, J_TINY, jnp.asarray(z), chunk_frames=24, overlap_frames=6))
+    got_t = tvae.tiled_decode(tp, T_TINY, torch.tensor(z), chunk_frames=24, overlap_frames=6).numpy()
+    np.testing.assert_allclose(got_t, want_t, **TOL)
