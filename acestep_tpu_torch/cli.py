@@ -1,8 +1,11 @@
 """Command-line interface of the port: `generate` only.
 
-Port of the `generate` subcommand of `acestep_tpu/cli.py`, with its flags.
-Writes 16-bit stereo WAV files with the stdlib `wave` module. Run as
-``python -m acestep_tpu_torch.cli generate --random-init --caption "..."``.
+Port of the `generate` subcommand of `acestep_tpu/cli.py`, with its flags,
+through the port's `service.inference.generate_music`; `--thinking` runs the
+5 Hz LM planner (`LLMHandler()`, the 0.6B size) before the DiT. Writes 16-bit
+stereo WAV files with the stdlib `wave` module, named by the request's
+deterministic key. Run as
+``python -m acestep_tpu_torch.cli generate --random-init --thinking --caption "..."``.
 """
 
 from __future__ import annotations
@@ -10,7 +13,6 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-import time
 import wave
 
 import numpy as np
@@ -26,34 +28,46 @@ def write_wav(path: str, pcm: np.ndarray, sample_rate: int) -> None:
 
 
 def cmd_generate(args) -> int:
+    from acestep_tpu_torch.lm.handler import LLMHandler
     from acestep_tpu_torch.pipeline.handler import AceStepHandler
+    from acestep_tpu_torch.service.inference import generate_music
+    from acestep_tpu_torch.service.params import GenerationConfig, GenerationParams
 
-    if args.thinking:
-        raise NotImplementedError("--thinking needs the 5 Hz LM planner, not ported yet")
     if args.format != "wav":
         raise NotImplementedError(f"--format {args.format}: the port writes wav only")
-    h = AceStepHandler(device=args.device)
-    print(h.initialize_service(args.checkpoint_dir, random_init=args.random_init or None))
-    out = h.generate_music(
-        captions=args.caption,
+    dit = AceStepHandler(device=args.device)
+    print(dit.initialize_service(args.checkpoint_dir, random_init=args.random_init or None))
+    llm = None
+    if args.thinking:
+        llm = LLMHandler(device=args.device)
+        print(llm.initialize(args.lm_checkpoint_dir, random_init=args.random_init or None))
+    params = GenerationParams(
+        caption=args.caption,
         lyrics=args.lyrics,
-        batch_size=args.batch_size,
-        audio_duration=args.duration,
+        duration=args.duration,
         task_type=args.task,
-        seeds=None if args.seed < 0 else args.seed,
-        use_random_seed=args.seed < 0,
-        inference_steps=None if args.steps == 8 else args.steps,
+        thinking=args.thinking,
+        seed=args.seed,
+        inference_steps=args.steps,
         shift=args.shift,
-        normalize_db=-1.0,
-        return_int16=True,
     )
+    cfg = GenerationConfig(
+        batch_size=args.batch_size,
+        audio_format=args.format,
+        output_dir=args.output_dir,
+        use_random_seed=args.seed < 0,
+    )
+    result = generate_music(dit, llm, params, cfg, save_audio=False)
+    print(result.status_message)
+    if not result.success:
+        print(result.error, file=sys.stderr)
+        return 1
     os.makedirs(args.output_dir, exist_ok=True)
-    stamp = time.strftime("%Y%m%d-%H%M%S")
-    for i, pcm in enumerate(out["audios"]):
-        path = os.path.join(args.output_dir, f"acestep_{stamp}_{out['seeds'][i]}_{i}.wav")
-        write_wav(path, pcm, h.sample_rate)
+    for a in result.audios:
+        path = os.path.join(args.output_dir, a["key"] + ".wav")
+        write_wav(path, a["audio"], dit.sample_rate)
         print("  ", path)
-    print({k: round(v, 3) for k, v in out["time_costs"].items()})
+    print({k: round(v, 3) for k, v in result.extra_outputs["time_costs"].items()})
     return 0
 
 
@@ -62,6 +76,7 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     g = sub.add_parser("generate", help="generate music from text")
     g.add_argument("--checkpoint-dir", default=os.environ.get("ACESTEP_CONFIG_PATH"))
+    g.add_argument("--lm-checkpoint-dir", default=os.environ.get("ACESTEP_LM_MODEL_PATH"))
     g.add_argument("--random-init", action="store_true", help="dev mode: random weights")
     g.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     g.add_argument("--caption", required=True)

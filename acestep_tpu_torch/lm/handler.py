@@ -1,0 +1,598 @@
+"""LLMHandler: lifecycle and two-phase constrained generation for the 5 Hz LM.
+
+Port of `acestep_tpu/lm/handler.py` (reference `acestep/llm_inference.py`):
+
+- Phase 1 (CoT metadata): the grammar compiled to DFA tables
+  (`lm/dfa.py`) drives one device loop (`sampling.generate_cot_dfa`) with a
+  single read-back at the end; `_constrained_loop`, the host-driven FSM loop,
+  is the fallback for grammars too large for the tables
+  (ACESTEP_TPU_NO_DEVICE_FSM=1 forces it).
+- Phase 2 (audio codes): `sampling.generate_codes_scan` generates the
+  duration-driven budget (5 codes/s) on the device with lockstep logit-space
+  CFG, one read-back at the end.
+- KV cache: preallocated, bucketed prompt lengths, prefill dedup and reuse
+  (`lm/prefix_cache.py`).
+
+Random init only (a checkpoint raises `NotImplementedError`, as in the DiT
+handler); the understand/create/format APIs raise until `generate_free` is
+ported.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from acestep_tpu_torch.config import Qwen3Config
+from acestep_tpu_torch.device import resolve_device
+from acestep_tpu_torch.lm import prefix_cache, sampling
+from acestep_tpu_torch.lm.constrained import ConstrainedDecoderFSM
+from acestep_tpu_torch.models import qwen3
+from acestep_tpu_torch.params import LM_CONFIGS, init_qwen3_params
+from acestep_tpu_torch.utils.constants import DEFAULT_LM_INSTRUCTION
+from acestep_tpu_torch.utils.tokenizer import load_tokenizer, tokenize_padded
+
+PROMPT_BUCKETS = (128, 256, 512, 1024, 2048, 4096)
+
+CODE_RE = re.compile(r"<\|audio_code_(\d+)\|>")
+
+
+def _has_meaningful_negative_prompt(p: Optional[str]) -> bool:
+    return bool(p) and p.strip() not in ("", "NO USER INPUT")
+
+
+def _device_fsm_enabled() -> bool:
+    return os.environ.get("ACESTEP_TPU_NO_DEVICE_FSM", "0") != "1"
+
+
+class LLMHandler:
+    """5 Hz planner LM: CoT metadata + audio-code generation."""
+
+    # Largest DFA worth shipping to the device: S * (A + 1) int32 entries.
+    _DFA_MAX_TABLE_ENTRIES = 16_000_000
+
+    def __init__(self, config: Optional[Qwen3Config] = None, dtype: torch.dtype = torch.bfloat16, device=None):
+        self.config = config or LM_CONFIGS["0.6B"]
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.params = None
+        self.tokenizer = None
+        self.fsm: Optional[ConstrainedDecoderFSM] = None
+        self.genres_vocab = None
+        self.prefill_cache: Optional[prefix_cache.PrefillCache] = None
+        self._dfa_cache: Dict[tuple, Any] = {}
+        self.initialized = False
+        self.max_model_len = 4096
+
+    def initialize(
+        self,
+        checkpoint_dir: Optional[str] = None,
+        *,
+        random_init: Optional[bool] = None,
+        max_duration: Optional[int] = None,
+        seed: int = 0,
+    ) -> str:
+        """Random weights from `seed` and the byte-level fallback tokenizer."""
+        t0 = time.time()
+        if random_init is None:
+            random_init = checkpoint_dir is None or not os.path.isdir(checkpoint_dir)
+        if not random_init:
+            raise NotImplementedError("loading an LM checkpoint is not ported yet")
+        self.tokenizer = load_tokenizer(None)
+        self.params = init_qwen3_params(self.config, seed=seed, device=self.device, dtype=self.dtype)
+        self.fsm = ConstrainedDecoderFSM(self.tokenizer, max_duration=max_duration, genres_vocab=None)
+        self.prefill_cache = prefix_cache.PrefillCache()  # entries are tied to these weights
+        self._dfa_cache = {}
+        self.initialized = True
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return f"LM initialized in {time.time() - t0:.1f}s (random_init=True, device={self.device})"
+
+    # ------------------------------------------------------------------
+    # Prompt building (ref llm_inference.py:1487-1620)
+    # ------------------------------------------------------------------
+
+    def _apply_chat_template(self, messages: List[Dict[str, str]], add_generation_prompt: bool) -> str:
+        out = [f"<|im_start|>{m['role']}\n{m['content']}<|im_end|>\n" for m in messages]
+        if add_generation_prompt:
+            out.append("<|im_start|>assistant\n")
+        return "".join(out)
+
+    def build_formatted_prompt(
+        self,
+        caption: str,
+        lyrics: str = "",
+        is_negative_prompt: bool = False,
+        generation_phase: str = "cot",
+        negative_prompt: str = "NO USER INPUT",
+    ) -> str:
+        if is_negative_prompt:
+            if generation_phase == "cot":
+                if _has_meaningful_negative_prompt(negative_prompt):
+                    prompt = f"# Caption\n{negative_prompt}\n\n# Lyric\n{lyrics}\n"
+                else:
+                    prompt = f"# Lyric\n{lyrics}\n"
+            else:
+                prompt = caption
+        else:
+            prompt = f"# Caption\n{caption}\n\n# Lyric\n{lyrics}\n"
+        return self._apply_chat_template(
+            [
+                {"role": "system", "content": f"# Instruction\n{DEFAULT_LM_INSTRUCTION}\n\n"},
+                {"role": "user", "content": prompt},
+            ],
+            add_generation_prompt=True,
+        )
+
+    def build_formatted_prompt_with_cot(
+        self,
+        caption: str,
+        lyrics: str,
+        cot_text: str,
+        is_negative_prompt: bool = False,
+        negative_prompt: str = "NO USER INPUT",
+    ) -> str:
+        if is_negative_prompt:
+            cot_for_prompt = "<think>\n</think>"
+            caption_for_prompt = negative_prompt if _has_meaningful_negative_prompt(negative_prompt) else caption
+        else:
+            cot_for_prompt = cot_text
+            caption_for_prompt = caption
+        user_prompt = f"# Caption\n{caption_for_prompt}\n\n# Lyric\n{lyrics}\n"
+        formatted = self._apply_chat_template(
+            [
+                {"role": "system", "content": f"# Instruction\n{DEFAULT_LM_INSTRUCTION}\n\n"},
+                {"role": "user", "content": user_prompt},
+                {"role": "assistant", "content": cot_for_prompt},
+            ],
+            add_generation_prompt=False,
+        )
+        if not formatted.endswith("\n"):
+            formatted += "\n"
+        return formatted
+
+    # ------------------------------------------------------------------
+    # Core decode machinery
+    # ------------------------------------------------------------------
+
+    def _encode_prompts(self, prompts: List[str], budget: int) -> Tuple[np.ndarray, np.ndarray, int]:
+        ids, mask = tokenize_padded(self.tokenizer, prompts, self.max_model_len - budget, buckets=PROMPT_BUCKETS)
+        return ids, mask, ids.shape[1]
+
+    def _tensor(self, a, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), device=self.device, dtype=dtype)
+
+    def _generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def _prefill(self, ids: np.ndarray, mask: np.ndarray, total_len: int):
+        """Prefill through the dedup/prefix cache; a plain batched prefill when
+        it is disabled."""
+        if prefix_cache.enabled() and self.prefill_cache is not None:
+            return self.prefill_cache.prefill(
+                self.params, self.config, np.asarray(ids), np.asarray(mask), total_len, self.dtype, self.device
+            )
+        cache = qwen3.KVCache.create(self.config, ids.shape[0], total_len, self.dtype, self.device)
+        return qwen3.prefill(self.params, self.config, self._tensor(ids), self._tensor(mask), cache)
+
+    def _constrained_loop(
+        self,
+        fsms: List[ConstrainedDecoderFSM],
+        logits: torch.Tensor,  # (R, V) from prefill
+        cache: qwen3.KVCache,
+        positions: np.ndarray,  # (R,)
+        *,
+        max_new_tokens: int,
+        temperature: float,
+        top_k: int,
+        top_p: float,
+        cfg_scale: float = 1.0,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[List[List[int]], torch.Tensor, qwen3.KVCache, np.ndarray]:
+        """Host-driven FSM loop (fallback of the device DFA): one read-back per
+        token. ALLOW sets gather-sample at a bucketed width, BLOCK/FREE rows
+        scatter-mask, PROB_END rows use the probability-gated newline."""
+        allow_buckets = (96, 256, 1024, 4096)
+        b = len(fsms)
+        r = logits.shape[0]
+        use_cfg = cfg_scale > 1.0 and r == 2 * b
+        gen = generator if generator is not None else self._generator(0)
+        generated: List[List[int]] = [[] for _ in range(b)]
+        positions = positions.copy()
+
+        for _ in range(max_new_tokens):
+            if all(f.finished for f in fsms):
+                break
+            specs = [f.step_spec() for f in fsms]
+            if all(s.kind in ("force", "eos") for s in specs):
+                toks = np.asarray([s.token for s in specs], np.int64)
+            else:
+                lg = sampling.cfg_combine(logits[:b], logits[b:], cfg_scale) if use_cfg else logits
+                toks = np.full((b,), -1, np.int64)
+                for i, s in enumerate(specs):
+                    if s.kind in ("force", "eos"):
+                        toks[i] = s.token
+                allow_rows = [i for i, s in enumerate(specs) if s.kind == "allow"]
+                block_rows = [i for i, s in enumerate(specs) if s.kind in ("block", "free")]
+                prob_rows = [i for i, s in enumerate(specs) if s.kind == "prob_end"]
+                if allow_rows:
+                    longest = max(len(specs[i].ids) for i in allow_rows)
+                    width = next((w for w in allow_buckets if w >= longest), longest)
+                    ids = np.full((b, width), -1, np.int64)
+                    for i in allow_rows:
+                        ids[i, : len(specs[i].ids)] = specs[i].ids[:width]
+                    got = sampling.sample_allow(lg, self._tensor(ids), gen, temperature, top_k=top_k, top_p=top_p)
+                    toks[allow_rows] = got.cpu().numpy()[allow_rows]
+                if block_rows:
+                    width = max((len(specs[i].ids) for i in block_rows if specs[i].ids), default=1)
+                    ids = np.full((b, max(width, 1)), -1, np.int64)
+                    for i in block_rows:
+                        if specs[i].ids:
+                            ids[i, : len(specs[i].ids)] = specs[i].ids
+                    got = sampling.sample_block(lg, self._tensor(ids), gen, temperature, top_k=top_k, top_p=top_p)
+                    toks[block_rows] = got.cpu().numpy()[block_rows]
+                if prob_rows:
+                    got = sampling.sample_prob_end(
+                        lg, gen, temperature, newline_token=specs[prob_rows[0]].token,
+                        eos_token=self.fsm.eos_token_id, top_k=top_k, top_p=top_p,
+                    )
+                    toks[prob_rows] = got.cpu().numpy()[prob_rows]
+
+            for i, f in enumerate(fsms):
+                if not f.finished:
+                    f.advance(int(toks[i]))
+                    generated[i].append(int(toks[i]))
+            feed = np.concatenate([toks, toks]) if use_cfg else toks
+            logits, cache = qwen3.decode_step(
+                self.params, self.config, self._tensor(feed), self._tensor(positions), cache
+            )
+            positions = positions + 1
+        return generated, logits, cache, positions
+
+    # ------------------------------------------------------------------
+    # Device-side DFA path (lm/dfa.py)
+    # ------------------------------------------------------------------
+
+    def _cot_dfa_for(self, user_metadata, max_cot_tokens: int, target_duration: Optional[float] = None):
+        """Compile (and cache) the CoT grammar into device DFA tables; None
+        when the dense tables would be too large (host loop instead)."""
+        from acestep_tpu_torch.lm.dfa import compile_cot_dfa
+
+        md = tuple(sorted((k, str(v)) for k, v in (user_metadata or {}).items() if v not in (None, "", "N/A")))
+        key = (md, max_cot_tokens, self.genres_vocab is not None, target_duration)
+        if key in self._dfa_cache:
+            return self._dfa_cache[key]
+        fsm = ConstrainedDecoderFSM(
+            self.tokenizer, max_duration=self.fsm.max_duration, genres_vocab=self.genres_vocab,
+            skip_genres=True, caption_max_tokens=min(512, max_cot_tokens // 3),
+        )
+        fsm.reset(phase="cot", stop_at_reasoning=True, user_metadata=user_metadata, target_duration=target_duration)
+        dfa = compile_cot_dfa(fsm, self.config.vocab_size)
+        entry = None
+        if dfa.trans.size <= self._DFA_MAX_TABLE_ENTRIES:
+            tables = {
+                name: self._tensor(getattr(dfa, name))
+                for name in ("trans", "alpha_allow", "allow_other", "finished", "prob_end",
+                             "alpha_tokens", "vocab_to_sym")
+            }
+            entry = (dfa, tables)
+        if len(self._dfa_cache) >= 8:
+            self._dfa_cache.pop(next(iter(self._dfa_cache)))
+        self._dfa_cache[key] = entry
+        return entry
+
+    def _cot_device_generate(
+        self,
+        b: int,
+        logits: torch.Tensor,
+        cache: qwen3.KVCache,
+        positions: np.ndarray,
+        *,
+        user_metadata,
+        max_cot_tokens: int,
+        temperature: float,
+        top_k: int,
+        top_p: float,
+        cfg_scale: float,
+        seed: int,
+        target_duration: Optional[float] = None,
+        repetition_penalty: float = 1.0,
+    ) -> Optional[List[List[int]]]:
+        """The whole CoT phase on the device; one read-back at the end. None
+        when the grammar is too large for the device tables."""
+        compiled = self._cot_dfa_for(user_metadata, max_cot_tokens, target_duration)
+        if compiled is None:
+            return None
+        dfa, tables = compiled
+        toks, _ = sampling.generate_cot_dfa(
+            self.params, self.config, logits, self._tensor(positions), cache, self._generator(seed),
+            tables, torch.full((b,), dfa.start_state, dtype=torch.int64, device=self.device),
+            float(temperature),
+            max_steps=max_cot_tokens, eos_token=dfa.eos_token_id,
+            newline_token=dfa.newline_token_id if bool(dfa.prob_end.any()) else -1,
+            top_k=top_k, top_p=top_p, cfg_scale=cfg_scale if cfg_scale > 1.0 else 1.0,
+            repetition_penalty=repetition_penalty,
+        )
+        out: List[List[int]] = []
+        for row in toks.cpu().numpy():
+            ids = []
+            for t in row:
+                if int(t) == dfa.eos_token_id:
+                    break
+                ids.append(int(t))
+            out.append(ids)
+        return out
+
+    # ------------------------------------------------------------------
+    # Public generation API (ref generate_with_stop_condition)
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def generate_with_stop_condition(
+        self,
+        caption: str,
+        lyrics: str = "",
+        *,
+        temperature: float = 0.85,
+        cfg_scale: float = 1.0,
+        top_k: int = 0,
+        top_p: float = 0.9,
+        repetition_penalty: float = 1.0,
+        negative_prompt: str = "NO USER INPUT",
+        user_metadata: Optional[Dict[str, Optional[str]]] = None,
+        target_duration: Optional[float] = None,
+        stop_at_reasoning: bool = False,
+        use_constrained_decoding: bool = True,
+        max_cot_tokens: int = 350,
+        seed: int = 0,
+        batch_size: int = 1,
+        batch_chunk_size: Optional[int] = None,
+    ) -> Dict[str, Any]:
+        """Two-phase generation: CoT metadata, then duration-driven audio codes.
+
+        batch_size > 1 generates a distinct plan per item in lockstep;
+        batch_chunk_size bounds the decode batch (larger requests run as
+        sequential chunks, concatenated). Returns the first sample's fields
+        plus per-sample lists under "batch_*".
+        """
+        if not self.initialized:
+            raise RuntimeError("call initialize() first")
+        if batch_chunk_size and batch_size > batch_chunk_size:
+            merged: Dict[str, Any] = {}
+            done = 0
+            while done < batch_size:
+                n = min(batch_chunk_size, batch_size - done)
+                part = self.generate_with_stop_condition(
+                    caption, lyrics, temperature=temperature, cfg_scale=cfg_scale,
+                    top_k=top_k, top_p=top_p, repetition_penalty=repetition_penalty,
+                    negative_prompt=negative_prompt, user_metadata=user_metadata,
+                    target_duration=target_duration, stop_at_reasoning=stop_at_reasoning,
+                    use_constrained_decoding=use_constrained_decoding,
+                    max_cot_tokens=max_cot_tokens, seed=seed + done, batch_size=n,
+                )
+                if not merged:
+                    merged = part
+                else:
+                    for k in ("batch_metadata", "batch_cot_texts", "batch_audio_codes", "batch_codes"):
+                        if k in part:
+                            merged.setdefault(k, []).extend(part[k])
+                    for k, v in part.get("time_costs", {}).items():
+                        merged["time_costs"][k] = merged["time_costs"].get(k, 0.0) + v
+                done += n
+            return merged
+        t0 = time.time()
+        time_costs: Dict[str, float] = {}
+        b = max(1, batch_size)
+
+        # ---------------- Phase 1: CoT ----------------
+        prompts = [self.build_formatted_prompt(caption, lyrics, generation_phase="cot")] * b
+        use_cfg = cfg_scale > 1.0
+        if use_cfg:
+            prompts = prompts + [
+                self.build_formatted_prompt(
+                    caption, lyrics, is_negative_prompt=True, generation_phase="cot",
+                    negative_prompt=negative_prompt,
+                )
+            ] * b
+        ids, mask, bucket = self._encode_prompts(prompts, budget=max_cot_tokens)
+        logits, cache = self._prefill(ids, mask, bucket + max_cot_tokens)
+        positions = mask.sum(axis=1).astype(np.int32)
+        generated = None
+        if use_constrained_decoding and _device_fsm_enabled():
+            generated = self._cot_device_generate(
+                b, logits, cache, positions,
+                user_metadata=user_metadata, max_cot_tokens=max_cot_tokens,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                cfg_scale=cfg_scale, seed=seed, target_duration=target_duration,
+                repetition_penalty=repetition_penalty,
+            )
+        if generated is None:
+            fsms = []
+            for _ in range(b):
+                # skip_genres always: main-generation CoT never emits genres,
+                # the same grammar as the device DFA.
+                fsm = ConstrainedDecoderFSM(
+                    self.tokenizer, enabled=use_constrained_decoding, max_duration=self.fsm.max_duration,
+                    genres_vocab=self.genres_vocab, skip_genres=True,
+                    caption_max_tokens=min(512, max_cot_tokens // 3),
+                )
+                fsm.reset(phase="cot", stop_at_reasoning=True, user_metadata=user_metadata,
+                          target_duration=target_duration)
+                fsms.append(fsm)
+            generated, _, _, _ = self._constrained_loop(
+                fsms, logits, cache, positions, max_new_tokens=max_cot_tokens,
+                temperature=temperature, top_k=top_k, top_p=top_p, cfg_scale=cfg_scale,
+                generator=self._generator(seed),
+            )
+        cot_texts = [self.tokenizer.decode(g) for g in generated]
+        time_costs["lm_cot_time_cost"] = time.time() - t0
+        metadatas = [self.parse_lm_output(t)[0] for t in cot_texts]
+
+        if stop_at_reasoning:
+            time_costs["lm_total_time_cost"] = time.time() - t0
+            return {"metadata": metadatas[0], "cot_text": cot_texts[0], "audio_codes": "",
+                    "batch_metadata": metadatas, "batch_cot_texts": cot_texts, "time_costs": time_costs}
+
+        # ---------------- Phase 2: codes ----------------
+        t1 = time.time()
+        durations = []
+        for md in metadatas:
+            duration = target_duration or md.get("duration")
+            try:
+                duration = float(duration)
+            except (TypeError, ValueError):
+                duration = 30.0
+            durations.append(max(1.0, min(duration, self.fsm.max_duration)))
+        n_codes_each = [int(round(d * 5)) for d in durations]
+        codes_batch = self._generate_codes(
+            caption, lyrics, cot_texts, max(n_codes_each),
+            temperature=temperature, cfg_scale=cfg_scale, top_k=top_k, top_p=top_p,
+            repetition_penalty=repetition_penalty, negative_prompt=negative_prompt, seed=seed,
+        )
+        codes_batch = [c[: n_codes_each[i]] for i, c in enumerate(codes_batch)]
+        audio_codes_batch = ["".join(f"<|audio_code_{c}|>" for c in codes) for codes in codes_batch]
+        time_costs["lm_codes_time_cost"] = time.time() - t1
+        time_costs["lm_total_time_cost"] = time.time() - t0
+        return {
+            "metadata": metadatas[0],
+            "cot_text": cot_texts[0],
+            "audio_codes": audio_codes_batch[0],
+            "codes": codes_batch[0],
+            "batch_metadata": metadatas,
+            "batch_cot_texts": cot_texts,
+            "batch_audio_codes": audio_codes_batch,
+            "batch_codes": codes_batch,
+            "time_costs": time_costs,
+        }
+
+    def _generate_codes(
+        self,
+        caption: str,
+        lyrics: str,
+        cot_texts,
+        n_codes: int,
+        *,
+        temperature: float,
+        cfg_scale: float,
+        top_k: int,
+        top_p: float,
+        negative_prompt: str,
+        seed: int,
+        repetition_penalty: float = 1.0,
+    ) -> List[List[int]]:
+        """Device code generation for a batch of CoT plans. A tokenizer
+        without native code tokens gets deterministic pseudo-codes instead."""
+        if isinstance(cot_texts, str):
+            cot_texts = [cot_texts]
+        b = len(cot_texts)
+        prompts = [self.build_formatted_prompt_with_cot(caption, lyrics, c) for c in cot_texts]
+        use_cfg = cfg_scale > 1.0
+        if use_cfg:
+            prompts = prompts + [
+                self.build_formatted_prompt_with_cot(
+                    caption, lyrics, cot_texts[i], is_negative_prompt=True, negative_prompt=negative_prompt
+                )
+                for i in range(b)
+            ]
+        code_start = self.fsm.code_token_start
+        n_vocab_codes = self.fsm.num_code_tokens
+        if code_start < 0:
+            # Dev tokenizer: pseudo-codes, before any prefill.
+            rng = np.random.default_rng(seed)
+            return [[int(x) for x in rng.integers(0, 64000, size=n_codes)] for _ in range(b)]
+
+        ids, mask, bucket = self._encode_prompts(prompts, budget=n_codes + 8)
+        logits, cache = self._prefill(ids, mask, bucket + n_codes + 8)
+        positions = self._tensor(mask.sum(axis=1).astype(np.int32))
+        gen = self._generator(seed + 1)
+
+        # First code from the prefill logits.
+        code_logits = logits[:, code_start : code_start + n_vocab_codes]
+        if use_cfg:
+            code_logits = sampling.cfg_combine(code_logits[:b], code_logits[b:], cfg_scale)
+        seen = None
+        if repetition_penalty != 1.0:
+            # Seed the penalty set with the code tokens already in the prompt
+            # and penalise the first sampled code from that set too.
+            seen_np = np.zeros((b, n_vocab_codes), bool)
+            in_range = (ids[:b] >= code_start) & (ids[:b] < code_start + n_vocab_codes)
+            rows, cols = np.nonzero(in_range)
+            seen_np[rows, ids[:b][rows, cols] - code_start] = True
+            seen = self._tensor(seen_np)
+            code_logits = sampling._apply_repetition_penalty(code_logits.float(), seen, repetition_penalty)
+        first = sampling.sample(code_logits, gen, temperature, top_k=top_k, top_p=top_p)
+        if seen is not None:
+            seen[torch.arange(b, device=self.device), first] = True
+        first_tok = first + code_start
+        feed = torch.cat([first_tok, first_tok]) if use_cfg else first_tok
+        toks, _ = sampling.generate_codes_scan(
+            self.params, self.config, feed, positions, cache, gen, seen,
+            n_steps=n_codes - 1, code_start=code_start, n_codes=n_vocab_codes,
+            temperature=temperature, top_k=top_k, top_p=top_p,
+            cfg_scale=cfg_scale if use_cfg else 1.0, repetition_penalty=repetition_penalty,
+        )
+        codes = torch.cat([first[:, None], toks - code_start], dim=1).cpu().numpy()  # the one read-back
+        return [[int(c) for c in row] for row in codes]
+
+    # ------------------------------------------------------------------
+    # LM-only task APIs: wait for `generate_free`
+    # ------------------------------------------------------------------
+
+    def understand_audio_from_codes(self, audio_codes: str, **kw) -> Dict[str, Any]:
+        raise NotImplementedError("understand needs sampling.generate_free, not ported yet")
+
+    def create_sample_from_query(self, query: str, **kw) -> Dict[str, Any]:
+        raise NotImplementedError("create_sample needs sampling.generate_free, not ported yet")
+
+    def format_sample_from_input(self, user_input: str, **kw) -> Dict[str, Any]:
+        raise NotImplementedError("format_sample needs sampling.generate_free, not ported yet")
+
+    # ------------------------------------------------------------------
+    # Output parsing (ref llm_inference.py:2535-2658)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def parse_lm_output(output_text: str) -> Tuple[Dict[str, Any], str]:
+        """Extract the metadata dict and the audio-code string of LM output."""
+        audio_codes = "".join(m.group(0) for m in CODE_RE.finditer(output_text))
+        m = re.search(r"<think>(.*?)</think>", output_text, re.DOTALL)
+        reasoning = m.group(1).strip() if m else output_text.split("<|audio_code_")[0].strip()
+
+        metadata: Dict[str, Any] = {}
+        current_key: Optional[str] = None
+        value_lines: List[str] = []
+
+        def flush():
+            nonlocal current_key, value_lines
+            if current_key and value_lines:
+                value = "\n".join(value_lines)
+                if current_key in ("bpm", "duration"):
+                    try:
+                        metadata[current_key] = int(value.strip())
+                    except ValueError:
+                        metadata[current_key] = value.strip()
+                elif current_key == "caption":
+                    lines = [l.strip() for l in value.split("\n") if l.strip()]
+                    metadata["caption"] = " ".join(lines)
+                elif current_key in ("genres", "keyscale", "language", "timesignature", "lyrics"):
+                    metadata[current_key] = value.strip()
+            current_key, value_lines = None, []
+
+        for line in reasoning.split("\n"):
+            if line.strip().startswith("<"):
+                continue
+            if line and not line[0].isspace() and ":" in line:
+                flush()
+                k, v = line.split(":", 1)
+                current_key = k.strip().lower()
+                if v.strip():
+                    value_lines.append(v)
+            elif line.startswith((" ", "\t")) and current_key:
+                value_lines.append(line)
+        flush()
+        return metadata, audio_codes

@@ -4,8 +4,11 @@ Port of `acestep_tpu/models/dit.py` as plain functions on the JAX package's
 parameter tree (tensors; layers as per-layer lists, see `params.py`):
 
 - `attention_block`, `encoder_layer`, `encoder_stack`, `lyric_encoder`,
-  `timbre_encoder`, `condition_encoder`, `prepare_condition` (precomputed-hints
-  path; audio codes and the FSQ tokenizer chain raise until they are ported);
+  `timbre_encoder`, `condition_encoder`;
+- `detokenizer` and `decode_audio_codes` (LM audio codes -> FSQ -> 25 Hz
+  hints), and `prepare_condition` with precomputed hints or audio codes (the
+  audio tokenizer chain, `attention_pooler`/`audio_tokenize`, which a cover
+  without hints needs, raises until the cover slice);
 - `timestep_embedding`, `dit_layer`, `precompute_cross_kv`, `dit_forward`;
 - `build_t_schedule`, `build_linspace_schedule`, `prepare_noise`;
 - `denoise` (the ODE loop of `denoise_scan` without CFG, as a Python loop)
@@ -28,6 +31,7 @@ from acestep_tpu_torch.config import AceStepConfig
 from acestep_tpu_torch.ops.attention import attention
 from acestep_tpu_torch.ops.basic import linear, mlp_swiglu, rms_norm
 from acestep_tpu_torch.ops.conv import conv1d, conv_transpose1d
+from acestep_tpu_torch.ops.fsq import residual_fsq_decode_indices
 from acestep_tpu_torch.ops.packing import pack_sequences
 from acestep_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
@@ -168,6 +172,25 @@ def condition_encoder(
     return pack_sequences(enc, text, enc_mask, text_attention_mask.to(torch.int32))
 
 
+def detokenizer(p: Params, cfg: AceStepConfig, quantized: torch.Tensor) -> torch.Tensor:
+    """(B, T5, D) 5 Hz tokens -> (B, T5 * P, 64) 25 Hz acoustic (ref AudioTokenDetokenizer)."""
+    b, t, _ = quantized.shape
+    pw = cfg.pool_window_size
+    x = linear(p["embed_tokens"], quantized)
+    x = x[:, :, None, :] + p["special_tokens"].to(x.dtype)[None]
+    x = x.reshape(b * t, pw, -1)
+    x = encoder_stack(p["layers"], p["norm"]["weight"], cfg, x, None)
+    x = linear(p["proj_out"], x)
+    return x.reshape(b, t * pw, -1)
+
+
+def decode_audio_codes(p: Params, cfg: AceStepConfig, indices: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """LM audio-code indices (B, T5) -> 25 Hz latent hints (B, T5 * P, 64)
+    (quantizer.get_output_from_indices, then the detokenizer)."""
+    quantized = residual_fsq_decode_indices(p["tokenizer"]["quantizer"], indices, cfg.fsq_levels, dtype)
+    return detokenizer(p["detokenizer"], cfg, quantized)
+
+
 def prepare_condition(
     params: Params,
     cfg: AceStepConfig,
@@ -186,18 +209,27 @@ def prepare_condition(
     audio_codes: Optional[torch.Tensor] = None,
     max_refs: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """-> (encoder_hidden_states, encoder_mask, context_latents)."""
-    if audio_codes is not None or precomputed_lm_hints_25hz is None:
+    """-> (encoder_hidden_states, encoder_mask, context_latents).
+
+    The LM hints come from `precomputed_lm_hints_25hz`, else from
+    `audio_codes` (B, T5) through `decode_audio_codes`; with neither, the
+    hints would need the audio tokenizer chain, which is not ported yet.
+    """
+    if precomputed_lm_hints_25hz is None and audio_codes is None:
         raise NotImplementedError(
-            "audio codes and the FSQ tokenize/detokenize chain are not ported yet "
-            "(cover slice); pass precomputed_lm_hints_25hz"
+            "LM hints without precomputed hints or audio codes need the audio tokenizer "
+            "(attention_pooler / audio_tokenize), not ported yet (cover slice)"
         )
     enc, enc_mask = condition_encoder(
         params["encoder"], cfg, text_hidden_states, text_attention_mask,
         lyric_hidden_states, lyric_attention_mask, refer_packed, refer_order_mask, max_refs,
     )
     t = src_latents.shape[1]
-    h = precomputed_lm_hints_25hz[:, :t, :]
+    if precomputed_lm_hints_25hz is not None:
+        h = precomputed_lm_hints_25hz
+    else:
+        h = decode_audio_codes(params, cfg, audio_codes, src_latents.dtype)
+    h = h[:, :t, :]
     short = t - h.shape[1]
     if short > 0:
         if silence_latent is not None:

@@ -12,19 +12,35 @@ import torch
 import torch.nn.functional as F
 
 
-def linear(params, x: torch.Tensor) -> torch.Tensor:
-    """Apply a linear layer in the dtype of x.
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """fp32 product x @ w of operands in x's dtype (JAX's
+    ``preferred_element_type=float32``), without rounding to x's dtype.
 
-    The product accumulates in fp32 inside the matmul. The JAX version adds
-    the bias to the fp32 product and rounds once; PyTorch has no portable
-    fp32-output low-precision matmul, so a biased layer in bf16 rounds the
-    product, adds the bias in fp32 and rounds again. In fp32 the two agree.
+    On the card a bf16 product goes through ``torch.mm(..., out_dtype=
+    torch.float32)``: the GEMM's fp32 accumulators come out as they are. The
+    CPU build has no such kernel, so there both operands are upcast; products
+    of bf16 values are exact in fp32, so the two routes differ only in the
+    order of the sums.
     """
-    y = torch.matmul(x, params["kernel"].to(x.dtype))
+    w = w.to(x.dtype)
+    if x.dtype == torch.float32:
+        return torch.matmul(x, w)
+    if x.is_cuda:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.float(), w.float())
+
+
+def linear(params, x: torch.Tensor) -> torch.Tensor:
+    """Apply a linear layer in the dtype of x, with fp32 accumulation.
+
+    As in the JAX version, a bias is added to the fp32 product and the sum is
+    rounded once to x's dtype.
+    """
     bias = params.get("bias")
-    if bias is not None:
-        y = (y.float() + bias.float()).to(x.dtype)
-    return y
+    if bias is None:
+        return torch.matmul(x, params["kernel"].to(x.dtype))
+    return (matmul_f32(x, params["kernel"]) + bias.float()).to(x.dtype)
 
 
 def rms_norm(weight: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

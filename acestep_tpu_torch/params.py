@@ -228,10 +228,29 @@ def init_oobleck_params(
     return {"encoder": encoder, "decoder": decoder}
 
 
+# Planner LM sizes (the reference model zoo acestep-5Hz-lm-{0.6B,1.7B,4B});
+# a copy of `acestep_tpu/lm/handler.py:LM_CONFIGS`.
+LM_CONFIGS = {
+    "0.6B": Qwen3Config(hidden_size=1024, intermediate_size=3072, num_hidden_layers=28,
+                        num_attention_heads=16, num_key_value_heads=8),
+    "1.7B": Qwen3Config(hidden_size=2048, intermediate_size=6144, num_hidden_layers=28,
+                        num_attention_heads=16, num_key_value_heads=8),
+    "4B": Qwen3Config(hidden_size=2560, intermediate_size=9728, num_hidden_layers=36,
+                      num_attention_heads=32, num_key_value_heads=8),
+}
+
+
 def init_qwen3_params(
-    cfg: Qwen3Config, *, seed: int = 0, device="cuda", dtype=torch.bfloat16
+    cfg: Qwen3Config,
+    *,
+    seed: int = 0,
+    device="cuda",
+    dtype=torch.bfloat16,
+    with_lm_head: Optional[bool] = None,
 ) -> Params:
-    """Text-encoder tree (tied embeddings: no lm_head)."""
+    """Qwen3 tree for the text encoder or the planner LM. An `lm_head`
+    (d, vocab) is drawn last when `with_lm_head`, which defaults to untied
+    embeddings (`not cfg.tie_word_embeddings`), as in the JAX package."""
     ini = _Init(seed, device, dtype)
     d, hd = cfg.hidden_size, cfg.head_dim
 
@@ -254,11 +273,16 @@ def init_qwen3_params(
         }
         for _ in range(cfg.num_hidden_layers)
     ]
-    return {
+    params = {
         "embed_tokens": {"weight": ini.normal((cfg.vocab_size, d), 0.02)},
         "layers": layers,
         "norm": ini.norm(d),
     }
+    if with_lm_head is None:
+        with_lm_head = not cfg.tie_word_embeddings
+    if with_lm_head:
+        params["lm_head"] = ini.linear(d, cfg.vocab_size, bias=False)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -318,7 +342,8 @@ def from_jax_params(
     dtype: Optional[torch.dtype] = None,
 ) -> Params:
     """Turn a JAX parameter tree (numpy leaves) of the DiT, the Oobleck VAE or
-    the Qwen3 text encoder into the port's tree.
+    a Qwen3 model (text encoder, or planner LM with or without `lm_head`)
+    into the port's tree.
 
     The DiT tree may come as per-layer lists or in the stacked
     {"sliding", "full"} layout of the JAX serving handler: layer 2i is

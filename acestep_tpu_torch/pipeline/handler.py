@@ -6,16 +6,22 @@ and tokenization in numpy; text encoding, condition preparation, the 8-step
 ODE denoise, the chunked Oobleck decode and the peak normalisation in torch on
 the handler's device.
 
+Audio-code hints (`<|audio_code_N|>` strings from the LM planner) decode
+through the FSQ chain and the detokenizer into 25 Hz hints, and a row with
+hints runs as a cover of them, as in the JAX handler.
+
 Not ported yet, each raising `NotImplementedError` where a caller asks for it:
-checkpoint loading, cover/repaint/extract/lego/complete, audio codes, CFG
+checkpoint loading, a cover instruction without code hints (the audio
+tokenizer chain), repaint/extract/lego/complete, source/reference audio, CFG
 (APG/ADG), SDE sampling, LoRA, meshes, streaming sinks and pipelined finish.
 """
 
 from __future__ import annotations
 
 import random
+import re
 import time
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,13 +38,14 @@ from acestep_tpu_torch.config import (
 from acestep_tpu_torch.device import resolve_device
 from acestep_tpu_torch.models import dit, qwen3, vae
 from acestep_tpu_torch.params import init_acestep_params, init_oobleck_params, init_qwen3_params
-from acestep_tpu_torch.utils.constants import SFT_GEN_PROMPT, TASK_INSTRUCTIONS
+from acestep_tpu_torch.utils.constants import MAX_AUDIO_CODE, SFT_GEN_PROMPT, TASK_INSTRUCTIONS
 from acestep_tpu_torch.utils.tokenizer import load_tokenizer, pick_bucket, tokenize_padded
 
 LATENT_BUCKETS = (250, 500, 750, 1500, 2250, 3000, 4500, 6000, 7500, 15000)
 TEXT_BUCKETS = (64, 128, 256)
 LYRIC_BUCKETS = (64, 128, 256, 512, 1024, 2048)
 DECODE_OVERLAP = 16  # latent frames on each side of a decode chunk
+AUDIO_CODE_RE = re.compile(r"<\|audio_code_(\d+)\|>")
 
 
 class AceStepHandler:
@@ -148,6 +155,38 @@ class AceStepHandler:
         while len(out) < batch:
             out.append(self._default_meta())
         return out
+
+    def generate_instruction(
+        self,
+        task_type: str,
+        track_name: Optional[str] = None,
+        complete_track_classes: Optional[List[str]] = None,
+    ) -> str:
+        """Task -> instruction text (ref task_utils.py:69-101)."""
+        if task_type in ("text2music", "repaint", "cover"):
+            return TASK_INSTRUCTIONS[task_type]
+        if task_type in ("extract", "lego"):
+            if track_name:
+                return TASK_INSTRUCTIONS[task_type].format(TRACK_NAME=track_name.upper())
+            return TASK_INSTRUCTIONS[f"{task_type}_default"]
+        if task_type == "complete":
+            if complete_track_classes:
+                return TASK_INSTRUCTIONS["complete"].format(
+                    TRACK_CLASSES=" | ".join(t.upper() for t in complete_track_classes)
+                )
+            return TASK_INSTRUCTIONS["complete_default"]
+        return TASK_INSTRUCTIONS["text2music"]
+
+    @staticmethod
+    def parse_audio_codes(code_str: str) -> List[int]:
+        """``<|audio_code_N|>`` -> clamped ints (ref audio_codes.py:21-46)."""
+        if not code_str:
+            return []
+        return [max(0, min(int(x), MAX_AUDIO_CODE)) for x in AUDIO_CODE_RE.findall(code_str)]
+
+    @staticmethod
+    def format_audio_codes(indices: Sequence[int]) -> str:
+        return "".join(f"<|audio_code_{int(i)}|>" for i in indices)
 
     @staticmethod
     def format_lyrics(lyrics: str, language: str) -> str:
@@ -289,6 +328,21 @@ class AceStepHandler:
         pcm = torch.clamp(wavf * scale, -1.0, 1.0)
         return torch.round(pcm * 32767.0).to(torch.int16).transpose(1, 2).contiguous()
 
+    def _code_hints(self, code_hints: List[Optional[str]], t_latent: int, silence: torch.Tensor) -> torch.Tensor:
+        """(B, t_latent, 64) LM hints: each row's codes through FSQ and the
+        detokenizer, cut or padded with silence to t_latent; rows without
+        codes hold silence."""
+        rows = []
+        for cs in code_hints:
+            ids = self.parse_audio_codes(cs) if cs and cs.strip() else []
+            if not ids:
+                rows.append(silence)
+                continue
+            h = dit.decode_audio_codes(self.params, self.config, self._tensor([ids], torch.int32), self.dtype)[0]
+            n = min(h.shape[0], t_latent)
+            rows.append(torch.cat([h[:n], silence[n:]], dim=0))
+        return torch.stack(rows).to(self.dtype)
+
     # ------------------------------------------------------------------
     # generate_music (text2music)
     # ------------------------------------------------------------------
@@ -326,13 +380,12 @@ class AceStepHandler:
         return_int16: bool = False,
         return_condition: bool = False,
     ) -> Dict[str, Any]:
-        """Run turbo text2music. Returns latents, audio and stage timings."""
+        """Run turbo text2music, with optional LM audio-code hints per row.
+        Returns latents, audio and stage timings."""
         if not self.initialized:
             raise RuntimeError("call initialize_service() first")
         if task_type != "text2music":
             raise NotImplementedError(f"task {task_type!r} is not ported yet (text2music only)")
-        if audio_code_strings and any(c and c.strip() for c in audio_code_strings):
-            raise NotImplementedError("audio-code hints are not ported yet")
         if target_latents is not None or (reference_audios and any(r is not None for r in reference_audios)):
             raise NotImplementedError("source/reference audio inputs are not ported yet")
         if repainting_start or repainting_end:
@@ -356,14 +409,18 @@ class AceStepHandler:
         latent_mask = np.zeros((b, t_latent), np.int32)
         latent_mask[:, :t_exact] = 1
 
-        instructions = instructions or [TASK_INSTRUCTIONS["text2music"]] * b
+        instructions = instructions or [self.generate_instruction(task_type)] * b
         instructions = [self.format_instruction(i) for i in instructions]
+        code_hints = audio_code_strings or [None] * b
+        has_code_hints = [bool(c and c.strip()) for c in code_hints]
         silence_tiled = self._silence_tiled(t_latent)
-        chunk_masks, spans, is_covers, _ = self.build_chunk_masks_and_src_latents(
-            b, t_latent, instructions, [False] * b, None, [False] * b, None, None, silence_tiled
+        chunk_masks, spans, is_covers, src_latents = self.build_chunk_masks_and_src_latents(
+            b, t_latent, instructions, has_code_hints, None, [False] * b, None, None, silence_tiled
         )
-        if is_covers.any():
-            raise NotImplementedError("cover instructions need the FSQ chain, not ported yet")
+        if is_covers.any() and not any(has_code_hints):
+            raise NotImplementedError(
+                "a cover without code hints needs the audio tokenizer chain, not ported yet"
+            )
 
         text_prompts = [SFT_GEN_PROMPT.format(instructions[i], captions[i], parsed_metas[i]) for i in range(b)]
         lyric_texts = [self.format_lyrics(lyrics[i], vocal_languages[i]) for i in range(b)]
@@ -382,7 +439,14 @@ class AceStepHandler:
 
         t0 = time.time()
         silence_dev = self._tensor(silence_tiled[None], self.dtype)
-        src = silence_dev.expand(b, -1, -1)
+        if any(has_code_hints):
+            src = self._tensor(src_latents, self.dtype)
+            hints = self._code_hints(code_hints, t_latent, silence_dev[0])
+        else:
+            # src is tiled silence for every row; with no cover row the hints
+            # are unused, so src stands in for them (no decode chain).
+            src = silence_dev.expand(b, -1, -1)
+            hints = src
         outputs = dit.generate_audio(
             self.params,
             self.config,
@@ -403,7 +467,7 @@ class AceStepHandler:
             infer_method=infer_method,
             audio_cover_strength=audio_cover_strength,
             cover_noise_strength=cover_noise_strength,
-            precomputed_lm_hints_25hz=src,
+            precomputed_lm_hints_25hz=hints,
             guidance_scale=guidance_scale,
             infer_steps=inference_steps,
             max_refs=1,

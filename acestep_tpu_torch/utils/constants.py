@@ -1,12 +1,47 @@
-"""Prompt constants of the text2music path.
+"""Domain constants of the text2music and planner-LM paths.
 
-A copy of the parts of `acestep_tpu/utils/constants.py` that the port's
-handler uses (value parity with the reference `acestep/constants.py`).
+A copy of the parts of `acestep_tpu/utils/constants.py` that the port uses
+(value parity with the reference `acestep/constants.py`): the DiT prompt
+format, the metadata ranges and value sets of the LM's constrained decoder,
+and the LM instructions.
 """
 
 from __future__ import annotations
 
+VALID_LANGUAGES = [
+    "ar", "az", "bg", "bn", "ca", "cs", "da", "de", "el", "en",
+    "es", "fa", "fi", "fr", "he", "hi", "hr", "ht", "hu", "id",
+    "is", "it", "ja", "ko", "la", "lt", "ms", "ne", "nl", "no",
+    "pa", "pl", "pt", "ro", "ru", "sa", "sk", "sr", "sv", "sw",
+    "ta", "te", "th", "tl", "tr", "uk", "ur", "vi", "yue", "zh",
+    "unknown",
+]
+
+KEYSCALE_NOTES = ["A", "B", "C", "D", "E", "F", "G"]
+KEYSCALE_ACCIDENTALS = ["", "#", "b", "♯", "♭"]
+KEYSCALE_MODES = ["major", "minor"]
+VALID_KEYSCALES = {
+    f"{note}{acc} {mode}"
+    for note in KEYSCALE_NOTES
+    for acc in KEYSCALE_ACCIDENTALS
+    for mode in KEYSCALE_MODES
+}
+
+BPM_MIN, BPM_MAX = 30, 300
+DURATION_MIN, DURATION_MAX = 10, 600
+VALID_TIME_SIGNATURES = [2, 3, 4, 6]
+
 DEFAULT_DIT_INSTRUCTION = "Fill the audio semantic mask based on the given conditions:"
+DEFAULT_LM_INSTRUCTION = "Generate audio semantic tokens based on the given conditions:"
+DEFAULT_LM_UNDERSTAND_INSTRUCTION = (
+    "Understand the given musical conditions and describe the audio semantics accordingly:"
+)
+DEFAULT_LM_INSPIRED_INSTRUCTION = (
+    "Expand the user's input into a more detailed and specific musical description:"
+)
+DEFAULT_LM_REWRITE_INSTRUCTION = (
+    "Format the user's input into a more detailed and specific musical description:"
+)
 
 TASK_INSTRUCTIONS = {
     "text2music": "Fill the audio semantic mask based on the given conditions:",
@@ -29,3 +64,5 @@ SFT_GEN_PROMPT = """# Instruction
 # Metas
 {}<|endoftext|>
 """
+
+MAX_AUDIO_CODE = 63_999

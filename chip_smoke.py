@@ -11,16 +11,26 @@ Phases, each fatal on failure:
   3. each kernel at main-path shapes against its plain PyTorch version in fp32 on
      the same bf16 inputs: max error and tolerance, kernel / plain / library
      times from CUDA events, and the bound (bf16 tensor-core peak 989 TFLOP/s,
-     HBM 3.35 TB/s, the H100 SXM data-sheet rates);
+     HBM 3.35 TB/s, the H100 SXM data-sheet rates). Attention also at the 4B
+     planner's prefill (causal + right-padded prompt, 2 x 1024 and 2 x 2048,
+     32/8 heads) and at 1 x 7 500 DiT tokens; the stage probe (kernel 4) in
+     every mode and K layout at seq 3840 and 7552;
   4. the whole pipeline at a narrow config on the card (bf16, kernels) against
-     the same weights and noise on the CPU (fp32, plain versions);
+     the same weights and noise on the CPU (fp32, plain versions), thinking
+     off; then with thinking on (`run_small_thinking_reference`);
   5. `AceStepHandler.initialize_service(random_init=True)` at full width, one
      untimed warm-up request, then text2music requests (1 x 30 s, 2 x 60 s,
-     1 x 240 s, 1 x 600 s: the longest bucket, 7 500 DiT tokens) with every
-     launch counter set to 0 just before and read just after;
-  6. a `{"kernels": [...]}` JSON line, then the `{"ok": true, ...}` line last.
+     1 x 240 s, 1 x 600 s: the longest bucket, 7 500 DiT tokens);
+  6. requests with thinking on through `service.inference.generate_music` and
+     the 4B planner (`LLMHandler(LM_CONFIGS["4B"])`), 1 x 60 s and 2 x 60 s
+     after an untimed warm-up, and a profile of the planner's decode step;
+  7. the probe's entry point (`acestep_tpu_torch.tools.probe_kernel_parts`);
+  8. a `{"kernels": [...]}` JSON line, then the `{"ok": true, ...}` line last.
      In it a kernel's `ms`, `plain_ms`, `library_ms` and `bound_ms` are sums
-     over its phase-3 shapes and `max_abs_err` their maximum.
+     over its phase-3 shapes, `max_abs_err` their maximum, and `launches` the
+     sum over the paths of phases 5, 6 and 7. Each path is driven with every
+     launch counter set to 0 just before it and read just after, and fails if
+     one of its kernels was never launched.
 
 Imports nothing of JAX. Exits non-zero without a result line when no CUDA
 device is present or the port's package is not beside this file.
@@ -66,12 +76,20 @@ def nbytes(*ts) -> int:
 def attention_cases(dev, gen):
     """Main-path attention shapes: DiT at 60 s batch 2 (750 patched tokens,
     16 q / 8 kv heads of 128), cross-attention onto a packed condition of
-    lyric 512 + timbre 1 + text 256 with a padded tail, and the Qwen3 text
-    encoder's causal 256-token bucket."""
+    lyric 512 + timbre 1 + text 256 with a padded tail, the Qwen3 text
+    encoder's causal 256-token bucket, the 4B planner's prefill buckets
+    (32 q / 8 kv heads, causal plus a right-padded prompt mask) and a DiT
+    full-attention layer at 600 s (7 500 tokens)."""
 
-    def qkv(b, lq, lk):
+    def qkv(b, lq, lk, nq=16, nkv=8):
         mk = lambda l, n: torch.randn((b, l, n, 128), generator=gen, device=dev).to(torch.bfloat16)
-        return mk(lq, 16), mk(lk, 8), mk(lk, 8)
+        return mk(lq, nq), mk(lk, nkv), mk(lk, nkv)
+
+    def prompt_mask(lens, l):
+        m = torch.zeros((len(lens), l), dtype=torch.int32, device=dev)
+        for i, n in enumerate(lens):
+            m[i, :n] = 1
+        return m
 
     enc_mask = torch.ones((2, 769), dtype=torch.int32, device=dev)
     enc_mask[0, 700:] = 0
@@ -82,6 +100,12 @@ def attention_cases(dev, gen):
         ("dit_self_full_60s_b2", qkv(2, 750, 750), dict(kv_mask=lat_mask)),
         ("dit_cross_60s_b2", qkv(2, 750, 769), dict(kv_mask=enc_mask)),
         ("text_encoder_causal_256_b2", qkv(2, 256, 256), dict(causal=True)),
+        ("lm4b_prefill_cot_2x1024", qkv(2, 1024, 1024, 32, 8),
+         dict(kv_mask=prompt_mask([761, 703], 1024), causal=True)),
+        ("lm4b_prefill_codes_2x2048", qkv(2, 2048, 2048, 32, 8),
+         dict(kv_mask=prompt_mask([1130, 778], 2048), causal=True)),
+        ("dit_self_full_600s_b1", qkv(1, 7500, 7500), dict(kv_mask=torch.ones((1, 7500), dtype=torch.int32,
+                                                                               device=dev))),
     ]
 
 
@@ -121,6 +145,7 @@ def run_attention_phase(dev, gen, results):
         reps = q.shape[2] // k.shape[2]
         kt, vt = kt.repeat_interleave(reps, 1), vt.repeat_interleave(reps, 1)
         l_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), 20)
+        del qt, kt, vt
         line = dict(phase=f"kernel flash_attention {name}", ok=ok, max_abs_err=err, tol=tol,
                     kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
                     shapes=dict(q=list(q.shape), k=list(k.shape)))
@@ -128,6 +153,51 @@ def run_attention_phase(dev, gen, results):
         results.setdefault("flash_attention", []).append(line)
         if not ok:
             raise SystemExit(f"flash_attention {name}: max_abs_err {err} > {tol}")
+
+
+PROBE_MODES = ("dots", "+max", "+exp", "+expf", "full", "fullf")
+
+
+def run_probe_phase(dev, gen, results):
+    """Kernel 4 in every mode and K layout at the probe's seq 3840 and at 7552
+    (7 500 DiT tokens rounded up to 128): 1 batch, 16 q / 8 kv heads of 128.
+    The error is relative to max|ref| (the kernel rounds P at another point
+    than the plain version, which follows the TPU kernel)."""
+    import torch.nn.functional as F
+
+    from acestep_tpu_torch.ops.attention_probe import attention_probe, attention_probe_plain
+
+    for l in (3840, 7552):
+        q = torch.randn((1, 16, l, 128), generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn((1, 8, l, 128), generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn((1, 8, l, 128), generator=gen, device=dev).to(torch.bfloat16)
+        k_t = k.transpose(2, 3).contiguous()
+        b_ms, b_by = bound_ms(4.0 * 16 * l * l * 128, nbytes(q, k, v, q))
+        for mode in PROBE_MODES:
+            for kt in (False, True):
+                kk = k_t if kt else k
+                out = attention_probe(q, kk, v, mode, k_transposed=kt)
+                torch.cuda.synchronize()
+                ref = attention_probe_plain(q, kk, v, mode, k_transposed=kt).float()
+                err = (out.float() - ref).abs().max().item()
+                tol = 2e-2 * ref.abs().max().item()
+                ok = bool(err <= tol) and bool(torch.isfinite(out).all())
+                del ref
+                k_ms = time_ms(lambda: attention_probe(q, kk, v, mode, k_transposed=kt), 10)
+                p_ms = time_ms(lambda: attention_probe_plain(q, kk, v, mode, k_transposed=kt), 2)
+                l_ms = None
+                if mode == "full":  # unmasked SDPA computes the same function (yardstick only)
+                    l_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True), 10)
+                name = f"{mode}{'T' if kt else ''}_L{l}"
+                line = dict(phase=f"kernel attention_probe {name}", ok=ok, max_abs_err=err, tol=tol,
+                            kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                            shapes=dict(q=list(q.shape), k=list(kk.shape)))
+                print(json.dumps(line), flush=True)
+                results.setdefault("attention_probe", []).append(line)
+                if not ok:
+                    raise SystemExit(f"attention_probe {name}: max_abs_err {err} > {tol}")
+        del q, k, v, k_t
+        torch.cuda.empty_cache()
 
 
 def _perturb_snakes(tree, gen):
@@ -223,15 +293,10 @@ def _tree_to(tree, device, dtype):
     return tree.to(device=device, dtype=dtype)
 
 
-def run_small_reference(dev):
-    """The whole pipeline on the card (bf16, kernels) against the same weights
-    and noise on the CPU (fp32, plain versions), at a narrow config whose
-    shapes every kernel takes: head_dim 128, 30 s (375 DiT tokens), VAE
-    channels 1024 -> 128 with hop 32."""
+def _small_cfgs():
     from acestep_tpu_torch.config import AceStepConfig, OobleckConfig, Qwen3Config
-    from acestep_tpu_torch.pipeline.handler import AceStepHandler
 
-    cfgs = (
+    return (
         AceStepConfig(hidden_size=256, intermediate_size=512, num_hidden_layers=2, num_attention_heads=2,
                       num_key_value_heads=1, head_dim=128, text_hidden_dim=256,
                       num_lyric_encoder_hidden_layers=2, num_timbre_encoder_hidden_layers=2,
@@ -240,9 +305,19 @@ def run_small_reference(dev):
         Qwen3Config(vocab_size=300, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
                     num_attention_heads=2, num_key_value_heads=1, head_dim=128),
     )
-    gpu = AceStepHandler(*cfgs, device=dev)
+
+
+
+def run_small_reference(dev):
+    """The whole pipeline on the card (bf16, kernels) against the same weights
+    and noise on the CPU (fp32, plain versions), at a narrow config whose
+    shapes every kernel takes: head_dim 128, 30 s (375 DiT tokens), VAE
+    channels 1024 -> 128 with hop 32."""
+    from acestep_tpu_torch.pipeline.handler import AceStepHandler
+
+    gpu = AceStepHandler(*_small_cfgs(), device=dev)
     gpu.initialize_service(random_init=True, seed=5)
-    cpu = AceStepHandler(*cfgs, dtype=torch.float32, device="cpu")
+    cpu = AceStepHandler(*_small_cfgs(), dtype=torch.float32, device="cpu")
     cpu.initialize_service(random_init=True, seed=5)
     for name in ("params", "vae_params", "text_params"):
         setattr(cpu, name, _tree_to(getattr(gpu, name), "cpu", torch.float32))
@@ -260,13 +335,112 @@ def run_small_reference(dev):
         raise SystemExit(f"small end-to-end reference: latents {lat_err}, audio {wav_err} > {tol}")
 
 
-def run_requests(dev):
+def _counters():
+    from acestep_tpu_torch.ops.attention_probe import attention_probe
     from acestep_tpu_torch.ops.flash_attention import flash_attention
     from acestep_tpu_torch.ops.oobleck_kernels import decoder_block_kernel, res_units_kernel
+
+    return {"flash_attention": flash_attention, "decoder_block": decoder_block_kernel,
+            "res_units": res_units_kernel, "attention_probe": attention_probe}
+
+
+def _path_launches(path: str, need) -> dict:
+    """Read the counters after a path and fail if one of its kernels never ran."""
+    launches = {k: fn.launches for k, fn in _counters().items()}
+    print(json.dumps(dict(phase=f"{path} launches", launches=launches)), flush=True)
+    missing = [k for k in need if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"kernels never launched on the {path}: {missing}")
+    return launches
+
+
+def _reset_counters() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def run_small_thinking_reference(dev):
+    """Thinking on at a narrow config: a tiny planner (head_dim 128, so its
+    1024-token prefill takes the flash kernel) in bf16 on the card against the
+    same weights in fp32 on the CPU, greedy with CFG 2.0 and the FSM's code
+    range pointed at real token ids; then the narrow DiT/VAE of
+    `run_small_reference` on both devices, fed the card planner's codes.
+
+    Checks (fatal): both plans are well formed (CoT metadata, 150 codes per
+    row in range); the prefill logits of the CoT prompt agree to 5e-2 of
+    max|ref| (bf16 activations against fp32); latents and audio rel-L2 <= 5e-2.
+    Reported: the CoT and codes token agreement and the first divergence
+    step (greedy near-ties may flip in bf16; they are not a failure)."""
+    from acestep_tpu_torch.config import Qwen3Config
+    from acestep_tpu_torch.lm.handler import LLMHandler
+    from acestep_tpu_torch.models import qwen3
+
+    cfg = Qwen3Config(vocab_size=1024, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                      num_attention_heads=2, num_key_value_heads=1, head_dim=128)
+    gpu = LLMHandler(cfg, device=dev)
+    gpu.initialize(random_init=True, seed=9)
+    cpu = LLMHandler(cfg, dtype=torch.float32, device="cpu")
+    cpu.initialize(random_init=True, seed=9)
+    cpu.params = _tree_to(gpu.params, "cpu", torch.float32)
+    for h in (gpu, cpu):
+        h.fsm.code_token_start, h.fsm.num_code_tokens = 259, 765
+    kw = dict(temperature=0.0, cfg_scale=2.0, top_p=0.9, target_duration=30.0, seed=5, batch_size=2)
+    got = gpu.generate_with_stop_condition(CAPTION, LYRICS, **kw)
+    want = cpu.generate_with_stop_condition(CAPTION, LYRICS, **kw)
+
+    def agreement(a, b):
+        n = min(len(a), len(b))
+        first = next((i for i in range(n) if a[i] != b[i]), None if len(a) == len(b) else n)
+        same = sum(int(x == y) for x, y in zip(a, b)) / max(len(a), len(b), 1)
+        return same, first
+
+    tok = gpu.tokenizer
+    cot = [agreement(tok.encode(a), tok.encode(b)) for a, b in zip(got["batch_cot_texts"], want["batch_cot_texts"])]
+    codes = [agreement(a, b) for a, b in zip(got["batch_codes"], want["batch_codes"])]
+    formed = all(len(c) == 150 and all(0 <= x < 765 for x in c) for c in got["batch_codes"]) and all(
+        {"bpm", "duration", "keyscale"} <= set(md) for md in got["batch_metadata"])
+
+    prompt = gpu.build_formatted_prompt(CAPTION, LYRICS)
+    ids, mask, bucket = gpu._encode_prompts([prompt], budget=350)
+    with torch.inference_mode():
+        lg, _ = qwen3.prefill(gpu.params, cfg, gpu._tensor(ids), gpu._tensor(mask),
+                              qwen3.KVCache.create(cfg, 1, bucket, gpu.dtype, dev))
+        lc, _ = qwen3.prefill(cpu.params, cfg, torch.as_tensor(ids), torch.as_tensor(mask),
+                              qwen3.KVCache.create(cfg, 1, bucket, torch.float32, "cpu"))
+    logit_err = float((lg.float().cpu() - lc).abs().max() / lc.abs().max())
+
     from acestep_tpu_torch.pipeline.handler import AceStepHandler
 
-    counted = {"flash_attention": flash_attention, "decoder_block": decoder_block_kernel,
-               "res_units": res_units_kernel}
+    dgpu = AceStepHandler(*_small_cfgs(), device=dev)
+    dgpu.initialize_service(random_init=True, seed=5)
+    dcpu = AceStepHandler(*_small_cfgs(), dtype=torch.float32, device="cpu")
+    dcpu.initialize_service(random_init=True, seed=5)
+    for name in ("params", "vae_params", "text_params"):
+        setattr(dcpu, name, _tree_to(getattr(dgpu, name), "cpu", torch.float32))
+    dkw = dict(captions=CAPTION, lyrics=LYRICS, batch_size=2, audio_duration=30.0, seeds=[1, 2],
+               use_random_seed=False, normalize_db=-1.0, audio_code_strings=got["batch_audio_codes"])
+    a, b = dgpu.generate_music(**dkw), dcpu.generate_music(**dkw)
+    rel = lambda x, y: float(np.linalg.norm(x - y) / max(np.linalg.norm(y), 1e-12))
+    lat_err, wav_err = rel(a["latents"], b["latents"]), rel(a["audios"], b["audios"])
+    tol_logits, tol = 5e-2, 5e-2
+    ok = formed and logit_err <= tol_logits and lat_err <= tol and wav_err <= tol
+    print(json.dumps(dict(
+        phase="small thinking end-to-end vs CPU fp32", ok=ok, plans_well_formed=formed,
+        prefill_bucket=bucket, prefill_logits_rel_err=logit_err, tol_logits=tol_logits,
+        cot_agreement=[c[0] for c in cot], cot_first_divergence=[c[1] for c in cot],
+        cot_tokens=[len(tok.encode(t)) for t in got["batch_cot_texts"]],
+        codes_agreement=[c[0] for c in codes], codes_first_divergence=[c[1] for c in codes],
+        latents_rel_l2=lat_err, audio_rel_l2=wav_err, tol=tol,
+        cot_text_card=got["cot_text"][:300], cot_text_cpu=want["cot_text"][:300])), flush=True)
+    if not ok:
+        raise SystemExit(f"small thinking reference failed: formed {formed}, logits {logit_err}, "
+                         f"latents {lat_err}, audio {wav_err}")
+
+
+def run_requests(dev):
+    from acestep_tpu_torch.pipeline.handler import AceStepHandler
+
+    counted = {k: v for k, v in _counters().items() if k != "attention_probe"}
     h = AceStepHandler(device=dev)
     t0 = time.time()
     msg = h.initialize_service(random_init=True, seed=0)
@@ -275,8 +449,7 @@ def run_requests(dev):
     h.generate_music(CAPTION, LYRICS, audio_duration=30.0, seeds=[1], use_random_seed=False)
     print(json.dumps(dict(phase="warm-up request b1x30s (untimed below)", seconds=time.time() - t0)), flush=True)
     requests = [(1, 30.0), (2, 60.0), (1, 240.0), (1, 600.0)]
-    for fn in counted.values():
-        fn.launches = 0
+    _reset_counters()
     for i, (b, dur) in enumerate(requests):
         before = {k: fn.launches for k, fn in counted.items()}
         torch.cuda.synchronize()
@@ -300,12 +473,162 @@ def run_requests(dev):
         print(json.dumps(line), flush=True)
         if not ok:
             raise SystemExit(f"request b{b}x{dur}s: bad output {pcm.dtype} {pcm.shape} peak {peak}")
-    launches = {k: fn.launches for k, fn in counted.items()}
-    print(json.dumps(dict(phase="main path launches", launches=launches)), flush=True)
-    missing = [k for k, n in launches.items() if n <= 0]
-    if missing:
-        raise SystemExit(f"kernels never launched on the main path: {missing}")
+    launches = _path_launches("text2music path", counted)
+    return h, launches
+
+
+THINKING_CAPTION = "a lo-fi hip hop beat with dusty vinyl crackle"  # warm-up only
+
+
+def _decode_profile(llm, rows: int, max_len: int, steps: int = 10) -> dict:
+    """The planner's decode step at `rows` batch rows over a `max_len` cache:
+    host-clock ms per token around synchronised steps, and from
+    `torch.profiler` the device-kernel time and kernel count per token."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from acestep_tpu_torch.models import qwen3
+
+    dev = llm.device
+    cache = qwen3.KVCache.create(llm.config, rows, max_len, llm.dtype, dev)
+    tok = torch.full((rows,), 1000, dtype=torch.int64, device=dev)
+    pos = torch.full((rows,), max_len - 64, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        for _ in range(3):
+            qwen3.decode_step(llm.params, llm.config, tok, pos, cache)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(steps):
+            qwen3.decode_step(llm.params, llm.config, tok, pos, cache)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                qwen3.decode_step(llm.params, llm.config, tok, pos, cache)
+            torch.cuda.synchronize()
+    dev_us, n_kernels = 0.0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us += e.time_range.elapsed_us()
+            n_kernels += 1
+    dev_ms = dev_us / 1e3 / steps
+    del cache
+    return dict(rows=rows, cache_len=max_len, wall_ms_per_token=wall_ms, device_ms_per_token=dev_ms,
+                kernels_per_token=n_kernels / steps, device_idle_share=max(0.0, 1.0 - dev_ms / wall_ms))
+
+
+def run_thinking_requests(dev, dit):
+    """Text2music with thinking on at the service defaults (temperature 0.85,
+    lm_cfg_scale 2.0, top_p 0.9) and the 4B planner. The byte tokenizer has no
+    code tokens, so the FSM's code range is pointed at the top 64 000 ids."""
+    from acestep_tpu_torch.lm.handler import LLMHandler
+    from acestep_tpu_torch.params import LM_CONFIGS
+    from acestep_tpu_torch.service.inference import generate_music
+    from acestep_tpu_torch.service.params import GenerationConfig, GenerationParams
+
+    counters = _counters()
+    llm = LLMHandler(LM_CONFIGS["4B"], device=dev)
+    t0 = time.time()
+    msg = llm.initialize(random_init=True, seed=0)
+    print(json.dumps(dict(phase="LLMHandler 4B initialize", seconds=time.time() - t0, msg=msg)), flush=True)
+    llm.fsm.num_code_tokens = 64_000
+    llm.fsm.code_token_start = llm.config.vocab_size - 64_000
+
+    # Count the flash launches inside the LM phases.
+    lm_flash = {"n": 0}
+    orig = llm.generate_with_stop_condition
+
+    def counted_lm(*a, **kw):
+        before = counters["flash_attention"].launches
+        out = orig(*a, **kw)
+        lm_flash["n"] += counters["flash_attention"].launches - before
+        return out
+
+    llm.generate_with_stop_condition = counted_lm
+
+    def request(caption, b, seed):
+        params = GenerationParams(caption=caption, lyrics=LYRICS, duration=60.0, seed=seed, thinking=True)
+        cfg = GenerationConfig(batch_size=b, allow_lm_batch=True, use_random_seed=False,
+                               seeds=[seed + j for j in range(b)])
+        torch.cuda.synchronize()
+        t = time.time()
+        r = generate_music(dit, llm, params, cfg)
+        torch.cuda.synchronize()
+        return r, time.time() - t
+
+    r, wall = request(THINKING_CAPTION, 1, 7)
+    if not r.success:
+        raise SystemExit(f"thinking warm-up failed: {r.error}")
+    print(json.dumps(dict(phase="warm-up thinking request b1x60s, other caption (untimed below)",
+                          seconds=wall)), flush=True)
+
+    _reset_counters()
+    for b, seed in ((1, 200), (2, 300)):
+        before = {k: fn.launches for k, fn in counters.items()}
+        lm_before = lm_flash["n"]
+        r, wall = request(CAPTION, b, seed)
+        if not r.success:
+            raise SystemExit(f"thinking request b{b}x60s failed: {r.error}")
+        pcm = np.stack([a["audio"] for a in r.audios])
+        tc = r.extra_outputs["time_costs"]
+        n_codes = [len(dit.parse_audio_codes(c or "")) for c in r.extra_outputs["batch_audio_codes"]]
+        peak = int(np.abs(pcm.astype(np.int32)).max())
+        want = (b, 2, 60 * 48000)
+        ok = pcm.dtype == np.int16 and pcm.shape == want and peak > 0 and n_codes == [300] * b
+        line = dict(
+            phase=f"thinking request b{b}x60s (4B planner)", ok=ok, wall_s=wall, audio_s_per_s=b * 60.0 / wall,
+            lm_cot_time_cost=tc.get("lm_cot_time_cost"), lm_codes_time_cost=tc.get("lm_codes_time_cost"),
+            codes_ms_per_token=1e3 * tc.get("lm_codes_time_cost", 0.0) / 300,
+            n_codes=n_codes, shape=list(pcm.shape), dtype=str(pcm.dtype), peak=peak,
+            cot_text=r.extra_outputs.get("cot_text", "")[:400], time_costs=tc,
+            lm_flash_launches=lm_flash["n"] - lm_before,
+            launches={k: fn.launches - before[k] for k, fn in counters.items()},
+        )
+        print(json.dumps(line), flush=True)
+        if not ok:
+            raise SystemExit(f"thinking request b{b}x60s: bad output {pcm.dtype} {pcm.shape} peak {peak} codes {n_codes}")
+    launches = _path_launches("thinking path", ("flash_attention", "decoder_block", "res_units"))
+    print(json.dumps(dict(phase="thinking path LM-phase flash launches", launches=lm_flash["n"])), flush=True)
+    if lm_flash["n"] <= 0:
+        raise SystemExit("the planner's prefill never reached the flash kernel")
+    llm.generate_with_stop_condition = orig
+    for rows in (2, 4):  # CFG rows of a 1 x 60 s and a 2 x 60 s request
+        print(json.dumps(dict(phase="4B decode step profile", **_decode_profile(llm, rows, 2048 + 308))),
+              flush=True)
+        _logits_route(llm, rows)
     return launches
+
+
+def _logits_route(llm, rows: int) -> None:
+    """The fp32 logits product of bf16 operands per decode step (tied
+    151 936 x 2 560 table): the port's route (`torch.mm(..., out_dtype=
+    torch.float32)`) against upcasting both operands."""
+    from acestep_tpu_torch.models import qwen3
+
+    h = torch.randn((rows, 1, llm.config.hidden_size), device=llm.device).to(llm.dtype)
+    w = llm.params["embed_tokens"]["weight"]
+    with torch.inference_mode():
+        got = qwen3.logits_from_hidden(llm.params, llm.config, h)
+        ref = h.float() @ w.float().t()
+        err = (got - ref).abs().max().item() / ref.abs().max().item()
+        port_ms = time_ms(lambda: qwen3.logits_from_hidden(llm.params, llm.config, h), 20)
+        upcast_ms = time_ms(lambda: h.float() @ w.float().t(), 20)
+    print(json.dumps(dict(phase="4B logits product per token", rows=rows, out_dtype_ms=port_ms,
+                          upcast_ms=upcast_ms, rel_err_vs_upcast=err)), flush=True)
+    if not err <= 1e-4:  # summation order only; bf16 rounding would be ~4e-3
+        raise SystemExit(f"fp32 logits route disagrees with the upcast product: {err}")
+
+
+def run_probe_entry():
+    """The probe's own entry point, as a developer runs it, at the probe's
+    default seq and at 7 500 (every mode and K layout)."""
+    from acestep_tpu_torch.tools import probe_kernel_parts
+
+    modes = ",".join(m + t for m in PROBE_MODES for t in ("", "T"))
+    _reset_counters()
+    for seq in ("3840", "7500"):
+        print(f"probe_kernel_parts --seq {seq}", flush=True)
+        probe_kernel_parts.main(["--seq", seq, "--loop", "4", "--modes", modes])
+    return _path_launches("probe entry point", ("attention_probe",))
 
 
 def main() -> int:
@@ -344,25 +667,34 @@ def main() -> int:
     results: dict = {}
     run_attention_phase(dev, gen, results)
     run_vae_phase(dev, gen, results)
+    run_probe_phase(dev, gen, results)
     run_small_reference(dev)
-    launches = run_requests(dev)
+    run_small_thinking_reference(dev)
+    dit, text2music = run_requests(dev)
+    thinking = run_thinking_requests(dev, dit)
+    del dit
+    torch.cuda.empty_cache()
+    probe = run_probe_entry()
+    launches = {k: text2music[k] + thinking[k] + probe[k] for k in text2music}
 
     replaces = {
         "flash_attention": ("acestep_tpu_torch/csrc/flash_attention.cu",
                             "acestep_tpu/ops/pallas_attention.py:130"),
         "decoder_block": ("acestep_tpu_torch/csrc/oobleck.cu", "acestep_tpu/ops/pallas_vae.py:202"),
         "res_units": ("acestep_tpu_torch/csrc/oobleck.cu", "acestep_tpu/ops/pallas_vae.py:89"),
+        "attention_probe": ("acestep_tpu_torch/csrc/attention_probe.cu", "tools/probe_kernel_parts.py:47"),
     }
     kernels = []
     for name, lines in results.items():
         src, rep = replaces[name]
+        lib = [l["library_ms"] for l in lines if l["library_ms"] is not None]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
             max_abs_err=max(l["max_abs_err"] for l in lines),
             ms=sum(l["kernel_ms"] for l in lines), plain_ms=sum(l["plain_ms"] for l in lines),
             bound_ms=sum(l["bound_ms"] for l in lines),
             bound_by=max(lines, key=lambda l: l["bound_ms"])["bound_by"],
-            library_ms=(None if lines[0]["library_ms"] is None else sum(l["library_ms"] for l in lines)),
+            library_ms=sum(lib) if lib else None,
             shapes=[l["phase"].split()[-1] for l in lines],
         ))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from acestep_tpu_torch.config import OobleckConfig
+from acestep_tpu_torch.ops.attention_probe import MODES, attention_probe, attention_probe_plain
+from acestep_tpu_torch.ops.basic import matmul_f32
 from acestep_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from acestep_tpu_torch.ops.oobleck_kernels import (
     decoder_block_kernel,
@@ -68,6 +70,46 @@ def test_flash_kernel_matches_plain(dev, b, lq, lk, nq, nkv, kw):
     want = flash_attention_plain(q.float(), k.float(), v.float(), mask, **kw)
     assert torch.isfinite(got).all()
     assert (got.float() - want).abs().max().item() < 1e-2
+
+
+@pytest.mark.parametrize("lq", [1024, 2048])
+def test_flash_kernel_at_the_lm_prefill_shape(dev, lq):
+    """4B planner prefill: causal plus a right-padded prompt mask, GQA 32/8."""
+    q, k, v = _randn((2, lq, 32, 128), 6, dev), _randn((2, lq, 8, 128), 7, dev), _randn((2, lq, 8, 128), 8, dev)
+    mask = torch.ones((2, lq), dtype=torch.int32, device=dev)
+    mask[0, lq - 300:] = 0
+    mask[1, lq // 2:] = 0
+    got = flash_attention(q, k, v, mask, causal=True)
+    want = flash_attention_plain(q.float(), k.float(), v.float(), mask, causal=True)
+    assert torch.isfinite(got).all()
+    # Early causal rows average a few keys, so |out| reaches ~4, where the bf16
+    # output alone rounds by up to 2^-9 * |out|: the bound has a relative term.
+    excess = ((got.float() - want).abs() - 2.0**-7 * want.abs()).max().item()
+    assert excess < 1e-2, excess
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("kt,bq", [(False, 64), (True, 64), (False, 128)])
+def test_attention_probe_kernel_matches_plain(dev, mode, kt, bq):
+    q, k, v = _randn((1, 16, 512, 128), 30, dev), _randn((1, 8, 512, 128), 31, dev), _randn((1, 8, 512, 128), 32, dev)
+    if kt:
+        k = k.transpose(2, 3).contiguous()
+    before = attention_probe.launches
+    got = attention_probe(q, k, v, mode, k_transposed=kt, block_q=bq)
+    torch.cuda.synchronize()
+    assert attention_probe.launches == before + 1
+    want = attention_probe_plain(q, k, v, mode, k_transposed=kt).float()
+    assert torch.isfinite(got).all()
+    # P is rounded to bf16 at another point than the plain (TPU) version.
+    assert (got.float() - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+def test_matmul_f32_keeps_the_fp32_product(dev):
+    x, w = _randn((3, 5, 256), 40, dev), _randn((256, 1000), 41, dev)
+    got = matmul_f32(x, w)
+    assert got.dtype == torch.float32
+    want = x.float() @ w.float()
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
 
 
 def test_flash_kernel_reads_strided_views(dev):

@@ -19,7 +19,13 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "acestep_tpu.")) or m == "acestep_tpu")
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 15 else 0)
+need = {"acestep_tpu_torch.lm.handler", "acestep_tpu_torch.lm.sampling", "acestep_tpu_torch.lm.prefix_cache",
+        "acestep_tpu_torch.lm.dfa", "acestep_tpu_torch.lm.constrained", "acestep_tpu_torch.service.inference",
+        "acestep_tpu_torch.service.params", "acestep_tpu_torch.tools.probe_kernel_parts",
+        "acestep_tpu_torch.ops.attention_probe", "acestep_tpu_torch.ops.fsq"}
+missing = sorted(need - set(names))
+print(missing)
+sys.exit(1 if bad or missing or len(names) < 25 else 0)
 """
 
 
@@ -30,12 +36,21 @@ def test_port_imports_no_jax_and_no_acestep_tpu():
 
 
 def test_entry_points_refuse_a_silent_cpu_run(monkeypatch):
+    from acestep_tpu_torch.cli import main as cli_main
     from acestep_tpu_torch.device import resolve_device
+    from acestep_tpu_torch.lm.handler import LLMHandler
     from acestep_tpu_torch.pipeline.handler import AceStepHandler
+    from acestep_tpu_torch.tools.probe_kernel_parts import main as probe_main
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         AceStepHandler()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LLMHandler()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_main(["generate", "--random-init", "--thinking", "--caption", "x"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        probe_main(["--seq", "128"])
     assert resolve_device("cpu").type == "cpu"
 
 

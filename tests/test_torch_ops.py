@@ -174,3 +174,48 @@ def test_attention_dispatch_and_einsum_path():
     got = tattn.attention(torch.tensor(q), torch.tensor(k), torch.tensor(v), kv_mask=torch.tensor(mask), window=5)
     want = jattn.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kv_mask=jnp.asarray(mask), window=5)
     _close(got, want, **ATTN_TOL)
+
+
+# ---------------------------------------------------------------------------
+# bf16: one rounding in biased linears, fp32 logits.
+# ---------------------------------------------------------------------------
+
+
+def _bf16_pair(a):
+    """The same bf16 values as a JAX array and a torch tensor."""
+    j = jnp.asarray(a).astype(jnp.bfloat16)
+    return j, torch.tensor(np.asarray(j.astype(jnp.float32))).to(torch.bfloat16)
+
+
+def test_biased_linear_bf16_rounds_once_like_jax():
+    """The JAX linear adds the bias to the fp32 product and rounds once; the
+    port's agrees to 1 bf16 ulp (the sums run in another order)."""
+    xj, xt = _bf16_pair(_np((4, 33, 256), 40))
+    kj, kt = _bf16_pair(_np((256, 96), 41, 0.05))
+    bj, bt = _bf16_pair(_np((96,), 42))
+    want = np.asarray(jbasic.linear({"kernel": kj, "bias": bj}, xj).astype(jnp.float32))
+    got = tbasic.linear({"kernel": kt, "bias": bt}, xt)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    ulp = np.spacing(np.abs(want).astype(np.float32)) * 2.0**16  # bf16 keeps 8 of fp32's 24 bits
+    assert (np.abs(got - want) <= ulp).all()
+
+
+def test_logits_from_hidden_is_fp32_product_of_bf16():
+    from acestep_tpu.config import Qwen3Config as JQ
+    from acestep_tpu.models import qwen3 as jqwen3
+    from acestep_tpu_torch.config import Qwen3Config as TQ
+    from acestep_tpu_torch.models import qwen3 as tqwen3
+
+    hj, ht = _bf16_pair(_np((3, 1, 128), 43))
+    ej, et = _bf16_pair(_np((500, 128), 44, 0.02))
+    cfg = dict(vocab_size=500, hidden_size=128)
+    for tied in (True, False):
+        if tied:
+            jp, tp = {"embed_tokens": {"weight": ej}}, {"embed_tokens": {"weight": et}}
+        else:
+            jp, tp = {"lm_head": {"kernel": ej.T}}, {"lm_head": {"kernel": et.t().contiguous()}}
+        want = np.asarray(jqwen3.logits_from_hidden(jp, JQ(**cfg), hj))
+        got = tqwen3.logits_from_hidden(tp, TQ(**cfg), ht)
+        assert got.dtype == torch.float32 and want.dtype == np.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
