@@ -12,39 +12,41 @@
 //   FULLF  softmax with the polynomial exp
 // and O = bf16(P) V with fp32 accumulators. KT = true reads K stored
 // transposed, (B, Nkv, 128, L); otherwise every tensor is head-major
-// (B, N, L, 128). GQA: kv head = q head / (Nq / Nkv).
+// (B, N, L, 128). GQA: kv head = q head / (Nq / Nkv). L is a multiple of the
+// CTA's query rows (64 or 128); keys past L in the last 128-key tile are
+// masked.
 //
-// Design: the tile loop of csrc/flash_attention.cu (one warp per 16 query
-// rows, BQ rows per CTA, 64-key tiles in shared memory, bf16 mma.sync with
-// fp32 accumulators), so its times cost the stages of the port's own
-// attention kernel. The TPU kernel holds a whole (bq x L) score row in VMEM
-// and takes the final row max before P V; here the row max is a running one:
+// Design: the Hopper mainloop of attention_sm90.cuh, the one kernel 1 runs
+// (TMA ring of K/V tiles fed by a producer thread, wgmma for Q K^T and P V,
+// P kept in registers), so the mode times cost the stages of the port's own
+// attention kernel. 64 query rows per CTA is one consumer warpgroup, 128 is
+// two. K transposed is the MN-major B operand of Q K^T (descriptor transpose
+// bit). The TPU kernel holds a whole (bq x L) score row in VMEM and takes the
+// final row max before P V; here the row max is a running one:
 //   EXP/EXPF/FULL/FULLF rescale the accumulator by exp(m_old - m_new) (online
 //     softmax; the polynomial modes rescale with the polynomial);
 //   MAX uses sum_j (S_j - m) V_j = sum_j (S_j - m_run) V_j - (m - m_run) sum_j V_j:
 //     each tile adds bf16(S - m_run) V and, when m_run grows by d, subtracts
-//     d * (column sums of the V tiles seen so far), kept in shared memory.
+//     d * (column sums of the V tiles seen so far). The column sums are read
+//     from the swizzled V tile in shared memory (the 128-byte swizzle undone
+//     in the index: 16-byte chunk c of row r sits at chunk c ^ (r % 8)) by one
+//     thread per column, between two warpgroup barriers, before the stage is
+//     released.
 // Both round P at another point than the TPU's bf16(S - m_final); the plain
 // version follows the TPU and the comparison uses a tolerance relative to
 // max|ref|.
 //
 // Bound: 4 * Nq * L^2 * 128 flops per batch row against (2 Nq + 2 Nkv) L 128
 // bf16 bytes: operations-bound (0.122 ms at L = 3840, 16 q heads, on the
-// H100's 989 TFLOP/s). Tiles load synchronously, so this first version runs
-// well below that; PERF.md keeps its times.
+// H100's 989 TFLOP/s).
 
-#include <float.h>
-
-#include "common.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
-constexpr int HD = 128;
-constexpr int BKV = 64;
-constexpr int LDS = HD + 8;     // padded row of a (rows x 128) tile
-constexpr int LDKT = BKV + 8;   // padded row of a (128 x 64 keys) K^T tile
-constexpr float NEG_INF = -0.7f * FLT_MAX;
-constexpr float LOG2E = 1.4426950408889634f;
+using namespace sm90;
+
+constexpr int STAGES = 3;
 constexpr float SCALE = 0.08838834764831845f;
 
 enum Mode { DOTS = 0, MAX = 1, EXP = 2, EXPF = 3, FULL = 4, FULLF = 5 };
@@ -70,260 +72,202 @@ __device__ __forceinline__ float mode_exp(float x) {
   return exp2f(x * LOG2E);
 }
 
-template <bool KT, int BQ>
-constexpr size_t smem_bytes() {
-  return (size_t)(BQ * LDS + (KT ? HD * LDKT : BKV * LDS) + BKV * LDS) * sizeof(bf16) +
-         HD * sizeof(float);
-}
+template <int MODE, bool KT_>
+struct ProbeOp {
+  static constexpr bool KT = KT_;
 
-template <int MODE, bool KT, int BQ>
-__global__ void __launch_bounds__(BQ * 2)
-probe_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ o, int L, int Nq, int Nkv) {
-  constexpr int THREADS = BQ * 2;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BQ * LDS;
-  bf16* sV = sK + (KT ? HD * LDKT : BKV * LDS);
-  float* sVsum = reinterpret_cast<float*>(sV + BKV * LDS);  // MAX: column sums of V so far
+  struct Params {
+    bf16* o;
+    int L, Nq, Nkv;
+  };
 
-  const int q0 = blockIdx.x * BQ;
-  const int hq = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = hq / (Nq / Nkv);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const long long LH = (long long)L * HD;
-  const bf16* qb = q + ((long long)b * Nq + hq) * LH;
-  const bf16* kb = k + ((long long)b * Nkv + hk) * LH;
-  const bf16* vb = v + ((long long)b * Nkv + hk) * LH;
-  bf16* ob = o + ((long long)b * Nq + hq) * LH;
-
-  for (int c = tid; c < BQ * (HD / 8); c += THREADS) {
-    const int r = c / (HD / 8), col = (c % (HD / 8)) * 8;
-    *reinterpret_cast<uint4*>(sQ + r * LDS + col) =
-        *reinterpret_cast<const uint4*>(qb + (long long)(q0 + r) * HD + col);
-  }
-  if (MODE == MAX) {
-    for (int c = tid; c < HD; c += THREADS) sVsum[c] = 0.f;
-  }
-  __syncthreads();
-  uint32_t qf[HD / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    const bf16* p = sQ + (warp * 16 + (lane & 15)) * LDS + ks * 16 + (lane >> 4) * 8;
-    ldsm_x4(qf[ks][0], qf[ks][1], qf[ks][2], qf[ks][3], smem_addr(p));
+  __device__ static Tile tile(const Params& p, int bq) {
+    Tile t;
+    t.hq = blockIdx.x;
+    t.b = blockIdx.y;
+    t.q0 = blockIdx.z * bq;
+    t.hk = t.hq / (p.Nq / p.Nkv);
+    t.kt_begin = 0;
+    t.n_tiles = (p.L + BKV - 1) / BKV;
+    return t;
   }
 
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int i = 0; i < HD / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m_run[2] = {NEG_INF, NEG_INF};
-  float l_run[2] = {0.f, 0.f};
+  const Params p;
+  const Tile t;
+  float* vsum;   // this warpgroup's V column sums (MAX)
+  int tid, row0, t4;
+  float m_run[2], l_run[2];
+  float alpha[2];  // rescale factor of O per row (MAX: the growth d of the row max)
 
-  for (int k0 = 0; k0 < L; k0 += BKV) {
-    __syncthreads();  // the previous tile (and its V column sums) is consumed
-    if (KT) {
-      for (int c = tid; c < HD * (BKV / 8); c += THREADS) {
-        const int d = c / (BKV / 8), col = (c % (BKV / 8)) * 8;
-        *reinterpret_cast<uint4*>(sK + d * LDKT + col) =
-            *reinterpret_cast<const uint4*>(kb + (long long)d * L + k0 + col);
-      }
-    } else {
-      for (int c = tid; c < BKV * (HD / 8); c += THREADS) {
-        const int r = c / (HD / 8), col = (c % (HD / 8)) * 8;
-        *reinterpret_cast<uint4*>(sK + r * LDS + col) =
-            *reinterpret_cast<const uint4*>(kb + (long long)(k0 + r) * HD + col);
-      }
+  __device__ ProbeOp(const Params& p_, const Tile& t_, int wg, int tid_, float* vsum_)
+      : p(p_), t(t_), vsum(vsum_), tid(tid_) {
+    const int lane = tid & 31;
+    t4 = lane & 3;
+    row0 = t.q0 + wg * 64 + (tid >> 5) * 16 + (lane >> 2);
+    m_run[0] = m_run[1] = NEG_INF;
+    l_run[0] = l_run[1] = 0.f;
+    if (MODE == MAX) {
+      vsum[tid] = 0.f;
+      warpgroup_sync(wg);
     }
-    for (int c = tid; c < BKV * (HD / 8); c += THREADS) {
-      const int r = c / (HD / 8), col = (c % (HD / 8)) * 8;
-      *reinterpret_cast<uint4*>(sV + r * LDS + col) =
-          *reinterpret_cast<const uint4*>(vb + (long long)(k0 + r) * HD + col);
-    }
-    __syncthreads();
+  }
 
-    // S = Q K^T for 16 rows x 64 keys per warp.
-    float s[BKV / 8][4];
-#pragma unroll
-    for (int i = 0; i < BKV / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-#pragma unroll
-      for (int np = 0; np < BKV / 16; ++np) {
-        uint32_t b0, b1, b2, b3;
-        if (KT) {
-          const bf16* p = sK + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDKT + np * 16 +
-                          (lane >> 4) * 8;
-          ldsm_x4_t(b0, b1, b2, b3, smem_addr(p));
-        } else {
-          const bf16* p = sK + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LDS + ks * 16 +
-                          ((lane >> 3) & 1) * 8;
-          ldsm_x4(b0, b1, b2, b3, smem_addr(p));
-        }
-        mma_bf16_16816(s[2 * np], qf[ks], b0, b1);
-        mma_bf16_16816(s[2 * np + 1], qf[ks], b2, b3);
-      }
-    }
+  __device__ __forceinline__ void begin_tile(int) {}
 
+  __device__ __forceinline__ void scores(float (&s)[64], int k0) {
+    const int n_valid = p.L - k0;  // keys of this tile before L (>= BKV but for the last)
     if (MODE == DOTS) {
 #pragma unroll
-      for (int nt = 0; nt < BKV / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = s[nt][e] * SCALE * 1e-3f;
-    } else {
-      float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-      for (int nt = 0; nt < BKV / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[nt][e] *= SCALE;
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-        }
-      float m_old[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 2));
-        m_old[r] = m_run[r];
-        m_run[r] = fmaxf(m_run[r], mx[r]);
+      for (int i = 0; i < 64; ++i) {
+        const int col = 8 * (i / 4) + 2 * t4 + (i & 1);
+        s[i] = col < n_valid ? s[i] * SCALE * 1e-3f : 0.f;
       }
-      if (MODE == MAX) {
-        // acc held sum (S - m_old) V over earlier tiles: move it to m_run.
-        // Before the first tile sVsum is 0 and the finite d times 0 is 0.
-        const float d0 = m_run[0] - m_old[0], d1 = m_run[1] - m_old[1];
-#pragma unroll
-        for (int nt = 0; nt < HD / 8; ++nt) {
-          const float vs0 = sVsum[nt * 8 + 2 * t4], vs1 = sVsum[nt * 8 + 2 * t4 + 1];
-          acc[nt][0] -= d0 * vs0;
-          acc[nt][1] -= d0 * vs1;
-          acc[nt][2] -= d1 * vs0;
-          acc[nt][3] -= d1 * vs1;
-        }
-#pragma unroll
-        for (int nt = 0; nt < BKV / 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[nt][e] -= m_run[e >> 1];
-      } else {
-        float alpha[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          alpha[r] = mode_exp<MODE>(m_old[r] - m_run[r]);
-          l_run[r] *= alpha[r];
-        }
-#pragma unroll
-        for (int i = 0; i < HD / 8; ++i) {
-          acc[i][0] *= alpha[0];
-          acc[i][1] *= alpha[0];
-          acc[i][2] *= alpha[1];
-          acc[i][3] *= alpha[1];
-        }
-#pragma unroll
-        for (int nt = 0; nt < BKV / 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float p = mode_exp<MODE>(s[nt][e] - m_run[e >> 1]);
-            s[nt][e] = p;
-            l_run[e >> 1] += p;
-          }
-      }
+      return;
     }
-
-    // O += bf16(P) V: the S accumulators are already in the A-fragment layout.
+    float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int j = 0; j < BKV / 16; ++j) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      pa[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      pa[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      pa[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
-        uint32_t b0, b1, b2, b3;
-        const bf16* p = sV + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS + dp * 16 +
-                        (lane >> 4) * 8;
-        ldsm_x4_t(b0, b1, b2, b3, smem_addr(p));
-        mma_bf16_16816(acc[2 * dp], pa, b0, b1);
-        mma_bf16_16816(acc[2 * dp + 1], pa, b2, b3);
-      }
+    for (int i = 0; i < 64; ++i) {
+      const int col = 8 * (i / 4) + 2 * t4 + (i & 1);
+      s[i] = col < n_valid ? s[i] * SCALE : NEG_INF;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
     }
-
-    if (MODE == MAX) {
-      __syncthreads();  // every warp has read sVsum for this tile
-      for (int c = tid; c < HD; c += THREADS) {
-        float t = 0.f;
-        for (int r = 0; r < BKV; ++r) t += __bfloat162float(sV[r * LDS + c]);
-        sVsum[c] += t;
-      }
-    }
-  }
-
-  float inv[2] = {1.f, 1.f};
-  if (MODE == FULL || MODE == FULLF) {
+    float m_old[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float l = l_run[r];
-      l += __shfl_xor_sync(0xffffffff, l, 1);
-      l += __shfl_xor_sync(0xffffffff, l, 2);
-      inv[r] = 1.f / fmaxf(l, 1e-30f);
+      m_old[r] = m_run[r];
+      m_run[r] = fmaxf(m_run[r], quad_max(mx[r]));
+    }
+    if (MODE == MAX) {
+      // The row max grew by d: `rescale` moves O, which holds sum (S - m_old) V.
+#pragma unroll
+      for (int r = 0; r < 2; ++r) alpha[r] = m_run[r] - m_old[r];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) s[i] -= m_run[(i >> 1) & 1];
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        alpha[r] = mode_exp<MODE>(m_old[r] - m_run[r]);
+        l_run[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int r = (i >> 1) & 1;
+        const float e = mode_exp<MODE>(s[i] - m_run[r]);
+        s[i] = e;
+        l_run[r] += e;
+      }
     }
   }
-  const int row0 = q0 + warp * 16 + g;
+
+  // Called once P V of the earlier tiles has landed (and, for MAX, their V
+  // column sums are in vsum).
+  __device__ __forceinline__ void rescale(float (&acc)[64]) const {
+    if (MODE == MAX) {
+      // Before the first tile vsum is 0 and the finite d times 0 is 0.
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    bf16* orow = ob + (long long)(row0 + r * 8) * HD;
+      for (int j = 0; j < 16; ++j) {
+        const float vs0 = vsum[8 * j + 2 * t4], vs1 = vsum[8 * j + 2 * t4 + 1];
+        acc[4 * j + 0] -= alpha[0] * vs0;
+        acc[4 * j + 1] -= alpha[0] * vs1;
+        acc[4 * j + 2] -= alpha[1] * vs0;
+        acc[4 * j + 3] -= alpha[1] * vs1;
+      }
+    } else if (MODE != DOTS) {
 #pragma unroll
-    for (int nt = 0; nt < HD / 8; ++nt) {
-      *reinterpret_cast<uint32_t*>(orow + nt * 8 + 2 * t4) =
-          pack_bf16(acc[nt][2 * r] * inv[r], acc[nt][2 * r + 1] * inv[r]);
+      for (int i = 0; i < 64; ++i) acc[i] *= alpha[(i >> 1) & 1];
     }
   }
+
+  // MAX: add this V tile's column sums (zero-filled rows past L add 0).
+  __device__ __forceinline__ void after_pv(const bf16* v, int wg) {
+    if (MODE != MAX) return;
+    warpgroup_sync(wg);  // every thread has read vsum for this tile
+    const int half = tid >> 6, c = tid & 63;
+    const bf16* vh = v + half * BKV * BOX;
+    float sum = 0.f;
+#pragma unroll 8
+    for (int r = 0; r < BKV; ++r)
+      sum += __bfloat162float(vh[r * BOX + ((((c >> 3) ^ r) & 7) << 3) + (c & 7)]);
+    vsum[tid] += sum;
+    // Generic-proxy reads of the stage before the producer's TMA overwrites it.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    warpgroup_sync(wg);
+  }
+
+  __device__ __forceinline__ void finish(const float (&acc)[64]) {
+    bf16* ob = p.o + ((long long)t.b * p.Nq + t.hq) * (long long)p.L * HD;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float inv = 1.f;
+      if (MODE == FULL || MODE == FULLF) inv = 1.f / fmaxf(quad_sum(l_run[r]), 1e-30f);
+      bf16* orow = ob + (long long)(row0 + r * 8) * HD;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) =
+            pack_bf16(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+      }
+    }
+  }
+};
+
+template <int MODE, bool KT, int NWG>
+int launch_probe(const void* q, const void* k, const void* v, void* o, int B, int L, int Nq,
+                 int Nkv, cudaStream_t stream) {
+  const uint64_t l = L, hd = HD;
+  CUtensorMap mq, mk, mv;
+  // Head-major (B, N, L, 128): map {128, L, N, B}; K^T (B, N, 128, L): {L, 128, N, B}.
+  bool ok = make_map(&mq, q, {hd, l, (uint64_t)Nq, (uint64_t)B}, {hd, l * hd, Nq * l * hd},
+                     {(uint32_t)BOX, (uint32_t)(NWG * 64), 1u, 1u});
+  if (KT)
+    ok = ok && make_map(&mk, k, {l, hd, (uint64_t)Nkv, (uint64_t)B}, {l, hd * l, Nkv * hd * l},
+                        {(uint32_t)BOX, (uint32_t)HD, 1u, 1u});
+  else
+    ok = ok && make_map(&mk, k, {hd, l, (uint64_t)Nkv, (uint64_t)B}, {hd, l * hd, Nkv * l * hd},
+                        {(uint32_t)BOX, (uint32_t)BKV, 1u, 1u});
+  ok = ok && make_map(&mv, v, {hd, l, (uint64_t)Nkv, (uint64_t)B}, {hd, l * hd, Nkv * l * hd},
+                      {(uint32_t)BOX, (uint32_t)BKV, 1u, 1u});
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  typename ProbeOp<MODE, KT>::Params p;
+  p.o = static_cast<bf16*>(o);
+  p.L = L;
+  p.Nq = Nq;
+  p.Nkv = Nkv;
+  return launch<ProbeOp<MODE, KT>, NWG, STAGES>(mq, mk, mv, p, dim3(Nq, B, L / (NWG * 64)),
+                                                stream);
 }
 
-template <int MODE, bool KT, int BQ>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int L, int Nq, int Nkv,
-           cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<KT, BQ>();
-  cudaFuncSetAttribute(probe_kernel<MODE, KT, BQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dim3 grid(L / BQ, Nq, B);
-  probe_kernel<MODE, KT, BQ><<<grid, BQ * 2, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), L, Nq, Nkv);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool KT, int BQ>
+template <bool KT, int NWG>
 int by_mode(int mode, const void* q, const void* k, const void* v, void* o, int B, int L,
             int Nq, int Nkv, cudaStream_t st) {
   switch (mode) {
-    case DOTS: return launch<DOTS, KT, BQ>(q, k, v, o, B, L, Nq, Nkv, st);
-    case MAX: return launch<MAX, KT, BQ>(q, k, v, o, B, L, Nq, Nkv, st);
-    case EXP: return launch<EXP, KT, BQ>(q, k, v, o, B, L, Nq, Nkv, st);
-    case EXPF: return launch<EXPF, KT, BQ>(q, k, v, o, B, L, Nq, Nkv, st);
-    case FULL: return launch<FULL, KT, BQ>(q, k, v, o, B, L, Nq, Nkv, st);
-    case FULLF: return launch<FULLF, KT, BQ>(q, k, v, o, B, L, Nq, Nkv, st);
+    case DOTS: return launch_probe<DOTS, KT, NWG>(q, k, v, o, B, L, Nq, Nkv, st);
+    case MAX: return launch_probe<MAX, KT, NWG>(q, k, v, o, B, L, Nq, Nkv, st);
+    case EXP: return launch_probe<EXP, KT, NWG>(q, k, v, o, B, L, Nq, Nkv, st);
+    case EXPF: return launch_probe<EXPF, KT, NWG>(q, k, v, o, B, L, Nq, Nkv, st);
+    case FULL: return launch_probe<FULL, KT, NWG>(q, k, v, o, B, L, Nq, Nkv, st);
+    case FULLF: return launch_probe<FULLF, KT, NWG>(q, k, v, o, B, L, Nq, Nkv, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <int BQ>
+template <int NWG>
 int by_layout(int kt, int mode, const void* q, const void* k, const void* v, void* o, int B,
               int L, int Nq, int Nkv, cudaStream_t st) {
-  return kt ? by_mode<true, BQ>(mode, q, k, v, o, B, L, Nq, Nkv, st)
-            : by_mode<false, BQ>(mode, q, k, v, o, B, L, Nq, Nkv, st);
+  return kt ? by_mode<true, NWG>(mode, q, k, v, o, B, L, Nq, Nkv, st)
+            : by_mode<false, NWG>(mode, q, k, v, o, B, L, Nq, Nkv, st);
 }
 
 }  // namespace
 
 // mode: 0 dots, 1 +max, 2 +exp, 3 +expf, 4 full, 5 fullf; kt: K stored (B, Nkv, 128, L);
-// bq: 64 or 128 query rows per CTA. L must be a multiple of bq.
+// bq: 64 or 128 query rows per CTA (one or two consumer warpgroups). L must be a
+// multiple of bq. Returns a cudaError_t; cudaErrorInvalidValue when a tensor map
+// cannot be made.
 extern "C" int acestep_attention_probe(const void* q, const void* k, const void* v, void* o,
                                        int B, int L, int Nq, int Nkv, int mode, int kt, int bq,
                                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bq == 64) return by_layout<64>(kt, mode, q, k, v, o, B, L, Nq, Nkv, st);
-  if (bq == 128) return by_layout<128>(kt, mode, q, k, v, o, B, L, Nq, Nkv, st);
+  if (bq == 64) return by_layout<1>(kt, mode, q, k, v, o, B, L, Nq, Nkv, st);
+  if (bq == 128) return by_layout<2>(kt, mode, q, k, v, o, B, L, Nq, Nkv, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,7 +1,7 @@
-// Shared device helpers for the port's Hopper kernels: bf16 tensor-core
+// Device helpers of the Oobleck kernels (csrc/oobleck.cu): bf16 tensor-core
 // products through mma.sync (m16n8k16, fp32 accumulate), ldmatrix fragment
 // loads from shared memory, cp.async copies, and the sin^2 polynomial of
-// `ops/basic.sin2_f32`.
+// `ops/basic.sin2_f32`. The attention kernels use attention_sm90.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

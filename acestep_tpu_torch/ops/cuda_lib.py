@@ -2,9 +2,9 @@
 
 Each source `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface, `_build/lib<name>-<digest>.so`, at first
-use, and loaded with `ctypes`. The digest covers the source and the shared
-header, so an edited source is rebuilt. `build()` starts one `nvcc` per
-source, all at once. Nothing here runs at import time.
+use, and loaded with `ctypes`. The digest covers the source and every shared
+header (`_HEADERS`), so an edited source or header is rebuilt. `build()`
+starts one `nvcc` per source, all at once. Nothing here runs at import time.
 
 A C entry point takes pointers and the CUDA stream as `c_void_p` and returns
 `cudaGetLastError()` after its launches; `check` raises when that is not 0.
@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("flash_attention", "oobleck", "attention_probe")
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "attention_sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,14 +1,16 @@
 """Banded flash attention: CUDA kernel wrapper and its plain PyTorch version.
 
 Port of `acestep_tpu/ops/pallas_attention.py::flash_attention` (Pallas kernel
-`_band_kernel`). The kernel is `csrc/flash_attention.cu`: one CTA per
-(64-row q tile, q head, batch) with an online softmax over only the 64-key
-tiles inside the band; its source note gives what bounds it on an H100.
+`_band_kernel`). The kernel is `csrc/flash_attention.cu` on the Hopper
+mainloop of `csrc/attention_sm90.cuh`: one CTA per (128-row q tile, q head,
+batch), TMA loads of 128-key K/V tiles into a ring fed by a producer thread,
+wgmma products and an online softmax over only the key tiles inside the
+band; its source note gives what bounds it on an H100.
 
-`flash_attention` launches the kernel for a CUDA tensor (bf16, head_dim 128)
-and raises on anything it does not take; a CPU tensor takes
-`flash_attention_plain`, the einsum with an fp32 softmax. `.launches` counts
-the kernel launches.
+`flash_attention` launches the kernel for a CUDA tensor (bf16, head_dim 128,
+rows that TMA can read: see `_rows_ok`) and raises on anything it does not
+take, without copying; a CPU tensor takes `flash_attention_plain`, the einsum
+with an fp32 softmax. `.launches` counts the kernel launches.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ def flash_attention_plain(
 
 
 def _rows_ok(x: torch.Tensor) -> bool:
-    """(B, L, N, 128) readable through batch/row strides: heads packed, 16-byte rows."""
+    """(B, L, N, 128) readable by a TMA tensor map through its batch and row
+    strides: heads packed, strides and base address multiples of 16 bytes."""
     return (
         x.stride(3) == 1
         and x.stride(2) == HEAD_DIM
@@ -79,7 +82,12 @@ def flash_attention(
         raise ValueError("flash_attention: q heads must be a multiple of kv heads")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise ValueError(f"flash_attention: the kernel takes bf16, got {q.dtype}")
-    q, k, v = (x if _rows_ok(x) else x.contiguous() for x in (q, k, v))
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not _rows_ok(x):
+            raise ValueError(
+                f"flash_attention: {name} strides {tuple(x.stride())} are not TMA-readable "
+                "(heads packed, 16-byte-aligned strides and base)"
+            )
     mask = None
     if kv_mask is not None:
         mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()

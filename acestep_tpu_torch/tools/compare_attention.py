@@ -1,0 +1,126 @@
+"""Time the attention kernels (kernels 1 and 4) of several checkouts on one card.
+
+Each DIR holds an `acestep_tpu_torch` package: a `git archive` of a commit
+unpacked into a directory that `.gitignore` lists, or the working tree
+itself. All checkouts are built first, in parallel; then each one is timed in
+its own process, in turns (forward, then reverse order), so that two versions
+are compared on the same card in the same call. Per checkout and shape:
+kernel 1 at the main path's attention shapes (the DiT at 2 x 60 s and
+1 x 600 s: full, sliding w = 128, cross onto a padded 769-key condition; the
+text encoder; the 4B planner's prefill buckets) with its max abs error
+against the plain version, and kernel 4 in four modes at seq 3840 and 7552
+with 64 and 128 query rows per CTA. Times are ms from CUDA events, mean of 20
+(kernel 1) or 10 (kernel 4) launches after 3 warm-up launches.
+
+Usage: python -m acestep_tpu_torch.tools.compare_attention DIR [DIR ...] [--out FILE]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from typing import Optional, Sequence
+
+# Runs inside one checkout (argv[1]); argv[2] is "build" or "time".
+_CHILD = r"""
+import json, sys, torch
+sys.path.insert(0, sys.argv[1])
+from acestep_tpu_torch.ops import cuda_lib
+if sys.argv[2] == "build":
+    cuda_lib.build(["flash_attention", "attention_probe"])
+    sys.exit(0)
+from acestep_tpu_torch.ops.attention_probe import attention_probe
+from acestep_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+dev = torch.device("cuda")
+gen = torch.Generator(device=dev).manual_seed(0)
+rn = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+
+
+def ms(fn, n):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def mask(b, l, valid=()):
+    m = torch.ones((b, l), dtype=torch.int32, device=dev)
+    for i, n in enumerate(valid):
+        m[i, n:] = 0
+    return m
+
+
+out = {}
+for name, b, lq, lk, nq, nkv, kw in [
+    ("full_1x7500", 1, 7500, 7500, 16, 8, dict(kv_mask=mask(1, 7500))),
+    ("sliding_1x7500", 1, 7500, 7500, 16, 8, dict(kv_mask=mask(1, 7500), window=128)),
+    ("cross_1x7500", 1, 7500, 769, 16, 8, dict(kv_mask=mask(1, 769, [700]))),
+    ("full_2x750", 2, 750, 750, 16, 8, dict(kv_mask=mask(2, 750))),
+    ("sliding_2x750", 2, 750, 750, 16, 8, dict(kv_mask=mask(2, 750), window=128)),
+    ("cross_2x750", 2, 750, 769, 16, 8, dict(kv_mask=mask(2, 769, [700, 600]))),
+    ("text_causal_2x256", 2, 256, 256, 16, 8, dict(causal=True)),
+    ("prefill_2x1024", 2, 1024, 1024, 32, 8, dict(kv_mask=mask(2, 1024, [761, 703]), causal=True)),
+    ("prefill_2x2048", 2, 2048, 2048, 32, 8, dict(kv_mask=mask(2, 2048, [1130, 778]), causal=True)),
+]:
+    q, k, v = rn(b, lq, nq, 128), rn(b, lk, nkv, 128), rn(b, lk, nkv, 128)
+    run = lambda: flash_attention(q, k, v, kw.get("kv_mask"), window=kw.get("window"),
+                                  causal=kw.get("causal", False))
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), kw.get("kv_mask"),
+                                window=kw.get("window"), causal=kw.get("causal", False))
+    err = (run().float() - ref).abs().max().item()
+    del ref
+    out["flash " + name] = dict(ms=ms(run, 20), max_abs_err=err)
+for l in (3840, 7552):
+    q, k, v = rn(1, 16, l, 128), rn(1, 8, l, 128), rn(1, 8, l, 128)
+    for mode in ("dots", "+max", "+exp", "full"):
+        for bq in (64, 128):
+            out[f"probe {mode} L{l} bq{bq}"] = dict(
+                ms=ms(lambda: attention_probe(q, k, v, mode, block_q=bq), 10))
+print(json.dumps(out))
+"""
+
+
+def _child(path: str, what: str) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-c", _CHILD, path, what], capture_output=True, text=True)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("dirs", nargs="+", help="checkouts, each holding acestep_tpu_torch/")
+    ap.add_argument("--out", default=None, help="also write the readings as JSON here")
+    args = ap.parse_args(argv)
+    dirs = [os.path.abspath(d) for d in args.dirs]
+    procs = [subprocess.Popen([sys.executable, "-c", _CHILD, d, "build"]) for d in dirs]
+    if any(p.wait() != 0 for p in procs):
+        print("compare_attention: a build failed", file=sys.stderr)
+        return 1
+    runs = {d: [] for d in dirs}
+    for d in dirs + dirs[::-1]:
+        r = _child(d, "time")
+        if r.returncode != 0:
+            print(f"compare_attention: {d} failed\n{r.stderr[-3000:]}", file=sys.stderr)
+            return 1
+        runs[d].append(json.loads(r.stdout.strip().splitlines()[-1]))
+    names = [os.path.basename(d.rstrip("/")) for d in dirs]
+    print("ms, forward/reverse turn".ljust(30) + "".join(n[-20:].rjust(22) for n in names))
+    for case in runs[dirs[0]][0]:
+        print(case.ljust(30) + "".join(
+            f"{runs[d][0][case]['ms']:9.4f}/{runs[d][1][case]['ms']:9.4f}".rjust(22) for d in dirs))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({n: runs[d] for n, d in zip(names, dirs)}, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

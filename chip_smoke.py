@@ -10,17 +10,21 @@ Phases, each fatal on failure:
   2. the build of every CUDA kernel from `acestep_tpu_torch/csrc` (nvcc, in parallel);
   3. each kernel at main-path shapes against its plain PyTorch version in fp32 on
      the same bf16 inputs: max error and tolerance, kernel / plain / library
-     times from CUDA events, and the bound (bf16 tensor-core peak 989 TFLOP/s,
-     HBM 3.35 TB/s, the H100 SXM data-sheet rates). Attention also at the 4B
+     times from CUDA events (for attention also the kernel's device time from
+     `torch.profiler`, without the host's share of a call), and the bound
+     (bf16 tensor-core peak 989 TFLOP/s, HBM 3.35 TB/s, the H100 SXM
+     data-sheet rates). Attention also at the 4B
      planner's prefill (causal + right-padded prompt, 2 x 1024 and 2 x 2048,
-     32/8 heads) and at 1 x 7 500 DiT tokens; the stage probe (kernel 4) in
-     every mode and K layout at seq 3840 and 7552;
+     32/8 heads) and at 1 x 7 500 DiT tokens (full, sliding w = 128, cross onto
+     769 padded keys); the stage probe (kernel 4) in every mode and K layout
+     at seq 3840 and 7552;
   4. the whole pipeline at a narrow config on the card (bf16, kernels) against
      the same weights and noise on the CPU (fp32, plain versions), thinking
      off; then with thinking on (`run_small_thinking_reference`);
   5. `AceStepHandler.initialize_service(random_init=True)` at full width, one
      untimed warm-up request, then text2music requests (1 x 30 s, 2 x 60 s,
-     1 x 240 s, 1 x 600 s: the longest bucket, 7 500 DiT tokens);
+     1 x 240 s, 1 x 600 s: the longest bucket, 7 500 DiT tokens), and a
+     `torch.profiler` breakdown of one 600 s DiT step;
   6. requests with thinking on through `service.inference.generate_music` and
      the 4B planner (`LLMHandler(LM_CONFIGS["4B"])`), 1 x 60 s and 2 x 60 s
      after an untimed warm-up, and a profile of the planner's decode step;
@@ -69,6 +73,22 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int, name_part: str) -> float:
+    """Device time per call of the kernels whose name holds `name_part`, from
+    `torch.profiler`: the kernel alone, without the host's share of a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and name_part in e.name)
+    return us / 1e3 / iters
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -78,8 +98,9 @@ def attention_cases(dev, gen):
     16 q / 8 kv heads of 128), cross-attention onto a packed condition of
     lyric 512 + timbre 1 + text 256 with a padded tail, the Qwen3 text
     encoder's causal 256-token bucket, the 4B planner's prefill buckets
-    (32 q / 8 kv heads, causal plus a right-padded prompt mask) and a DiT
-    full-attention layer at 600 s (7 500 tokens)."""
+    (32 q / 8 kv heads, causal plus a right-padded prompt mask) and the three
+    DiT attention layers of a 600 s request (7 500 tokens): full, sliding
+    (w = 128) and cross onto the padded 769-key condition."""
 
     def qkv(b, lq, lk, nq=16, nkv=8):
         mk = lambda l, n: torch.randn((b, l, n, 128), generator=gen, device=dev).to(torch.bfloat16)
@@ -95,6 +116,7 @@ def attention_cases(dev, gen):
     enc_mask[0, 700:] = 0
     enc_mask[1, 600:] = 0
     lat_mask = torch.ones((2, 750), dtype=torch.int32, device=dev)
+    lat_600 = torch.ones((1, 7500), dtype=torch.int32, device=dev)
     return [
         ("dit_self_sliding_60s_b2", qkv(2, 750, 750), dict(kv_mask=lat_mask, window=128)),
         ("dit_self_full_60s_b2", qkv(2, 750, 750), dict(kv_mask=lat_mask)),
@@ -104,8 +126,9 @@ def attention_cases(dev, gen):
          dict(kv_mask=prompt_mask([761, 703], 1024), causal=True)),
         ("lm4b_prefill_codes_2x2048", qkv(2, 2048, 2048, 32, 8),
          dict(kv_mask=prompt_mask([1130, 778], 2048), causal=True)),
-        ("dit_self_full_600s_b1", qkv(1, 7500, 7500), dict(kv_mask=torch.ones((1, 7500), dtype=torch.int32,
-                                                                               device=dev))),
+        ("dit_self_full_600s_b1", qkv(1, 7500, 7500), dict(kv_mask=lat_600)),
+        ("dit_self_sliding_600s_b1", qkv(1, 7500, 7500), dict(kv_mask=lat_600, window=128)),
+        ("dit_cross_600s_b1", qkv(1, 7500, 769), dict(kv_mask=enc_mask[:1])),
     ]
 
 
@@ -136,8 +159,10 @@ def run_attention_phase(dev, gen, results):
         flops = 4.0 * pairs * q.shape[2] * q.shape[3]
         mbytes = nbytes(q, k, v, out) + (kw["kv_mask"].numel() * 4 if kw.get("kv_mask") is not None else 0)
         b_ms, b_by = bound_ms(flops, mbytes)
-        k_ms = time_ms(lambda: flash_attention(q, k, v, kw.get("kv_mask"), window=kw.get("window"),
-                                               causal=kw.get("causal", False)), 20)
+        run = lambda: flash_attention(q, k, v, kw.get("kv_mask"), window=kw.get("window"),
+                                      causal=kw.get("causal", False))
+        k_ms = time_ms(run, 20)
+        d_ms = device_ms(run, 10, "attention_sm90")
         p_ms = time_ms(lambda: flash_attention_plain(q, k, v, kw.get("kv_mask"), window=kw.get("window"),
                                                      causal=kw.get("causal", False)), 3)
         # Yardstick only: SDPA on the same bf16 inputs (the port never calls it).
@@ -147,7 +172,8 @@ def run_attention_phase(dev, gen, results):
         l_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), 20)
         del qt, kt, vt
         line = dict(phase=f"kernel flash_attention {name}", ok=ok, max_abs_err=err, tol=tol,
-                    kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                    kernel_ms=k_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                    bound_by=b_by,
                     shapes=dict(q=list(q.shape), k=list(k.shape)))
         print(json.dumps(line), flush=True)
         results.setdefault("flash_attention", []).append(line)
@@ -449,6 +475,18 @@ def run_requests(dev):
     h.generate_music(CAPTION, LYRICS, audio_duration=30.0, seeds=[1], use_random_seed=False)
     print(json.dumps(dict(phase="warm-up request b1x30s (untimed below)", seconds=time.time() - t0)), flush=True)
     requests = [(1, 30.0), (2, 60.0), (1, 240.0), (1, 600.0)]
+    # Keep the first DiT step's arguments of the 600 s request for its profile.
+    from acestep_tpu_torch.models import dit
+
+    step_args: dict = {}
+    dit_forward = dit.dit_forward
+
+    def spy(*a, **kw):
+        if not step_args and a[2].shape[1] >= 15000:
+            step_args.update(a=a, kw=kw)
+        return dit_forward(*a, **kw)
+
+    dit.dit_forward = spy
     _reset_counters()
     for i, (b, dur) in enumerate(requests):
         before = {k: fn.launches for k, fn in counted.items()}
@@ -473,8 +511,61 @@ def run_requests(dev):
         print(json.dumps(line), flush=True)
         if not ok:
             raise SystemExit(f"request b{b}x{dur}s: bad output {pcm.dtype} {pcm.shape} peak {peak}")
+    dit.dit_forward = dit_forward
     launches = _path_launches("text2music path", counted)
+    print(json.dumps(dict(phase="DiT step profile b1x600s", **_dit_step_profile(dit_forward, step_args))),
+          flush=True)
+    del step_args
     return h, launches
+
+
+def _kernel_kind(name: str) -> str:
+    if "attention_sm90" in name:
+        return "flash"
+    if any(t in name for t in ("gemm", "xmma", "nvjet", "cutlass", "sm90_", "wgmma")):
+        return "gemm"
+    return "other"
+
+
+def _dit_step_profile(dit_forward, step_args: dict, steps: int = 3) -> dict:
+    """One DiT step (`dit_forward`, 24 layers) of the 1 x 600 s request
+    (7 500 tokens), replayed on its own arguments: host-clock ms per step
+    around synchronised steps, and from `torch.profiler` the device time per
+    kernel name and per kind (flash kernel, GEMMs, other: elementwise,
+    norms, copies), kernels per step and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if not step_args:
+        raise SystemExit("the 600 s request never reached dit_forward at 7 500 tokens")
+    run = lambda: dit_forward(*step_args["a"], **step_args["kw"])
+    with torch.inference_mode():
+        run()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                run()
+            torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3 / steps, n + 1)
+    dev_ms = sum(ms for ms, _ in by_name.values())
+    kinds: dict = {}
+    for name, (ms, n) in by_name.items():
+        k = kinds.setdefault(_kernel_kind(name), dict(ms=0.0, kernels=0.0))
+        k["ms"] += ms
+        k["kernels"] += n / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(tokens=7500, wall_ms_per_step=wall_ms, device_ms_per_step=dev_ms,
+                kernels_per_step=sum(n for _, n in by_name.values()) / steps,
+                device_idle_share=max(0.0, 1.0 - dev_ms / wall_ms), by_kind=kinds,
+                top_kernels=[dict(name=n[:90], ms=ms, per_step=c / steps) for n, (ms, c) in top])
 
 
 THINKING_CAPTION = "a lo-fi hip hop beat with dusty vinyl crackle"  # warm-up only

@@ -42,6 +42,16 @@ def _randn(shape, seed, dev):
     return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
 
+def _scattered_mask(b, lk, dev):
+    """Holes that are not a prefix: some 128-key tiles all valid (interior),
+    others with a gap or every 7th key missing (edge)."""
+    mask = torch.ones((b, lk), dtype=torch.int32, device=dev)
+    mask[:, 300:340] = 0
+    mask[:, 600:700:7] = 0
+    mask[-1, lk - 50:] = 0
+    return mask
+
+
 @pytest.mark.parametrize(
     "b,lq,lk,nq,nkv,kw",
     [
@@ -51,18 +61,29 @@ def _randn(shape, seed, dev):
         (2, 384, 384, 4, 2, dict(causal=True, window=64)),
         (1, 200, 200, 4, 2, dict(pad=150)),
         (2, 256, 130, 4, 2, dict(pad=100)),
+        (1, 130, 130, 4, 2, {}),  # one row and one key past a 128 tile
+        (2, 130, 769, 4, 2, dict(pad=700)),
+        (1, 1000, 1000, 4, 2, dict(window=127)),  # band edges inside and on tile edges
+        (1, 1000, 1000, 4, 2, dict(window=128)),
+        (1, 1000, 1000, 4, 2, dict(window=129)),
+        (2, 1000, 1000, 4, 2, dict(scatter=True)),  # interior and edge tiles in one call
+        (2, 1000, 1000, 4, 2, dict(scatter=True, window=200)),
         (1, 7500, 7500, 16, 8, dict(window=128)),  # DiT sliding layer at 600 s
+        (1, 7500, 769, 16, 8, dict(pad=700)),  # DiT cross-attention at 600 s
         (1, 3000, 3000, 16, 8, {}),  # DiT full layer at 240 s
     ],
 )
 def test_flash_kernel_matches_plain(dev, b, lq, lk, nq, nkv, kw):
     kw = dict(kw)
     pad = kw.pop("pad", None)
+    scatter = kw.pop("scatter", False)
     q, k, v = _randn((b, lq, nq, 128), 1, dev), _randn((b, lk, nkv, 128), 2, dev), _randn((b, lk, nkv, 128), 3, dev)
     mask = None
     if pad is not None:
         mask = torch.ones((b, lk), dtype=torch.int32, device=dev)
         mask[:, pad:] = 0
+    if scatter:
+        mask = _scattered_mask(b, lk, dev)
     before = flash_attention.launches
     got = flash_attention(q, k, v, mask, **kw)
     torch.cuda.synchronize()
@@ -72,9 +93,10 @@ def test_flash_kernel_matches_plain(dev, b, lq, lk, nq, nkv, kw):
     assert (got.float() - want).abs().max().item() < 1e-2
 
 
-@pytest.mark.parametrize("lq", [1024, 2048])
+@pytest.mark.parametrize("lq", [700, 1024, 2048])
 def test_flash_kernel_at_the_lm_prefill_shape(dev, lq):
-    """4B planner prefill: causal plus a right-padded prompt mask, GQA 32/8."""
+    """4B planner prefill: causal plus a right-padded prompt mask, GQA 32/8
+    (700: a length that is not a multiple of the 128-row tile)."""
     q, k, v = _randn((2, lq, 32, 128), 6, dev), _randn((2, lq, 8, 128), 7, dev), _randn((2, lq, 8, 128), 8, dev)
     mask = torch.ones((2, lq), dtype=torch.int32, device=dev)
     mask[0, lq - 300:] = 0
@@ -89,9 +111,13 @@ def test_flash_kernel_at_the_lm_prefill_shape(dev, lq):
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("kt,bq", [(False, 64), (True, 64), (False, 128)])
-def test_attention_probe_kernel_matches_plain(dev, mode, kt, bq):
-    q, k, v = _randn((1, 16, 512, 128), 30, dev), _randn((1, 8, 512, 128), 31, dev), _randn((1, 8, 512, 128), 32, dev)
+@pytest.mark.parametrize(
+    "kt,bq,l",
+    [(False, 64, 512), (True, 64, 512), (False, 128, 512), (True, 128, 512),
+     (False, 64, 576), (True, 64, 576)],  # 576: the last 128-key tile is half masked
+)
+def test_attention_probe_kernel_matches_plain(dev, mode, kt, bq, l):
+    q, k, v = _randn((1, 16, l, 128), 30, dev), _randn((1, 8, l, 128), 31, dev), _randn((1, 8, l, 128), 32, dev)
     if kt:
         k = k.transpose(2, 3).contiguous()
     before = attention_probe.launches
@@ -112,15 +138,27 @@ def test_matmul_f32_keeps_the_fp32_product(dev):
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
 
 
-def test_flash_kernel_reads_strided_views(dev):
+@pytest.mark.parametrize("lk", [300, 769])
+def test_flash_kernel_reads_strided_views(dev, lk):
     """K/V as views into a wider buffer (no copy): batch/row strides differ."""
     q = _randn((2, 300, 4, 128), 4, dev)
-    kv = _randn((2, 300, 2, 2, 128), 5, dev)
+    kv = _randn((2, lk, 2, 2, 128), 5, dev)
     k, v = kv[:, :, 0], kv[:, :, 1]
     assert not k.is_contiguous()
     got = flash_attention(q, k, v, None, window=32)
     want = flash_attention_plain(q.float(), k.float(), v.float(), None, window=32)
     assert (got.float() - want).abs().max().item() < 1e-2
+
+
+def test_flash_kernel_refuses_rows_tma_cannot_read(dev):
+    """A row stride that is not a multiple of 16 bytes raises; nothing is copied."""
+    q = _randn((1, 256, 2, 128), 4, dev)
+    buf = _randn((1 * 256 * 260,), 5, dev)
+    k = buf.as_strided((1, 256, 2, 128), (256 * 260, 260, 128, 1))
+    before = flash_attention.launches
+    with pytest.raises(ValueError):
+        flash_attention(q, k, k)
+    assert flash_attention.launches == before
 
 
 def test_flash_kernel_refuses_fp32(dev):
