@@ -3,16 +3,21 @@
 Port of `acestep_tpu/ops/pallas_vae.py`:
 
 - `decoder_block_kernel` replaces `decoder_block_pallas`: one Oobleck decoder
-  block, Snake -> ConvTranspose1d (K = 2s, pad s/2) -> 3 residual units.
+  block, Snake -> ConvTranspose1d (K = 2s, pad s/2) -> 3 residual units, at
+  C_out in {128, 256, 512}. After a Snake launch on its input (`csrc/oobleck.cu`)
+  it runs the implicit-GEMM convolutions of `csrc/oobleck_sm90.cu` (TMA +
+  wgmma): the upsampling conv with the first unit's Snake in its epilogue,
+  then one fused launch per residual unit at C <= 256 (z stays in registers)
+  or two at C = 512 (z through HBM).
 - `res_units_kernel` replaces `res_units_pallas`: the 3-residual-unit chain
-  alone (decoder block 0, 1024 channels).
+  alone (decoder block 0, 1024 channels), as a short fixed sequence of
+  `csrc/oobleck.cu` launches (Snake, then conv-as-GEMM with fused
+  bias/Snake/residual epilogues).
 
-Both run `csrc/oobleck.cu` as a short fixed sequence of launches (Snake, then
-conv-as-GEMM with fused bias/Snake/residual epilogues); the source note there
-gives the design and what bounds it on an H100. Each wrapper counts its calls
-that launch the kernels in `.launches`. A CPU tensor takes the plain version
-beside it, which rounds to the input dtype at the same points as the kernels;
-a CUDA tensor launches the kernels or raises.
+The source notes give each design and what bounds it on an H100. Each wrapper
+counts its calls that launch the kernels in `.launches`. A CPU tensor takes
+the plain version beside it, which rounds to the input dtype at the same
+points as the kernels; a CUDA tensor launches the kernels or raises.
 
 Rows outside [0, L) read as zeros (torch zero padding), so the halo gates of
 the TPU kernels (`TOTAL_HALO`, `_upsample_halo`) only keep the dispatch in
@@ -22,7 +27,8 @@ the TPU kernels (`TOTAL_HALO`, `_upsample_halo`) only keep the dispatch in
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Optional, Sequence, Tuple
+import weakref
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +45,13 @@ _SIGNATURES = {
     "acestep_snake": ([_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P], ctypes.c_int),
     "acestep_conv_gemm": ([_P] * 7 + [ctypes.c_int] * 7 + [_P], ctypes.c_int),
 }
+_SM90_SIGNATURES = {
+    "acestep_oob_upsample": ([_P] * 7 + [ctypes.c_int] * 5 + [_P], ctypes.c_int),
+    "acestep_oob_unit": ([_P] * 12 + [ctypes.c_int] * 4 + [_P], ctypes.c_int),
+    "acestep_oob_k7": ([_P] * 6 + [ctypes.c_int] * 4 + [_P], ctypes.c_int),
+    "acestep_oob_k1": ([_P] * 8 + [ctypes.c_int] * 3 + [_P], ctypes.c_int),
+}
+SM90_CHANNELS = (128, 256, 512)  # output channels the decoder-block kernels take
 
 
 def _upsample_halo(s: int) -> int:
@@ -118,7 +131,10 @@ def _check_act(x: torch.Tensor, what: str) -> None:
 
 
 def _snake_cuda(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    ae, ib = (t.contiguous() for t in snake_consts(p))
+    return _snake_launch(x, *(t.contiguous() for t in snake_consts(p)))
+
+
+def _snake_launch(x: torch.Tensor, ae: torch.Tensor, ib: torch.Tensor) -> torch.Tensor:
     y = torch.empty_like(x)
     rc = _lib().acestep_snake(
         x.data_ptr(), ae.data_ptr(), ib.data_ptr(), y.data_ptr(), x.numel(), x.shape[-1], _stream(x)
@@ -173,6 +189,144 @@ def phase_weights(kernel: torch.Tensor, stride: int) -> torch.Tensor:
     return w.reshape(3, ci, s * co)
 
 
+def pack_conv_weights(kernel: torch.Tensor) -> torch.Tensor:
+    """(K, C_in, N) conv kernel -> (K, N, C_in) bf16: each tap K-major, the
+    B-operand layout of `csrc/oobleck_sm90.cu` (the wrappers keep one per
+    weight tensor)."""
+    return kernel.permute(0, 2, 1).to(torch.bfloat16).contiguous()
+
+
+def _sm90():
+    return cuda_lib.load("oobleck_sm90", _SM90_SIGNATURES)
+
+
+# Kernel operands derived from weights (packed kernels, fp32 biases, Snake
+# constants), kept per weight tensor so that a decode does not rebuild them
+# on every call: an entry holds while its tensors live unchanged (same
+# objects, same version counters) and is dropped when one is freed.
+_DERIVED: Dict[tuple, Tuple[tuple, Any]] = {}
+
+
+def _version(t: torch.Tensor) -> Optional[int]:
+    try:
+        return t._version
+    except RuntimeError:  # inference tensors keep no version counter (nor change in place)
+        return None
+
+
+def _derived(tag: str, tensors: Tuple[torch.Tensor, ...], make: Callable[[], Any]) -> Any:
+    key = (tag,) + tuple(id(t) for t in tensors)
+    stamp = tuple(_version(t) for t in tensors)
+    hit = _DERIVED.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[0], tensors)) and hit[1] == stamp:
+        return hit[2]
+    value = make()
+    drop = lambda _ref, key=key: _DERIVED.pop(key, None)
+    _DERIVED[key] = (tuple(weakref.ref(t, drop) for t in tensors), stamp, value)
+    return value
+
+
+def _f32(t: Optional[torch.Tensor], n: int, device: torch.device, repeat: int = 1) -> torch.Tensor:
+    if t is None:
+        return torch.zeros(n, device=device)
+    return _derived(f"f32x{repeat}", (t,), lambda: t.float().repeat(repeat).contiguous())
+
+
+def _packed(kernel: torch.Tensor, stride: Optional[int] = None) -> torch.Tensor:
+    """pack_conv_weights of the kernel, or of its phase weights when `stride` is given."""
+    if stride is None:
+        return _derived("packed", (kernel,), lambda: pack_conv_weights(kernel))
+    return _derived(f"phase{stride}", (kernel,), lambda: pack_conv_weights(phase_weights(kernel, stride)))
+
+
+def _snake_consts(p: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _derived("snake", (p["alpha"], p["beta"]), lambda: snake_consts(p))
+
+
+def _check_sm90(what: str, c: int, *ts: torch.Tensor) -> None:
+    """What the TMA kernels take: CUDA bf16 (B, L, C) contiguous, 16-byte
+    aligned bases (TMA reads nothing else), C in SM90_CHANNELS."""
+    if c not in SM90_CHANNELS:
+        raise ValueError(f"{what}: {c} channels; the kernels take {SM90_CHANNELS}")
+    for t in ts:
+        if t.device.type != "cuda" or t.dtype != torch.bfloat16 or t.dim() != 3 or not t.is_contiguous():
+            raise ValueError(f"{what}: expects contiguous bf16 (B, L, C) CUDA tensors, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: base address not 16-byte aligned; TMA cannot read it")
+
+
+def upsample_sm90(
+    a0: torch.Tensor, ct: Dict[str, torch.Tensor], stride: int, snake_next: Dict[str, torch.Tensor]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ConvTranspose1d (K = 2s, pad s/2) of a0 = bf16(Snake(x)), (B, L, C_in)
+    -> y (B, L s, C_out) = bf16(conv_t + bias) and a1 = bf16(snake_next(y)),
+    in one launch (CUDA tensors only)."""
+    b, l, ci = a0.shape
+    co = ct["kernel"].shape[2]
+    _check_sm90("upsample_sm90", co, a0)
+    n = stride * co
+    w = _packed(ct["kernel"], stride)
+    bias = _f32(ct.get("bias"), n, a0.device, repeat=stride)
+    ae, ib = _snake_consts(snake_next)
+    y = torch.empty((b, l, n), dtype=torch.bfloat16, device=a0.device)
+    a1 = torch.empty_like(y)
+    rc = _sm90().acestep_oob_upsample(
+        a0.data_ptr(), w.data_ptr(), bias.data_ptr(), ae.data_ptr(), ib.data_ptr(),
+        y.data_ptr(), a1.data_ptr(), b, l, ci, n, co, _stream(a0),
+    )
+    cuda_lib.check(rc, "oobleck_sm90 upsample")
+    return y.view(b, l * stride, co), a1.view(b, l * stride, co)
+
+
+def res_unit_sm90(
+    h: torch.Tensor,
+    a: torch.Tensor,
+    p: Dict[str, Any],
+    dilation: int,
+    snake_next: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One residual unit from h and a = bf16(Snake1(h)) (CUDA tensors only):
+    h' = bf16(h + conv_k1(z) + b2) with z = bf16(Snake2(conv_k7,d(a) + b1)),
+    and a_next = bf16(snake_next(h')) when `snake_next` is given. One launch
+    at C <= 256 (z in registers), two at C = 512 (z through HBM)."""
+    b, l, c = h.shape
+    _check_sm90("res_unit_sm90", c, h, a)
+    if a.shape != h.shape:
+        raise ValueError(f"res_unit_sm90: a {tuple(a.shape)} and h {tuple(h.shape)} differ")
+    w1, w2 = _packed(p["conv1"]["kernel"]), _packed(p["conv2"]["kernel"])
+    b1 = _f32(p["conv1"].get("bias"), c, h.device)
+    b2 = _f32(p["conv2"].get("bias"), c, h.device)
+    ae1, ib1 = _snake_consts(p["snake2"])
+    out = torch.empty_like(h)
+    a_next = aen = ibn = None
+    if snake_next is not None:
+        a_next = torch.empty_like(h)
+        aen, ibn = _snake_consts(snake_next)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib, stream = _sm90(), _stream(h)
+    if c <= 256:
+        rc = lib.acestep_oob_unit(
+            a.data_ptr(), h.data_ptr(), w1.data_ptr(), b1.data_ptr(), ae1.data_ptr(), ib1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), ptr(aen), ptr(ibn), out.data_ptr(), ptr(a_next),
+            b, l, c, dilation, stream,
+        )
+        cuda_lib.check(rc, "oobleck_sm90 unit")
+    else:
+        z = torch.empty_like(h)
+        rc = lib.acestep_oob_k7(
+            a.data_ptr(), w1.data_ptr(), b1.data_ptr(), ae1.data_ptr(), ib1.data_ptr(), z.data_ptr(),
+            b, l, c, dilation, stream,
+        )
+        cuda_lib.check(rc, "oobleck_sm90 k7")
+        rc = lib.acestep_oob_k1(
+            z.data_ptr(), h.data_ptr(), w2.data_ptr(), b2.data_ptr(), ptr(aen), ptr(ibn),
+            out.data_ptr(), ptr(a_next), b, l, c, stream,
+        )
+        cuda_lib.check(rc, "oobleck_sm90 k1")
+    return out, a_next
+
+
 def res_units_kernel(x: torch.Tensor, unit_params: Sequence[Dict[str, Any]]) -> torch.Tensor:
     """3-residual-unit chain (dilations 1/3/9) on (B, L, C) NLC activations."""
     if x.device.type == "cpu":
@@ -188,24 +342,19 @@ res_units_kernel.launches = 0
 
 
 def decoder_block_kernel(x: torch.Tensor, p: Dict[str, Any], stride: int) -> torch.Tensor:
-    """One decoder block (B, L, Ci) -> (B, L*stride, Co); stride even."""
+    """One decoder block (B, L, Ci) -> (B, L*stride, Co); stride even, Co in
+    SM90_CHANNELS on the card."""
     if stride % 2:
         raise ValueError("Oobleck decoder strides are even")
     if x.device.type == "cpu":
         return decoder_block_plain(x, p, stride)
     _check_act(x, "decoder_block_kernel")
-    b, l, _ = x.shape
-    ct = p["conv_t1"]
-    co = ct["kernel"].shape[2]
-    if co % 128:
-        raise ValueError(f"decoder_block_kernel: output channels {co} are not a multiple of 128")
-    a = _snake_cuda(x, p["snake1"])
-    bias = ct.get("bias")
-    bias_tiled = None if bias is None else bias.float().repeat(stride)
-    y = _conv_gemm(a, phase_weights(ct["kernel"], stride), bias_tiled, None, None, 1, 1)
-    y = y.view(b, l * stride, co)
-    for name, d in zip(("res_unit1", "res_unit2", "res_unit3"), DILATIONS):
-        y = _res_unit_cuda(y, p[name], d)
+    units = (p["res_unit1"], p["res_unit2"], p["res_unit3"])
+    _check_sm90("decoder_block_kernel", p["conv_t1"]["kernel"].shape[2], x)
+    a = _snake_launch(x, *_snake_consts(p["snake1"]))
+    y, a = upsample_sm90(a, p["conv_t1"], stride, units[0]["snake1"])
+    for k, (u, d) in enumerate(zip(units, DILATIONS)):
+        y, a = res_unit_sm90(y, a, u, d, units[k + 1]["snake1"] if k + 1 < len(units) else None)
     decoder_block_kernel.launches += 1
     return y
 

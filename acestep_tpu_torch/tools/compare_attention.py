@@ -17,12 +17,10 @@ Usage: python -m acestep_tpu_torch.tools.compare_attention DIR [DIR ...] [--out 
 
 from __future__ import annotations
 
-import argparse
-import json
-import os
-import subprocess
 import sys
 from typing import Optional, Sequence
+
+from acestep_tpu_torch.tools import compare
 
 # Runs inside one checkout (argv[1]); argv[2] is "build" or "time".
 _CHILD = r"""
@@ -90,36 +88,8 @@ print(json.dumps(out))
 """
 
 
-def _child(path: str, what: str) -> subprocess.CompletedProcess:
-    return subprocess.run([sys.executable, "-c", _CHILD, path, what], capture_output=True, text=True)
-
-
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("dirs", nargs="+", help="checkouts, each holding acestep_tpu_torch/")
-    ap.add_argument("--out", default=None, help="also write the readings as JSON here")
-    args = ap.parse_args(argv)
-    dirs = [os.path.abspath(d) for d in args.dirs]
-    procs = [subprocess.Popen([sys.executable, "-c", _CHILD, d, "build"]) for d in dirs]
-    if any(p.wait() != 0 for p in procs):
-        print("compare_attention: a build failed", file=sys.stderr)
-        return 1
-    runs = {d: [] for d in dirs}
-    for d in dirs + dirs[::-1]:
-        r = _child(d, "time")
-        if r.returncode != 0:
-            print(f"compare_attention: {d} failed\n{r.stderr[-3000:]}", file=sys.stderr)
-            return 1
-        runs[d].append(json.loads(r.stdout.strip().splitlines()[-1]))
-    names = [os.path.basename(d.rstrip("/")) for d in dirs]
-    print("ms, forward/reverse turn".ljust(30) + "".join(n[-20:].rjust(22) for n in names))
-    for case in runs[dirs[0]][0]:
-        print(case.ljust(30) + "".join(
-            f"{runs[d][0][case]['ms']:9.4f}/{runs[d][1][case]['ms']:9.4f}".rjust(22) for d in dirs))
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump({n: runs[d] for n, d in zip(names, dirs)}, f, indent=1)
-    return 0
+    return compare.main(_CHILD, "compare_attention", argv)
 
 
 if __name__ == "__main__":

@@ -8,7 +8,8 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi);
   2. the build of every CUDA kernel from `acestep_tpu_torch/csrc` (nvcc, in parallel);
-  3. each kernel at main-path shapes against its plain PyTorch version in fp32 on
+  3. each kernel at main-path shapes (the Oobleck kernels at the 224- and
+     544-frame decode chunks) against its plain PyTorch version in fp32 on
      the same bf16 inputs: max error and tolerance, kernel / plain / library
      times from CUDA events (for attention also the kernel's device time from
      `torch.profiler`, without the host's share of a call), and the bound
@@ -23,8 +24,9 @@ Phases, each fatal on failure:
      off; then with thinking on (`run_small_thinking_reference`);
   5. `AceStepHandler.initialize_service(random_init=True)` at full width, one
      untimed warm-up request, then text2music requests (1 x 30 s, 2 x 60 s,
-     1 x 240 s, 1 x 600 s: the longest bucket, 7 500 DiT tokens), and a
-     `torch.profiler` breakdown of one 600 s DiT step;
+     1 x 240 s, 1 x 600 s: the longest bucket, 7 500 DiT tokens), and
+     `torch.profiler` breakdowns of one 600 s DiT step and of one 544-frame
+     VAE decode chunk (the 240 s / 600 s chunk);
   6. requests with thinking on through `service.inference.generate_music` and
      the 4B planner (`LLMHandler(LM_CONFIGS["4B"])`), 1 x 60 s and 2 x 60 s
      after an untimed warm-up, and a profile of the planner's decode step;
@@ -253,19 +255,21 @@ def run_vae_phase(dev, gen, results):
     cfg = OobleckConfig()
     p = init_oobleck_params(cfg, seed=11, device=dev)["decoder"]
     _perturb_snakes(p, gen)
-    chunk = 224  # decode chunk of a 1 x 30 s request: core 192 + 2 x 16 overlap
     strides = tuple(reversed(cfg.downsampling_ratios))
-    l_in = chunk
     cases = []
-    for i, s in enumerate(strides):
-        bp = p["block"][i]
-        ci, co = bp["conv_t1"]["kernel"].shape[1:]
-        if i == 0:
-            units = (bp["res_unit1"], bp["res_unit2"], bp["res_unit3"])
-            cases.append(("res_units", f"block0_c{chunk}", (1, l_in * s, co), units, None))
-        else:
-            cases.append(("decoder_block", f"block{i}_c{chunk}", (1, l_in, ci), bp, s))
-        l_in *= s
+    # Decode chunks: 1 x 30 s (core 192 + 2 x 16 overlap) and the 240 s / 600 s
+    # requests (core 512 + 2 x 16), where a 600 s request runs 30 of them.
+    for chunk in (224, 544):
+        l_in = chunk
+        for i, s in enumerate(strides):
+            bp = p["block"][i]
+            ci, co = bp["conv_t1"]["kernel"].shape[1:]
+            if i == 0:
+                units = (bp["res_unit1"], bp["res_unit2"], bp["res_unit3"])
+                cases.append(("res_units", f"block0_c{chunk}", (1, l_in * s, co), units, None))
+            else:
+                cases.append(("decoder_block", f"block{i}_c{chunk}", (1, l_in, ci), bp, s))
+            l_in *= s
 
     for kname, label, shape, prm, stride in cases:
         x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -298,6 +302,8 @@ def run_vae_phase(dev, gen, results):
                     shapes=dict(x=list(shape), out=list(out.shape)))
         print(json.dumps(line), flush=True)
         results.setdefault(kname, []).append(line)
+        del x, out, ref
+        torch.cuda.empty_cache()
         if not ok:
             raise SystemExit(f"{kname} {label}: max_abs_err {err} > {tol}")
 
@@ -516,6 +522,7 @@ def run_requests(dev):
     print(json.dumps(dict(phase="DiT step profile b1x600s", **_dit_step_profile(dit_forward, step_args))),
           flush=True)
     del step_args
+    print(json.dumps(dict(phase="VAE decode chunk profile b1x544", **_vae_decode_profile(h))), flush=True)
     return h, launches
 
 
@@ -550,22 +557,103 @@ def _dit_step_profile(dit_forward, step_args: dict, steps: int = 3) -> dict:
             for _ in range(steps):
                 run()
             torch.cuda.synchronize()
+    dev_ms, n_kernels, kinds, top = _device_summary(prof, steps, _kernel_kind)
+    return dict(tokens=7500, wall_ms_per_step=wall_ms, device_ms_per_step=dev_ms,
+                kernels_per_step=n_kernels, device_idle_share=max(0.0, 1.0 - dev_ms / wall_ms),
+                by_kind=kinds, top_kernels=top)
+
+
+def _device_summary(prof, reps: int, kind) -> tuple:
+    """Device-kernel time per repetition of a `torch.profiler` window: total
+    ms, kernels, ms and kernels by `kind(name)`, and the 8 longest kernels."""
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3 / steps, n + 1)
-    dev_ms = sum(ms for ms, _ in by_name.values())
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3 / reps, n + 1)
     kinds: dict = {}
     for name, (ms, n) in by_name.items():
-        k = kinds.setdefault(_kernel_kind(name), dict(ms=0.0, kernels=0.0))
+        k = kinds.setdefault(kind(name), dict(ms=0.0, kernels=0.0))
         k["ms"] += ms
-        k["kernels"] += n / steps
+        k["kernels"] += n / reps
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    return dict(tokens=7500, wall_ms_per_step=wall_ms, device_ms_per_step=dev_ms,
-                kernels_per_step=sum(n for _, n in by_name.values()) / steps,
-                device_idle_share=max(0.0, 1.0 - dev_ms / wall_ms), by_kind=kinds,
-                top_kernels=[dict(name=n[:90], ms=ms, per_step=c / steps) for n, (ms, c) in top])
+    return (sum(ms for ms, _ in by_name.values()), sum(n for _, n in by_name.values()) / reps, kinds,
+            [dict(name=n[:90], ms=ms, per_rep=c / reps) for n, (ms, c) in top])
+
+
+def _decode_kind(name: str) -> str:
+    if "oobleck_conv_sm90" in name:
+        return "kernel2_oobleck_conv_sm90"
+    if "conv_gemm_kernel" in name:
+        return "kernel3_conv_gemm"
+    if "snake_kernel" in name:
+        return "snake_kernel (block input of kernel 2, units of kernel 3)"
+    if any(t in name for t in ("gemm", "xmma", "nvjet", "cutlass", "sm90_", "conv", "cudnn")):
+        return "gemm_conv (plain conv_t of block 0, conv_in, conv_out)"
+    return "other (elementwise: plain Snakes, bias adds, casts, _to_pcm)"
+
+
+def _vae_decode_profile(h, frames: int = 544, reps: int = 3) -> dict:
+    """One decode chunk of the 240 s and 600 s requests (544 latent frames:
+    core 512 + 2 x 16) through the full-width decoder, as `vae.decode` runs
+    it, then `_to_pcm`: device ms per part from CUDA events between the
+    parts (conv_in, decoder blocks 0-4, final Snake + conv, `_to_pcm`; block 0
+    is Snake + the plain conv_t + kernel 3, blocks 1-4 are kernel 2), the
+    whole chunk on the host clock around synchronised calls, and from
+    `torch.profiler` the device time by kernel kind, kernels per chunk and
+    the device's idle share. A 600 s request decodes 30 such chunks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from acestep_tpu_torch.models import vae
+    from acestep_tpu_torch.ops.conv import conv1d
+
+    cfg, d = h.vae_config, h.vae_params["decoder"]
+    gen = torch.Generator(device=h.device).manual_seed(5)
+    z = torch.randn((1, frames, d["conv1"]["kernel"].shape[1]), generator=gen, device=h.device).to(h.dtype)
+    strides = tuple(reversed(cfg.downsampling_ratios))
+    names = (["conv_in"] + [f"block{i}" + (" (snake + plain conv_t + kernel 3)" if i == 0 else " (kernel 2)")
+                            for i in range(len(strides))] + ["final snake + conv", "_to_pcm"])
+
+    def chunk(marks=None):
+        def mark():
+            if marks is not None:
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record()
+
+        mark()
+        x = conv1d(z, d["conv1"]["kernel"], d["conv1"].get("bias"), padding=3)
+        mark()
+        for i, s in enumerate(strides):
+            x = vae.decoder_block(d["block"][i], x, s)
+            mark()
+        x = conv1d(vae.snake(d["snake1"], x), d["conv2"]["kernel"], d["conv2"].get("bias"), padding=3)
+        mark()
+        h._to_pcm(x, -1.0)
+        mark()
+
+    with torch.inference_mode():
+        chunk()
+        torch.cuda.synchronize()
+        parts = [0.0] * len(names)
+        for _ in range(reps):
+            marks: list = []
+            chunk(marks)
+            torch.cuda.synchronize()
+            for k in range(len(names)):
+                parts[k] += marks[k].elapsed_time(marks[k + 1]) / reps
+        t0 = time.time()
+        for _ in range(reps):
+            chunk()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3 / reps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                chunk()
+            torch.cuda.synchronize()
+    dev_ms, n_kernels, kinds, top = _device_summary(prof, reps, _decode_kind)
+    return dict(frames=frames, wall_ms_per_chunk=wall_ms, parts_ms=dict(zip(names, parts)),
+                device_ms_per_chunk=dev_ms, kernels_per_chunk=n_kernels,
+                device_idle_share=max(0.0, 1.0 - dev_ms / wall_ms), by_kind=kinds, top_kernels=top)
 
 
 THINKING_CAPTION = "a lo-fi hip hop beat with dusty vinyl crackle"  # warm-up only
@@ -771,7 +859,7 @@ def main() -> int:
     replaces = {
         "flash_attention": ("acestep_tpu_torch/csrc/flash_attention.cu",
                             "acestep_tpu/ops/pallas_attention.py:130"),
-        "decoder_block": ("acestep_tpu_torch/csrc/oobleck.cu", "acestep_tpu/ops/pallas_vae.py:202"),
+        "decoder_block": ("acestep_tpu_torch/csrc/oobleck_sm90.cu", "acestep_tpu/ops/pallas_vae.py:202"),
         "res_units": ("acestep_tpu_torch/csrc/oobleck.cu", "acestep_tpu/ops/pallas_vae.py:89"),
         "attention_probe": ("acestep_tpu_torch/csrc/attention_probe.cu", "tools/probe_kernel_parts.py:47"),
     }

@@ -16,12 +16,18 @@ import torch
 from acestep_tpu_torch.config import OobleckConfig
 from acestep_tpu_torch.ops.attention_probe import MODES, attention_probe, attention_probe_plain
 from acestep_tpu_torch.ops.basic import matmul_f32
+from acestep_tpu_torch.ops.conv import conv_transpose1d
 from acestep_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from acestep_tpu_torch.ops.oobleck_kernels import (
+    DILATIONS,
     decoder_block_kernel,
     decoder_block_plain,
+    res_unit_plain,
+    res_unit_sm90,
     res_units_kernel,
     res_units_plain,
+    snake_f32,
+    upsample_sm90,
 )
 from acestep_tpu_torch.params import init_oobleck_params
 
@@ -200,3 +206,95 @@ def test_res_units_kernel_matches_plain(dev, oobleck):
     got = res_units_kernel(x, units)
     want = res_units_plain(x.float(), units)
     assert (got.float() - want).abs().max().item() <= 3e-2 * max(1.0, want.abs().max().item())
+
+
+@pytest.fixture
+def oobleck_biased(oobleck, dev):
+    """The `oobleck` weights with random conv biases (the init's are zeros)."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    blocks = []
+    for blk in oobleck["block"]:
+        blk = dict(blk)
+        blk["conv_t1"] = dict(blk["conv_t1"])
+        blk["conv_t1"]["bias"] = 0.3 * torch.randn(blk["conv_t1"]["bias"].shape, generator=g, device=dev)
+        for i in (1, 2, 3):
+            unit = dict(blk[f"res_unit{i}"])
+            for conv in ("conv1", "conv2"):
+                unit[conv] = dict(unit[conv])
+                unit[conv]["bias"] = 0.3 * torch.randn(unit[conv]["bias"].shape, generator=g, device=dev)
+            blk[f"res_unit{i}"] = unit
+        blocks.append(blk)
+    return dict(oobleck, block=blocks)
+
+
+def _close(got, want):
+    return (got.float() - want).abs().max().item() <= 3e-2 * max(1.0, want.abs().max().item())
+
+
+# Decoder blocks by output channels: block 1 -> 512, block 2 -> 256, block 3 -> 128.
+_BLOCK_OF_C = {512: 1, 256: 2, 128: 3}
+
+
+@pytest.mark.parametrize("b,l", [(1, 77), (2, 300), (1, 1024)])  # below a tile, ragged, whole tiles
+@pytest.mark.parametrize("unit", [1, 2, 3])
+@pytest.mark.parametrize("c", [128, 256, 512])
+def test_res_unit_sm90_matches_plain(dev, oobleck_biased, c, unit, b, l):
+    """One residual unit (fused at C <= 256, k7 + k1 at 512): h' against the
+    plain unit, and a_next = bf16(Snake1_next(h')) of the kernel's own h'."""
+    bp = oobleck_biased["block"][_BLOCK_OF_C[c]]
+    u, d = bp[f"res_unit{unit}"], DILATIONS[unit - 1]
+    nxt = bp[f"res_unit{unit % 3 + 1}"]["snake1"]
+    h = _randn((b, l, c), 50 + unit, dev)
+    a = snake_f32(h.float(), u["snake1"]).to(torch.bfloat16)
+    got, got_a = res_unit_sm90(h, a, u, d, nxt)
+    torch.cuda.synchronize()
+    want = res_unit_plain(h.float(), u, d)
+    assert torch.isfinite(got).all()
+    assert _close(got, want)
+    # The same fp32 Snake on the same bf16 input: at most one bf16 rounding step apart.
+    want_a = snake_f32(got.float(), nxt)
+    assert ((got_a.float() - want_a).abs() <= 2.0**-7 * want_a.abs() + 1e-6).all()
+    last, none = res_unit_sm90(h, a, u, d)
+    assert none is None and torch.equal(last, got)
+
+
+@pytest.mark.parametrize("block,b,l_in", [(1, 1, 23), (1, 2, 64), (2, 1, 100), (2, 2, 37), (3, 1, 300), (4, 2, 700)])
+def test_decoder_block_sm90_matches_plain(dev, oobleck_biased, block, b, l_in):
+    stride = (10, 6, 4, 4, 2)[block]
+    bp = oobleck_biased["block"][block]
+    ci = bp["conv_t1"]["kernel"].shape[1]
+    x = _randn((b, l_in, ci), 60 + block, dev)
+    before = decoder_block_kernel.launches
+    got = decoder_block_kernel(x, bp, stride)
+    torch.cuda.synchronize()
+    assert decoder_block_kernel.launches == before + 1
+    want = decoder_block_plain(x.float(), bp, stride)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert _close(got, want)
+
+
+@pytest.mark.parametrize("block", [1, 4])
+def test_upsample_sm90_writes_the_first_units_snake(dev, oobleck_biased, block):
+    stride = (10, 6, 4, 4, 2)[block]
+    bp = oobleck_biased["block"][block]
+    a0 = _randn((2, 150, bp["conv_t1"]["kernel"].shape[1]), 70 + block, dev)
+    y, a1 = upsample_sm90(a0, bp["conv_t1"], stride, bp["res_unit1"]["snake1"])
+    ct = bp["conv_t1"]
+    want = conv_transpose1d(a0.float(), ct["kernel"].float(), ct["bias"].float(), stride=stride, padding=stride // 2)
+    assert y.shape == want.shape and _close(y, want)
+    want_a = snake_f32(y.float(), bp["res_unit1"]["snake1"])
+    assert ((a1.float() - want_a).abs() <= 2.0**-7 * want_a.abs() + 1e-6).all()
+
+
+def test_decoder_block_kernel_refuses_other_channel_counts(dev, oobleck):
+    """C_out = 384 is outside {128, 256, 512}: the wrapper raises before any launch."""
+    bp = dict(oobleck["block"][2])
+    bp["conv_t1"] = dict(bp["conv_t1"], kernel=torch.zeros((8, 512, 384), device=dev))
+    x = _randn((1, 40, 512), 80, dev)
+    before = decoder_block_kernel.launches
+    with pytest.raises(ValueError):
+        decoder_block_kernel(x, bp, 4)
+    assert decoder_block_kernel.launches == before
+    h = _randn((1, 40, 384), 81, dev)
+    with pytest.raises(ValueError):
+        res_unit_sm90(h, h, oobleck["block"][2]["res_unit1"], 1)
