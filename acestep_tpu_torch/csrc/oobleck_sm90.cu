@@ -1,23 +1,53 @@
-// Oobleck decoder block (kernel 2) for Hopper (sm_90a): the upsampling
-// transposed conv and the residual units as implicit-GEMM convolutions on one
-// TMA + wgmma mainloop, with fused epilogues at the TPU kernel's bf16 rounding
-// points. ops/oobleck_kernels.decoder_block_kernel composes the launches.
+// Oobleck decoder kernels for Hopper (sm_90a): the decoder block (kernel 2)
+// and the residual-unit chain of block 0 (kernel 3), as implicit-GEMM
+// convolutions on one TMA + wgmma mainloop, with fused epilogues at the TPU
+// kernels' bf16 rounding points. ops/oobleck_kernels composes the launches:
+// decoder_block_kernel (kernel 2) and res_units_kernel (kernel 3).
 //
-// Replaces `decoder_block_pallas` (acestep_tpu/ops/pallas_vae.py:202), which
-// runs a whole block in one VMEM pass. A fused block at 512 channels does not
-// fit an SM's 227 KB of shared memory, so a block is a short fixed sequence of
-// launches (C = the block's output channels; every output is bf16):
+// Kernel 2 replaces `decoder_block_pallas` (acestep_tpu/ops/pallas_vae.py:202),
+// which runs a whole block in one VMEM pass. A fused block at 512 channels
+// does not fit an SM's 227 KB of shared memory, so a block is a short fixed
+// sequence of launches (C = the block's output channels; every output is bf16):
 //   snake_kernel (csrc/oobleck.cu)  a0 = Snake(x), on the 1/s input rows
 //   upsample                        y = conv_t(a0) + bias;  a1 = Snake1_unit1(y)
 //   unit k, C <= 256, one launch    z = Snake2_k(conv_k7,d(a_k) + b1), kept in registers
 //                                   h' = h + conv_k1(z) + b2;  a_{k+1} = Snake1_{k+1}(h')
 //   unit k, C = 512, two launches   k7: z -> HBM;  k1: h', a_{k+1}
-// 5 launches per block at C <= 256 and 8 at C = 512 (11 before). The conv_t
-// is a 3-tap conv over x[t-1], x[t], x[t+1] whose weights hold the phases in
+// 5 launches per block at C <= 256 and 8 at C = 512. The conv_t is a 3-tap
+// conv over x[t-1], x[t], x[t+1] whose weights hold the phases in
 // (phase * C_out + c) columns, so the output (B, L, s C) is the upsampled
 // (B, L s, C). Rounding points: Snake outputs, the fp32 k7 sum after Snake2,
 // the fp32 residual sum and the fp32 conv_t sum, each rounded once; a Snake
 // epilogue reads the rounded value it follows.
+//
+// Kernel 3 replaces `res_units_pallas` (same file, :89): the 3 units alone at
+// C = 1024 (block 0's output, after its plain Snake and conv_t), 7 launches:
+// snake_kernel for unit 1's Snake1, then per unit k7 (z -> HBM) and k1 (h',
+// with the next unit's Snake1 in its epilogue), on the stream-K instance
+// (SK) below. Bound at C = 1024: 48 L C^2 flops against ~4 L C bytes of
+// activations and 48 MB of weights, so operations (1x2240 rows: 0.114 ms;
+// 1x5440: 0.277 ms), and the k7s are 7/8 of them. What held the
+// data-parallel walk far above that is the tile count: a k7 tile of 128 rows
+// x 256 channels is K = 7 taps x 16 chunks = 112 steps of 4.19 MFLOP, at
+// least 62.7 us on one SM (989/132 TFLOP/s). The 224-frame chunk has 18 row
+// tiles x 4 = 72 tiles: one round on 72 of 132 SMs, a floor of 0.188 ms for
+// the three k7s; the 544-frame chunk 43 x 4 = 172: two rounds, the second 30 %
+// full, 0.376 ms. Stream-K splits the (tile, K step) space evenly over the
+// persistent CTAs instead (CUTLASS's hybrid: whole data-parallel rounds
+// first, then the last, partial round's K steps): 62 steps per CTA at c224
+// (floor 0.104 ms), 112 + 34 = 146 at c544 (0.245 ms). A CTA's steps are cut
+// at tile edges into segments; the CTA that holds a tile's step 0 owns it,
+// and any other CTA holds only its first segment's tile partly, so each CTA
+// leaves at most one fp32 partial (128 KB, its workspace slot) and raises its
+// flag (release). The owner, after its own steps, waits for its peers' flags
+// (acquire; they wrote their partials first thing) and adds their partials in
+// CTA order, a fixed order: the result is the same bits on every run. Only
+// then the epilogue, since Snake2 is not linear. The waits are safe because
+// the grid never exceeds the CTAs the card holds at once (one per SM at 212
+// KB; checked on the host), and a wait over 10 s traps. The host computes
+// the split (ops/oobleck_kernels.streamk_schedule) and passes it in Params;
+// the k1 launches take the same instance with every tile whole (16 steps a
+// tile, bound by bytes). Flags carry a per-launch epoch, so nothing is reset.
 //
 // Mainloop: acc[t, n] = sum_j sum_ci a[t + j d - pad, ci] W[j, n, ci].
 //   - Tile: 128 output rows x NT output channels of one batch row. The grid is
@@ -47,7 +77,7 @@
 //     layout (4-byte accesses, fully unrolled), the epilogue had cost more
 //     than the products and the loads together.
 //
-// Bound, H100 SXM (989 TFLOP/s bf16, 3.35 TB/s). As a whole block (inputs and
+// Bound of kernel 2, H100 SXM (989 TFLOP/s bf16, 3.35 TB/s). As a whole block (inputs and
 // output once, the kernel table's bound) all four blocks are bound by
 // operations: 4 L_out C_in C + 48 L_out C^2 flops. Per fused unit at C = 128,
 // its own HBM traffic (read a and h, write h' and a_next: 8 C bytes per row)
@@ -70,6 +100,8 @@
 // accumulators alone would be 256, past the 255 a thread can hold, and z
 // (128 KB per 128-row tile) does not fit shared memory beside the ring
 // either. So at 512 the k7 stage writes z and the k1 stage reads it.
+
+#include <atomic>
 
 #include "common.cuh"  // sin2_poly, shared with csrc/oobleck.cu
 #include "sm90.cuh"
@@ -120,6 +152,13 @@ struct Params {
   int taps, dil, pad;
   int n_ci2;        // fused unit: 64-channel chunks of z (the k1 stage), else 0
   int n_nt, batch;  // output-channel tiles, batch rows
+  // The stream-K walk (SK instance, kernel 3): tiles [0, dp_tiles) in
+  // data-parallel rounds, then the K steps of tiles [dp_tiles, tiles) split
+  // over CTAs [0, sk_ctas), CTA c taking sk_q steps, plus one if c < sk_r.
+  int dp_tiles, sk_ctas, sk_q, sk_r;
+  float* ws;   // one 128 KB slot of fp32 partial accumulators per CTA
+  int* flags;  // per CTA: `epoch` once its slot holds this launch's partial
+  int epoch;
 };
 
 // Output tile `tile` of the persistent grid: row tiles vary fastest, so the
@@ -142,8 +181,30 @@ __device__ __forceinline__ int n_tiles(const Params& p) {
 
 // Ring steps of one tile: (tap, chunk) steps, then the fused unit's W2 steps.
 template <class SM>
-__device__ __forceinline__ int n_steps(const Params& p) {
+__host__ __device__ __forceinline__ int n_steps(const Params& p) {
   return p.taps * p.n_ci + SM::NH * p.n_ci2;
+}
+
+// Stream-K segments of CTA blockIdx.x, in order: its run of K steps over the
+// split tiles, cut at tile edges, as f(tile, k0, k1) for steps k0 .. k1 - 1.
+// ops/oobleck_kernels.streamk_segments is the same walk in Python.
+template <class F>
+__device__ __forceinline__ void sk_segments(const Params& p, int steps, F&& f) {
+  const int c = blockIdx.x;
+  if (c >= p.sk_ctas) return;
+  int i = c * p.sk_q + min(c, p.sk_r);
+  const int end = i + p.sk_q + (c < p.sk_r ? 1 : 0);
+  while (i < end) {
+    const int k0 = i % steps, k1 = min(steps, k0 + end - i);
+    f(p.dp_tiles + i / steps, k0, k1);
+    i += k1 - k0;
+  }
+}
+
+// The CTA whose stream-K run holds split step i (counted over the split tiles).
+__device__ __forceinline__ int sk_cta_of(const Params& p, int i) {
+  const int big = p.sk_r * (p.sk_q + 1);
+  return i < big ? i / (p.sk_q + 1) : p.sk_r + (i - big) / p.sk_q;
 }
 
 __device__ __forceinline__ float2 ld2(const float* p) {
@@ -164,36 +225,49 @@ __device__ __forceinline__ void fence_acc(float (&acc)[NH][64]) {
 // The two roles
 // ---------------------------------------------------------------------------
 
-// The producer thread: every tile of this CTA in turn, the ring running on
-// across tiles, so the next tile's first stages load during this tile's
-// epilogue.
+// The producer's loads of ring steps k0 .. k1 - 1 of one tile. `a` is
+// {C, L, B, 1} with box {64, BM}; W is {C_in, N, taps, 1} with box {64, NT};
+// W2 of the fused unit is {C, C, 1, 1} with box {64, 128}, loaded per
+// (128-channel half of n, 64-channel chunk of z).
 template <class SM>
+__device__ __forceinline__ void produce_steps(SM& sm, const CUtensorMap* ma,
+                                              const CUtensorMap* mw, const CUtensorMap* mw2,
+                                              const Params& p, int tile, int k0, int k1,
+                                              int& ring) {
+  constexpr int STAGES = SM::STAGES;
+  const int n1 = p.taps * p.n_ci;
+  const TileIdx ti = tile_at<SM>(p, tile);
+  for (int k = k0; k < k1; ++k, ++ring) {
+    const int s = ring % STAGES;
+    mbar_wait(&sm.empty[s], ((ring / STAGES) & 1) ^ 1);
+    if (k < n1) {
+      const int j = k / p.n_ci, c = k % p.n_ci;
+      mbar_expect_tx(&sm.full[s], SM::A_BYTES + SM::B_BYTES);
+      tma_load_4d(&sm.a[s][0][0], ma, &sm.full[s], c * BK, ti.t0 + j * p.dil - p.pad, ti.b, 0);
+      tma_load_4d(&sm.b[s][0][0], mw, &sm.full[s], c * BK, ti.n0, j, 0);
+    } else {
+      const int half = (k - n1) / p.n_ci2 % SM::NH, c = (k - n1) % p.n_ci2;
+      mbar_expect_tx(&sm.full[s], 128 * BK * 2);
+      tma_load_4d(&sm.b[s][0][0], mw2, &sm.full[s], c * BK, half * 128, 0, 0);
+    }
+  }
+}
+
+// The producer thread: every tile (or stream-K segment) of this CTA in turn,
+// exactly the consumers' sequence, the ring running on across tiles, so the
+// next tile's first stages load during this tile's epilogue.
+template <class SM, bool SK>
 __device__ __forceinline__ void produce(SM& sm, const CUtensorMap* ma,
                                         const CUtensorMap* mw, const CUtensorMap* mw2,
                                         const Params& p) {
-  // `a` is {C, L, B, 1} with box {64, BM}; W is {C_in, N, taps, 1} with box
-  // {64, NT}; W2 of the fused unit is {C, C, 1, 1} with box {64, 128}, loaded
-  // per (128-channel half of n, 64-channel chunk of z).
-  constexpr int STAGES = SM::STAGES;
-  const int n1 = p.taps * p.n_ci, steps = n_steps<SM>(p);
+  const int steps = n_steps<SM>(p);
   int ring = 0;
-  for (int tile = blockIdx.x; tile < n_tiles<SM>(p); tile += gridDim.x) {
-    const TileIdx ti = tile_at<SM>(p, tile);
-    for (int k = 0; k < steps; ++k, ++ring) {
-      const int s = ring % STAGES;
-      mbar_wait(&sm.empty[s], ((ring / STAGES) & 1) ^ 1);
-      if (k < n1) {
-        const int j = k / p.n_ci, c = k % p.n_ci;
-        mbar_expect_tx(&sm.full[s], SM::A_BYTES + SM::B_BYTES);
-        tma_load_4d(&sm.a[s][0][0], ma, &sm.full[s], c * BK, ti.t0 + j * p.dil - p.pad, ti.b, 0);
-        tma_load_4d(&sm.b[s][0][0], mw, &sm.full[s], c * BK, ti.n0, j, 0);
-      } else {
-        const int half = (k - n1) / p.n_ci2 % SM::NH, c = (k - n1) % p.n_ci2;
-        mbar_expect_tx(&sm.full[s], 128 * BK * 2);
-        tma_load_4d(&sm.b[s][0][0], mw2, &sm.full[s], c * BK, half * 128, 0, 0);
-      }
-    }
-  }
+  for (int tile = blockIdx.x; tile < (SK ? p.dp_tiles : n_tiles<SM>(p)); tile += gridDim.x)
+    produce_steps<SM>(sm, ma, mw, mw2, p, tile, 0, steps, ring);
+  if constexpr (SK)
+    sk_segments(p, steps, [&](int tile, int k0, int k1) {
+      produce_steps<SM>(sm, ma, mw, mw2, p, tile, k0, k1, ring);
+    });
 }
 
 // acc += the products of ring steps it0 .. it0 + n_it - 1, A and B from shared memory.
@@ -423,21 +497,115 @@ __device__ __forceinline__ void consume_tile(SM& sm, const Params& p, const Tile
   }
 }
 
-template <class SM, bool FUSED>
-__device__ __forceinline__ void consume(SM& sm, const Params& p, int wg) {
-  int ring = 0;
-  for (int tile = blockIdx.x; tile < n_tiles<SM>(p); tile += gridDim.x) {
-    consume_tile<SM, FUSED>(sm, p, tile_at<SM>(p, tile), wg, ring);
-    ring += n_steps<SM>(p);
+// Barrier over the 256 consumer threads (id 3; 1 and 2 are warpgroup_sync's).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 3, 256;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int ld_acquire(const int* f) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(f) : "memory");
+  return v;
+}
+
+// Returns once *f == v. As mbar_wait: a wait of more than 10 s traps.
+__device__ __forceinline__ void flag_wait(const int* f, int v) {
+  if (ld_acquire(f) == v) return;
+  const uint64_t t0 = global_ns();
+  while (ld_acquire(f) != v) {
+    if (global_ns() - t0 > 10000000000ull) __trap();
   }
 }
 
+// This warpgroup's accumulators to and from its half of a workspace slot,
+// [16-byte group][thread], so that a warp's accesses are 512 contiguous
+// bytes. Through L2 only (.cg): another SM reads the slot during the launch.
+template <int NH>
+__device__ __forceinline__ void partial_store(const float (&acc)[NH][64], float4* slot) {
+  const int tid = threadIdx.x % 128;
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int g = 0; g < 16; ++g)
+      __stcg(slot + (h * 16 + g) * 128 + tid,
+             make_float4(acc[h][4 * g], acc[h][4 * g + 1], acc[h][4 * g + 2], acc[h][4 * g + 3]));
+}
+
+template <int NH>
+__device__ __forceinline__ void partial_add(float (&acc)[NH][64], const float4* slot) {
+  const int tid = threadIdx.x % 128;
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int g = 0; g < 16; ++g) {
+      const float4 v = __ldcg(slot + (h * 16 + g) * 128 + tid);
+      acc[h][4 * g] += v.x, acc[h][4 * g + 1] += v.y, acc[h][4 * g + 2] += v.z,
+          acc[h][4 * g + 3] += v.w;
+    }
+}
+
+// One stream-K segment: ring steps it0 .. of K steps k0 .. k1 - 1 of `tile`.
+// A peer (k0 > 0) leaves its partial in its slot and raises its flag after
+// both warpgroups' stores; the owner (k0 = 0) adds its peers' partials in
+// CTA order, then runs the epilogue.
+template <class SM>
+__device__ __forceinline__ void consume_segment(SM& sm, const Params& p, int tile, int k0,
+                                                int k1, int wg, int it0) {
+  constexpr int NH = SM::NH;
+  constexpr int SLOT = 2 * NH * 16 * 128;  // float4s per CTA (128 KB at NT = 256)
+  const int steps = n_steps<SM>(p);
+  float acc[NH][64];
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+  mainloop_ss<SM>(sm, acc, wg, it0, k1 - k0);
+  float4* ws = reinterpret_cast<float4*>(p.ws) + wg * (SLOT / 2);
+  if (k0 > 0) {
+    partial_store<NH>(acc, ws + (size_t)blockIdx.x * SLOT);
+    consumers_sync();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p.flags + blockIdx.x),
+                   "r"(p.epoch)
+                   : "memory");
+    }
+    return;
+  }
+  if (k1 < steps) {
+    const int base = (tile - p.dp_tiles) * steps;
+    const int c0 = sk_cta_of(p, base + k1), c1 = sk_cta_of(p, base + steps - 1);
+    if (threadIdx.x == 0)
+      for (int c = c0; c <= c1; ++c) flag_wait(p.flags + c, p.epoch);
+    consumers_sync();
+    for (int c = c0; c <= c1; ++c) partial_add<NH>(acc, ws + (size_t)c * SLOT);
+  }
+  const TileIdx ti = tile_at<SM>(p, tile);
+  store<NH>(acc, sm.tile[wg], p.epi, p, ti.b, ti.t0 + wg * 64, ti.n0, wg);
+}
+
+template <class SM, bool FUSED, bool SK>
+__device__ __forceinline__ void consume(SM& sm, const Params& p, int wg) {
+  int ring = 0;
+  for (int tile = blockIdx.x; tile < (SK ? p.dp_tiles : n_tiles<SM>(p)); tile += gridDim.x) {
+    consume_tile<SM, FUSED>(sm, p, tile_at<SM>(p, tile), wg, ring);
+    ring += n_steps<SM>(p);
+  }
+  if constexpr (SK)
+    sk_segments(p, n_steps<SM>(p), [&](int tile, int k0, int k1) {
+      consume_segment<SM>(sm, p, tile, k0, k1, wg, ring);
+      ring += k1 - k0;
+    });
+}
+
 // The bounds say 384 threads so that the register count at entry (at most
-// 168) stays below the consumers' 240.
-template <int NT, bool FUSED>
+// 168) stays below the consumers' 240. SK: the stream-K walk of Params (the
+// chain's launches, kernel 3), never with FUSED.
+template <int NT, bool FUSED, bool SK>
 __global__ void __launch_bounds__(3 * 128, 1)
 oobleck_conv_sm90(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mw,
                   const __grid_constant__ CUtensorMap mw2, const __grid_constant__ Params p) {
+  static_assert(!(SK && FUSED), "the stream-K walk has no fused unit");
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzled tiles must start on 1024-byte boundaries.
   const uint32_t pad = (1024 - (smem_addr(smem_raw) & 1023)) & 1023;
@@ -456,10 +624,10 @@ oobleck_conv_sm90(const __grid_constant__ CUtensorMap ma, const __grid_constant_
 
   if (wg == 2) {
     setmaxnreg_dec<PRODUCER_REGS>();
-    if (threadIdx.x == 2 * 128) produce<SM>(sm, &ma, &mw, &mw2, p);
+    if (threadIdx.x == 2 * 128) produce<SM, SK>(sm, &ma, &mw, &mw2, p);
   } else {
     setmaxnreg_inc<CONSUMER_REGS>();
-    consume<SM, FUSED>(sm, p, wg);
+    consume<SM, FUSED, SK>(sm, p, wg);
   }
 }
 
@@ -481,32 +649,66 @@ bool weight_map(CUtensorMap* m, const void* base, int taps, int N, int Ci, int n
                   {(uint32_t)BK, (uint32_t)nt, 1u, 1u});
 }
 
-// One CTA per SM (at most one per tile), each walking tiles blockIdx.x,
-// blockIdx.x + gridDim.x, ...
-template <int NT, bool FUSED>
+constexpr int BAD = static_cast<int>(cudaErrorInvalidValue);
+constexpr int MAX_DEVICES = 64;
+
+// The CTAs of an instance that one card holds at once (SMs x CTAs per SM),
+// once its shared-memory attribute is set on the card, else 0.
+template <int NT, bool FUSED, bool SK>
+std::atomic<int> resident[MAX_DEVICES];
+
+// `sched` null: one CTA per SM (at most one per tile), each walking tiles
+// blockIdx.x, blockIdx.x + gridDim.x, ... Else the stream-K walk
+// {grid, dp_tiles, sk_ctas, sk_q, sk_r, epoch} (SK) with its workspace and
+// flags, refused unless it covers every (tile, K step) once on a grid the
+// card holds at once: an owner waits for CTAs that must be running.
+template <int NT, bool FUSED, bool SK>
 int launch_conv(const CUtensorMap& ma, const CUtensorMap& mw, const CUtensorMap& mw2, Params p,
-                int B, int N, cudaStream_t stream) {
+                int B, int N, const int* sched, void* ws, void* flags, cudaStream_t stream) {
   using SM = ConvSmem<NT>;
   constexpr size_t smem = sizeof(SM) + 1024;
-  auto kernel = oobleck_conv_sm90<NT, FUSED>;
-  // Once per instance and process (one card): the launch's host share is
+  auto kernel = oobleck_conv_sm90<NT, FUSED, SK>;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= MAX_DEVICES) return BAD;
+  // Once per instance and card, not per launch: the launch's host share is
   // part of every decode chunk.
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  int held = resident<NT, FUSED, SK>[dev].load(std::memory_order_relaxed);
+  if (held == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) {
-      sms = 0;
-      return static_cast<int>(e);
-    }
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 3 * 128, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm < 1) return BAD;
+    held = sms * per_sm;
+    resident<NT, FUSED, SK>[dev].store(held, std::memory_order_relaxed);
   }
   p.n_nt = N / NT;
   p.batch = B;
   const int tiles = (p.L + SM::BM - 1) / SM::BM * p.n_nt * B;
-  kernel<<<tiles < sms ? tiles : sms, 3 * 128, smem, stream>>>(ma, mw, mw2, p);
+  int grid = tiles < held ? tiles : held;
+  if constexpr (SK) {
+    grid = sched[0];
+    p.dp_tiles = sched[1];
+    p.sk_ctas = sched[2];
+    p.sk_q = sched[3];
+    p.sk_r = sched[4];
+    p.epoch = sched[5];
+    p.ws = static_cast<float*>(ws);
+    p.flags = static_cast<int*>(flags);
+    const long long split = (long long)(tiles - p.dp_tiles) * n_steps<SM>(p);
+    const bool ok =
+        grid >= 1 && grid <= held && p.dp_tiles >= 0 && p.dp_tiles <= tiles &&
+        p.sk_ctas >= 0 && p.sk_ctas <= grid &&
+        (p.sk_ctas == 0 ? split == 0
+                        : p.sk_q >= 1 && p.sk_r >= 0 && p.sk_r < p.sk_ctas && ws && flags &&
+                              (long long)p.sk_ctas * p.sk_q + p.sk_r == split);
+    if (!ok) return BAD;
+  }
+  kernel<<<grid, 3 * 128, smem, stream>>>(ma, mw, mw2, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -521,7 +723,16 @@ Params base_params(int L, long long ld, int Ci, int taps, int dil, int pad) {
   return p;
 }
 
-constexpr int BAD = static_cast<int>(cudaErrorInvalidValue);
+// The two stages of a unit as two launches, C a multiple of 256: kernel 2's
+// units at C = 512 (`sched` null: the data-parallel instance) and kernel 3's
+// chain (`sched` = the stream-K walk, see launch_conv; ws and flags are read
+// only where it splits tiles).
+using LaunchFn = int (*)(const CUtensorMap&, const CUtensorMap&, const CUtensorMap&, Params, int,
+                         int, const int*, void*, void*, cudaStream_t);
+
+LaunchFn unit_stage(const int* sched) {
+  return sched ? launch_conv<256, false, true> : launch_conv<256, false, false>;
+}
 
 }  // namespace
 
@@ -542,7 +753,8 @@ extern "C" int acestep_oob_upsample(const void* a0, const void* w, const void* b
   p.epi = {static_cast<const float*>(bias), nullptr, nullptr, nullptr, static_cast<bf16*>(y),
            static_cast<const float*>(ae), static_cast<const float*>(ib), static_cast<bf16*>(a1),
            Co};
-  return launch_conv<256, false>(ma, mw, mw, p, B, N, static_cast<cudaStream_t>(stream));
+  return launch_conv<256, false, false>(ma, mw, mw, p, B, N, nullptr, nullptr, nullptr,
+                                       static_cast<cudaStream_t>(stream));
 }
 
 // One residual unit in one launch, C in {128, 256}: out = h + conv_k1(z) + b2
@@ -566,14 +778,14 @@ extern "C" int acestep_oob_unit(const void* a, const void* h, const void* w1, co
            static_cast<bf16*>(out), static_cast<const float*>(aen), static_cast<const float*>(ibn),
            static_cast<bf16*>(a_next), C};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return C == 128 ? launch_conv<128, true>(ma, mw, mw2, p, B, C, st)
-                  : launch_conv<256, true>(ma, mw, mw2, p, B, C, st);
+  return C == 128 ? launch_conv<128, true, false>(ma, mw, mw2, p, B, C, nullptr, nullptr, nullptr, st)
+                  : launch_conv<256, true, false>(ma, mw, mw2, p, B, C, nullptr, nullptr, nullptr, st);
 }
 
-// The k7 stage alone (C = 512): z = Snake2(conv_k7,dil(a) + b1). w1 is (7, C, C).
+// The k7 stage alone: z = Snake2(conv_k7,dil(a) + b1). w1 is (7, C, C).
 extern "C" int acestep_oob_k7(const void* a, const void* w1, const void* b1, const void* ae1,
                               const void* ib1, void* z, int B, int L, int C, int dil,
-                              void* stream) {
+                              const int* sched, void* ws, void* flags, void* stream) {
   if (C % 256) return BAD;
   CUtensorMap ma, mw;
   if (!act_map(&ma, a, B, L, C) || !weight_map(&mw, w1, 7, C, C, 256)) return BAD;
@@ -581,14 +793,16 @@ extern "C" int acestep_oob_k7(const void* a, const void* w1, const void* b1, con
   p.epi = {static_cast<const float*>(b1), static_cast<const float*>(ae1),
            static_cast<const float*>(ib1), nullptr, static_cast<bf16*>(z), nullptr, nullptr,
            nullptr, C};
-  return launch_conv<256, false>(ma, mw, mw, p, B, C, static_cast<cudaStream_t>(stream));
+  return unit_stage(sched)(ma, mw, mw, p, B, C, sched, ws, flags,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // The k1 stage alone: out = h + conv_k1(z) + b2; a_next = Snake1_next(out)
 // unless a_next is null. w2 is (1, C, C).
 extern "C" int acestep_oob_k1(const void* z, const void* h, const void* w2, const void* b2,
                               const void* aen, const void* ibn, void* out, void* a_next, int B,
-                              int L, int C, void* stream) {
+                              int L, int C, const int* sched, void* ws, void* flags,
+                              void* stream) {
   if (C % 256) return BAD;
   CUtensorMap mz, mw;
   if (!act_map(&mz, z, B, L, C) || !weight_map(&mw, w2, 1, C, C, 256)) return BAD;
@@ -596,7 +810,8 @@ extern "C" int acestep_oob_k1(const void* z, const void* h, const void* w2, cons
   p.epi = {static_cast<const float*>(b2), nullptr, nullptr, static_cast<const bf16*>(h),
            static_cast<bf16*>(out), static_cast<const float*>(aen), static_cast<const float*>(ibn),
            static_cast<bf16*>(a_next), C};
-  return launch_conv<256, false>(mz, mw, mw, p, B, C, static_cast<cudaStream_t>(stream));
+  return unit_stage(sched)(mz, mw, mw, p, B, C, sched, ws, flags,
+                           static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace sm90

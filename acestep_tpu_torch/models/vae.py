@@ -17,9 +17,11 @@ import torch.nn.functional as F
 from acestep_tpu_torch.config import OobleckConfig
 from acestep_tpu_torch.ops.conv import conv1d, conv_transpose1d
 from acestep_tpu_torch.ops.oobleck_kernels import (
+    CHAIN_CHANNELS,
     TOTAL_HALO,
     _upsample_halo,
     decoder_block_kernel,
+    decoder_block_takes,
     res_units_kernel,
     snake_f32,
 )
@@ -54,9 +56,14 @@ def _res_units_supports(l: int) -> bool:
 def decoder_block(p: Params, x: torch.Tensor, stride: int) -> torch.Tensor:
     """Dispatch as `acestep_tpu/models/vae.decoder_block`: c_out <= 512 takes
     the fused block kernel, else Snake and the transposed conv run here and
-    c <= 1024 takes the residual-chain kernel."""
+    c <= 1024 takes the residual-chain kernel. On the card a kernel is taken
+    only at the widths it has (`decoder_block_takes`, CHAIN_CHANNELS); any
+    other width runs here in torch, as short sequences run in XLA in the JAX
+    package."""
     c_out = p["conv_t1"]["kernel"].shape[2]
-    if stride % 2 == 0 and c_out <= 512 and _fused_block_supports(x.shape[1], stride):
+    card = x.is_cuda
+    if (stride % 2 == 0 and c_out <= 512 and _fused_block_supports(x.shape[1], stride)
+            and (not card or decoder_block_takes(x.shape[-1], c_out))):
         return decoder_block_kernel(x, p, stride)
     x = snake(p["snake1"], x)
     x = conv_transpose1d(
@@ -64,7 +71,8 @@ def decoder_block(p: Params, x: torch.Tensor, stride: int) -> torch.Tensor:
         stride=stride, padding=-(-stride // 2),
     )
     units = (p["res_unit1"], p["res_unit2"], p["res_unit3"])
-    if x.shape[-1] <= 1024 and _res_units_supports(x.shape[1]):
+    c = x.shape[-1]
+    if c <= 1024 and _res_units_supports(x.shape[1]) and (not card or c in CHAIN_CHANNELS):
         return res_units_kernel(x, units)
     for u, d in zip(units, (1, 3, 9)):
         x = residual_unit(u, x, d)

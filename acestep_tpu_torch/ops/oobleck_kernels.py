@@ -1,18 +1,20 @@
 """Oobleck decoder kernels (CUDA) and their plain PyTorch versions.
 
-Port of `acestep_tpu/ops/pallas_vae.py`:
+Port of `acestep_tpu/ops/pallas_vae.py`. Both kernels start with a Snake
+launch (`csrc/oobleck.cu`) and then run the implicit-GEMM convolutions of
+`csrc/oobleck_sm90.cu` (TMA + wgmma):
 
 - `decoder_block_kernel` replaces `decoder_block_pallas`: one Oobleck decoder
   block, Snake -> ConvTranspose1d (K = 2s, pad s/2) -> 3 residual units, at
-  C_out in {128, 256, 512}. After a Snake launch on its input (`csrc/oobleck.cu`)
-  it runs the implicit-GEMM convolutions of `csrc/oobleck_sm90.cu` (TMA +
-  wgmma): the upsampling conv with the first unit's Snake in its epilogue,
-  then one fused launch per residual unit at C <= 256 (z stays in registers)
-  or two at C = 512 (z through HBM).
+  C_out in SM90_CHANNELS: the upsampling conv with the first unit's Snake in
+  its epilogue, then one fused launch per residual unit at C <= 256 (z stays
+  in registers) or two at C = 512 (z through HBM).
 - `res_units_kernel` replaces `res_units_pallas`: the 3-residual-unit chain
-  alone (decoder block 0, 1024 channels), as a short fixed sequence of
-  `csrc/oobleck.cu` launches (Snake, then conv-as-GEMM with fused
-  bias/Snake/residual epilogues).
+  alone (decoder block 0, 1024 channels; C in CHAIN_CHANNELS), 7 launches:
+  Snake, then per unit a k7 launch (z through HBM) on a stream-K schedule
+  (`streamk_schedule`: the 72 or 172 tiles of a decode chunk leave SMs idle
+  in whole-tile rounds) and a k1 launch with the next unit's Snake in its
+  epilogue.
 
 The source notes give each design and what bounds it on an H100. Each wrapper
 counts its calls that launch the kernels in `.launches`. A CPU tensor takes
@@ -43,15 +45,25 @@ TOTAL_HALO = 40  # the TPU kernels' halo: 39 rows (3 * (1 + 3 + 9)) rounded to 8
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "acestep_snake": ([_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P], ctypes.c_int),
-    "acestep_conv_gemm": ([_P] * 7 + [ctypes.c_int] * 7 + [_P], ctypes.c_int),
 }
 _SM90_SIGNATURES = {
     "acestep_oob_upsample": ([_P] * 7 + [ctypes.c_int] * 5 + [_P], ctypes.c_int),
     "acestep_oob_unit": ([_P] * 12 + [ctypes.c_int] * 4 + [_P], ctypes.c_int),
-    "acestep_oob_k7": ([_P] * 6 + [ctypes.c_int] * 4 + [_P], ctypes.c_int),
-    "acestep_oob_k1": ([_P] * 8 + [ctypes.c_int] * 3 + [_P], ctypes.c_int),
+    "acestep_oob_k7": ([_P] * 6 + [ctypes.c_int] * 4 + [_P] * 4, ctypes.c_int),
+    "acestep_oob_k1": ([_P] * 8 + [ctypes.c_int] * 3 + [_P] * 4, ctypes.c_int),
 }
 SM90_CHANNELS = (128, 256, 512)  # output channels the decoder-block kernels take
+CHAIN_CHANNELS = (256, 512, 768, 1024)  # channels the residual-chain kernel takes
+
+# The k7 and k1 launches' tiles: 128 rows x 256 output channels of one batch
+# row, K steps of 64 input channels per tap.
+TILE_ROWS, TILE_COLS, STEP_CHANNELS = 128, 256, 64
+# Fewest K steps a stream-K CTA takes: every split adds a 128 KB partial
+# written to L2 and read back by the tile's owner, so a launch of few tiles
+# splits each over at most steps / 8 CTAs (14 at 1024 channels).
+STREAMK_MIN_STEPS = 8
+# A CTA's workspace slot: fp32 accumulators of one 128 x 256 tile.
+SLOT_FLOATS = TILE_ROWS * TILE_COLS
 
 
 def _upsample_halo(s: int) -> int:
@@ -123,15 +135,64 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def conv_tiles(b: int, l: int, n: int) -> int:
+    """Output tiles of a k7 / k1 launch over (b, l) rows and n output channels."""
+    return -(-l // TILE_ROWS) * (n // TILE_COLS) * b
+
+
+Schedule = Tuple[int, int, int, int, int]  # (grid, dp_tiles, sk_ctas, sk_q, sk_r)
+
+
+def streamk_schedule(tiles: int, steps: int, sms: int) -> Schedule:
+    """The chain's k7 walk over `tiles` output tiles of `steps` K steps each
+    on at most `sms` persistent CTAs: whole data-parallel rounds first (tiles
+    [0, dp_tiles), CTA c taking c, c + grid, ...), then the last, partial
+    round's K steps split evenly over the first sk_ctas CTAs, CTA c taking
+    sk_q steps plus one if c < sk_r, at least STREAMK_MIN_STEPS each.
+    `csrc/oobleck_sm90.cu` walks it as `streamk_segments` does."""
+    sk_tiles = tiles % sms
+    dp_tiles = tiles - sk_tiles
+    sk_steps = sk_tiles * steps
+    if not sk_steps:
+        return min(tiles, sms), dp_tiles, 0, 0, 0
+    sk_ctas = min(sms, max(1, sk_steps // STREAMK_MIN_STEPS))
+    sk_q, sk_r = divmod(sk_steps, sk_ctas)
+    return (sms if dp_tiles else sk_ctas), dp_tiles, sk_ctas, sk_q, sk_r
+
+
+def streamk_segments(sched: Schedule, steps: int, cta: int) -> list:
+    """CTA `cta`'s work in order, as (tile, k0, k1): K steps k0 .. k1 - 1 of
+    the tile. It owns a tile where k0 == 0 (adds the peers' partials, runs the
+    epilogue) and leaves a partial in its workspace slot where k0 > 0: only
+    its first segment past the whole tiles can be such."""
+    grid, dp_tiles, sk_ctas, q, r = sched
+    segs = [(t, 0, steps) for t in range(cta, dp_tiles, grid)]
+    if cta < sk_ctas:
+        i = cta * q + min(cta, r)
+        end = i + q + (cta < r)
+        while i < end:
+            k0 = i % steps
+            k1 = min(steps, k0 + end - i)
+            segs.append((dp_tiles + i // steps, k0, k1))
+            i += k1 - k0
+    return segs
+
+
+def streamk_peers(sched: Schedule, steps: int, tile: int, k1: int) -> list:
+    """The CTAs whose partials the owner of split `tile` adds after its own
+    steps 0 .. k1 - 1, in the order it adds them."""
+    _, dp_tiles, _, q, r = sched
+    big = r * (q + 1)
+    cta_of = lambda i: i // (q + 1) if i < big else r + (i - big) // q
+    base = (tile - dp_tiles) * steps
+    return list(range(cta_of(base + k1), cta_of(base + steps - 1) + 1)) if k1 < steps else []
+
+
 def _check_act(x: torch.Tensor, what: str) -> None:
     if x.dtype != torch.bfloat16 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"{what}: expects a contiguous bf16 (B, L, C) tensor, got {x.dtype} {tuple(x.shape)}")
     if x.shape[-1] % 128:
         raise ValueError(f"{what}: channel count {x.shape[-1]} is not a multiple of 128")
-
-
-def _snake_cuda(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    return _snake_launch(x, *(t.contiguous() for t in snake_consts(p)))
 
 
 def _snake_launch(x: torch.Tensor, ae: torch.Tensor, ib: torch.Tensor) -> torch.Tensor:
@@ -141,40 +202,6 @@ def _snake_launch(x: torch.Tensor, ae: torch.Tensor, ib: torch.Tensor) -> torch.
     )
     cuda_lib.check(rc, "oobleck snake")
     return y
-
-
-def _conv_gemm(
-    x: torch.Tensor,
-    w: torch.Tensor,  # (KT, Ci, N)
-    bias: Optional[torch.Tensor],
-    snake2: Optional[Dict[str, torch.Tensor]],
-    res: Optional[torch.Tensor],
-    dilation: int,
-    pad: int,
-) -> torch.Tensor:
-    b, l, ci = x.shape
-    kt, _, n = w.shape
-    w = w.to(torch.bfloat16).contiguous()
-    bias = torch.zeros(n, device=x.device) if bias is None else bias.float().contiguous()
-    ae2 = ib2 = None
-    if snake2 is not None:
-        ae2, ib2 = (t.contiguous() for t in snake_consts(snake2))
-    y = torch.empty((b, l, n), dtype=torch.bfloat16, device=x.device)
-    rc = _lib().acestep_conv_gemm(
-        x.data_ptr(), w.data_ptr(), bias.data_ptr(),
-        None if ae2 is None else ae2.data_ptr(),
-        None if ib2 is None else ib2.data_ptr(),
-        None if res is None else res.data_ptr(),
-        y.data_ptr(), b, l, ci, n, kt, dilation, pad, _stream(x),
-    )
-    cuda_lib.check(rc, "oobleck conv_gemm")
-    return y
-
-
-def _res_unit_cuda(h: torch.Tensor, p: Dict[str, Any], dilation: int) -> torch.Tensor:
-    a = _snake_cuda(h, p["snake1"])
-    z = _conv_gemm(a, p["conv1"]["kernel"], p["conv1"]["bias"], p["snake2"], None, dilation, 3 * dilation)
-    return _conv_gemm(z, p["conv2"]["kernel"], p["conv2"]["bias"], None, h, 1, 0)
 
 
 def phase_weights(kernel: torch.Tensor, stride: int) -> torch.Tensor:
@@ -243,11 +270,16 @@ def _snake_consts(p: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tenso
     return _derived("snake", (p["alpha"], p["beta"]), lambda: snake_consts(p))
 
 
-def _check_sm90(what: str, c: int, *ts: torch.Tensor) -> None:
+def decoder_block_takes(c_in: int, c_out: int) -> bool:
+    """Whether `decoder_block_kernel` takes a block of these widths on the card."""
+    return c_out in SM90_CHANNELS and c_in % 128 == 0
+
+
+def _check_sm90(what: str, c: int, *ts: torch.Tensor, channels: Sequence[int] = SM90_CHANNELS) -> None:
     """What the TMA kernels take: CUDA bf16 (B, L, C) contiguous, 16-byte
-    aligned bases (TMA reads nothing else), C in SM90_CHANNELS."""
-    if c not in SM90_CHANNELS:
-        raise ValueError(f"{what}: {c} channels; the kernels take {SM90_CHANNELS}")
+    aligned bases (TMA reads nothing else), C in `channels`."""
+    if c not in channels:
+        raise ValueError(f"{what}: {c} channels; the kernels take {tuple(channels)}")
     for t in ts:
         if t.device.type != "cuda" or t.dtype != torch.bfloat16 or t.dim() != 3 or not t.is_contiguous():
             raise ValueError(f"{what}: expects contiguous bf16 (B, L, C) CUDA tensors, got {t.dtype} "
@@ -294,6 +326,8 @@ def res_unit_sm90(
     _check_sm90("res_unit_sm90", c, h, a)
     if a.shape != h.shape:
         raise ValueError(f"res_unit_sm90: a {tuple(a.shape)} and h {tuple(h.shape)} differ")
+    if c > 256:
+        return _k1(_k7(a, p, dilation, None), h, p, snake_next, None)
     w1, w2 = _packed(p["conv1"]["kernel"]), _packed(p["conv2"]["kernel"])
     b1 = _f32(p["conv1"].get("bias"), c, h.device)
     b2 = _f32(p["conv2"].get("bias"), c, h.device)
@@ -303,37 +337,119 @@ def res_unit_sm90(
     if snake_next is not None:
         a_next = torch.empty_like(h)
         aen, ibn = _snake_consts(snake_next)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    lib, stream = _sm90(), _stream(h)
-    if c <= 256:
-        rc = lib.acestep_oob_unit(
-            a.data_ptr(), h.data_ptr(), w1.data_ptr(), b1.data_ptr(), ae1.data_ptr(), ib1.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), ptr(aen), ptr(ibn), out.data_ptr(), ptr(a_next),
-            b, l, c, dilation, stream,
-        )
-        cuda_lib.check(rc, "oobleck_sm90 unit")
-    else:
-        z = torch.empty_like(h)
-        rc = lib.acestep_oob_k7(
-            a.data_ptr(), w1.data_ptr(), b1.data_ptr(), ae1.data_ptr(), ib1.data_ptr(), z.data_ptr(),
-            b, l, c, dilation, stream,
-        )
-        cuda_lib.check(rc, "oobleck_sm90 k7")
-        rc = lib.acestep_oob_k1(
-            z.data_ptr(), h.data_ptr(), w2.data_ptr(), b2.data_ptr(), ptr(aen), ptr(ibn),
-            out.data_ptr(), ptr(a_next), b, l, c, stream,
-        )
-        cuda_lib.check(rc, "oobleck_sm90 k1")
+    rc = _sm90().acestep_oob_unit(
+        a.data_ptr(), h.data_ptr(), w1.data_ptr(), b1.data_ptr(), ae1.data_ptr(), ib1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), _ptr(aen), _ptr(ibn), out.data_ptr(), _ptr(a_next),
+        b, l, c, dilation, _stream(h),
+    )
+    cuda_lib.check(rc, "oobleck_sm90 unit")
+    return out, a_next
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+class _StreamK:
+    """The stream-K state of one card and stream: a workspace slot and a flag
+    per SM, and the launch epoch. Launches on one stream run in order, so
+    they share the workspace; a flag holds the epoch of the launch that last
+    filled its slot, so no launch resets the flags."""
+
+    def __init__(self, device: torch.device):
+        self.sms = torch.cuda.get_device_properties(device).multi_processor_count
+        self.ws = torch.empty(self.sms * SLOT_FLOATS, dtype=torch.float32, device=device)
+        self.flags = torch.zeros(self.sms, dtype=torch.int32, device=device)
+        self.epoch = 0
+
+    def next_epoch(self) -> int:
+        if self.epoch == 2**31 - 1:  # the flags are int32: start again from 0
+            self.flags.zero_()
+            self.epoch = 0
+        self.epoch += 1
+        return self.epoch
+
+
+_STREAMK: Dict[Tuple[int, int], _StreamK] = {}
+
+
+def _streamk(x: torch.Tensor) -> _StreamK:
+    key = (x.device.index, _stream(x))
+    st = _STREAMK.get(key)
+    if st is None:
+        st = _STREAMK[key] = _StreamK(x.device)
+    return st
+
+
+def _sched(sched: Schedule, epoch: int) -> ctypes.Array:
+    return (ctypes.c_int * 6)(*sched, epoch)
+
+
+def _k7(a: torch.Tensor, p: Dict[str, Any], dilation: int, sk: Optional[_StreamK]) -> torch.Tensor:
+    """A unit's k7 launch, C a multiple of 256: z = bf16(Snake2(conv_k7,d(a)
+    + b1)) to HBM, on whole tiles (`sk` None: kernel 2's units at C = 512) or
+    on the stream-K schedule of `sk`'s card (kernel 3)."""
+    b, l, c = a.shape
+    w1 = _packed(p["conv1"]["kernel"])
+    b1 = _f32(p["conv1"].get("bias"), c, a.device)
+    ae1, ib1 = _snake_consts(p["snake2"])
+    z = torch.empty_like(a)
+    sched = ws = flags = None
+    if sk is not None:
+        sched = _sched(streamk_schedule(conv_tiles(b, l, c), 7 * c // STEP_CHANNELS, sk.sms), sk.next_epoch())
+        ws, flags = sk.ws.data_ptr(), sk.flags.data_ptr()
+    rc = _sm90().acestep_oob_k7(
+        a.data_ptr(), w1.data_ptr(), b1.data_ptr(), ae1.data_ptr(), ib1.data_ptr(), z.data_ptr(),
+        b, l, c, dilation, sched, ws, flags, _stream(a),
+    )
+    cuda_lib.check(rc, "oobleck_sm90 k7")
+    return z
+
+
+def _k1(
+    z: torch.Tensor,
+    h: torch.Tensor,
+    p: Dict[str, Any],
+    snake_next: Optional[Dict[str, torch.Tensor]],
+    sk: Optional[_StreamK],
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A unit's k1 launch on whole tiles: h' = bf16(h + conv_k1(z) + b2) and
+    a_next = bf16(snake_next(h')) when `snake_next` is given; on kernel 3's
+    instance when `sk` is given, so that a profile tells the kernels apart."""
+    b, l, c = h.shape
+    w2 = _packed(p["conv2"]["kernel"])
+    b2 = _f32(p["conv2"].get("bias"), c, h.device)
+    out = torch.empty_like(h)
+    a_next = aen = ibn = None
+    if snake_next is not None:
+        a_next = torch.empty_like(h)
+        aen, ibn = _snake_consts(snake_next)
+    sched = None
+    if sk is not None:
+        tiles = conv_tiles(b, l, c)
+        sched = _sched((min(tiles, sk.sms), tiles, 0, 0, 0), 0)
+    rc = _sm90().acestep_oob_k1(
+        z.data_ptr(), h.data_ptr(), w2.data_ptr(), b2.data_ptr(), _ptr(aen), _ptr(ibn),
+        out.data_ptr(), _ptr(a_next), b, l, c, sched, None, None, _stream(h),
+    )
+    cuda_lib.check(rc, "oobleck_sm90 k1")
     return out, a_next
 
 
 def res_units_kernel(x: torch.Tensor, unit_params: Sequence[Dict[str, Any]]) -> torch.Tensor:
-    """3-residual-unit chain (dilations 1/3/9) on (B, L, C) NLC activations."""
+    """3-residual-unit chain (dilations 1/3/9) on (B, L, C) NLC activations,
+    C in CHAIN_CHANNELS on the card: a Snake launch for the first unit's
+    Snake1, then per unit the k7 on the stream-K schedule and the k1 with
+    the next unit's Snake1 in its epilogue (7 launches)."""
     if x.device.type == "cpu":
         return res_units_plain(x, unit_params)
-    _check_act(x, "res_units_kernel")
-    for p, d in zip(unit_params, DILATIONS):
-        x = _res_unit_cuda(x, p, d)
+    _check_sm90("res_units_kernel", x.shape[-1], x, channels=CHAIN_CHANNELS)
+    with torch.cuda.device(x.device):
+        sk = _streamk(x)
+        a = _snake_launch(x, *_snake_consts(unit_params[0]["snake1"]))
+        for k, (p, d) in enumerate(zip(unit_params, DILATIONS)):
+            nxt = unit_params[k + 1]["snake1"] if k + 1 < len(unit_params) else None
+            x, a = _k1(_k7(a, p, d, sk), x, p, nxt, sk)
     res_units_kernel.launches += 1
     return x
 
@@ -351,10 +467,11 @@ def decoder_block_kernel(x: torch.Tensor, p: Dict[str, Any], stride: int) -> tor
     _check_act(x, "decoder_block_kernel")
     units = (p["res_unit1"], p["res_unit2"], p["res_unit3"])
     _check_sm90("decoder_block_kernel", p["conv_t1"]["kernel"].shape[2], x)
-    a = _snake_launch(x, *_snake_consts(p["snake1"]))
-    y, a = upsample_sm90(a, p["conv_t1"], stride, units[0]["snake1"])
-    for k, (u, d) in enumerate(zip(units, DILATIONS)):
-        y, a = res_unit_sm90(y, a, u, d, units[k + 1]["snake1"] if k + 1 < len(units) else None)
+    with torch.cuda.device(x.device):
+        a = _snake_launch(x, *_snake_consts(p["snake1"]))
+        y, a = upsample_sm90(a, p["conv_t1"], stride, units[0]["snake1"])
+        for k, (u, d) in enumerate(zip(units, DILATIONS)):
+            y, a = res_unit_sm90(y, a, u, d, units[k + 1]["snake1"] if k + 1 < len(units) else None)
     decoder_block_kernel.launches += 1
     return y
 

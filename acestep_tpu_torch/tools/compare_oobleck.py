@@ -9,8 +9,9 @@ full-width decoder's block 0 residual chain (kernel 3, 1024 channels) and
 blocks 1-4 (kernel 2) at the 224-frame decode chunk of a 30 s request and the
 544-frame chunk of the 240 s and 600 s requests, on the same random weights
 (seed 11, random Snake logs) and inputs, each with its max abs error against
-the plain version in fp32. Times are ms from CUDA events, mean of 10 calls
-after 2 warm-up calls.
+the plain version in fp32 (and, in the --out file, the root mean square of
+that error). Times are ms from CUDA events, mean of 10 calls after 2 warm-up
+calls.
 
 Usage: python -m acestep_tpu_torch.tools.compare_oobleck DIR [DIR ...] [--out FILE]
 """
@@ -78,9 +79,10 @@ for chunk in (224, 544):
             run = lambda: decoder_block_kernel(x, bp, s)
             ref = decoder_block_plain(x.float(), bp, s)
             name = f"k2 block{i} c{chunk}"
-        err = (run().float() - ref).abs().max().item()
-        out[name] = dict(ms=ms(run, 10), max_abs_err=err, ref_max=ref.abs().max().item())
-        del x, ref
+        diff = run().float() - ref
+        out[name] = dict(ms=ms(run, 10), max_abs_err=diff.abs().max().item(),
+                         rms_err=diff.square().mean().sqrt().item(), ref_max=ref.abs().max().item())
+        del x, ref, diff
         torch.cuda.empty_cache()
         l *= s
 print(json.dumps(out))

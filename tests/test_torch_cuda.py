@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from acestep_tpu_torch.config import OobleckConfig
+from acestep_tpu_torch.models import vae
+from acestep_tpu_torch.ops import oobleck_kernels
 from acestep_tpu_torch.ops.attention_probe import MODES, attention_probe, attention_probe_plain
 from acestep_tpu_torch.ops.basic import matmul_f32
 from acestep_tpu_torch.ops.conv import conv_transpose1d
@@ -298,3 +300,87 @@ def test_decoder_block_kernel_refuses_other_channel_counts(dev, oobleck):
     h = _randn((1, 40, 384), 81, dev)
     with pytest.raises(ValueError):
         res_unit_sm90(h, h, oobleck["block"][2]["res_unit1"], 1)
+
+
+@pytest.mark.parametrize("l", [40, 77, 333, 2240, 4224, 5440])  # 4224: 132 tiles, whole rounds only
+@pytest.mark.parametrize("b", [1, 2])
+def test_res_units_kernel_chain_matches_plain(dev, oobleck_biased, b, l):
+    """Kernel 3 at block 0's 1024 channels: one call, one count, close to the
+    plain chain; ragged and sub-tile lengths (40 rows at d = 9, pad 27) and
+    the 224- and 544-frame decode chunks (2240, 5440 rows)."""
+    bp = oobleck_biased["block"][0]
+    units = (bp["res_unit1"], bp["res_unit2"], bp["res_unit3"])
+    x = _randn((b, l, 1024), 90 + l, dev)
+    before = res_units_kernel.launches
+    got = res_units_kernel(x, units)
+    torch.cuda.synchronize()
+    assert res_units_kernel.launches == before + 1
+    want = res_units_plain(x.float(), units)
+    assert got.shape == x.shape and torch.isfinite(got).all()
+    assert _close(got, want)
+
+
+@pytest.mark.parametrize("b,l", [(1, 40), (2, 77), (1, 2240), (2, 2176), (1, 5440), (2, 5440)])
+@pytest.mark.parametrize("d", [1, 9])
+def test_streamk_k7_matches_whole_tiles(dev, oobleck_biased, b, l, d):
+    """The chain's stream-K k7 against the same launch on whole tiles: the
+    same products summed in another fixed order, so z agrees but for rare
+    one-step bf16 roundings, and where z is small, for the fp32 sums' order
+    (7 168 products of a few units each: ~1e-3, times Snake2's slope, up to
+    ~4). A lost or doubled K step would move z by ~0.1 and most of z with it."""
+    u = oobleck_biased["block"][0]["res_unit1"]
+    a = _randn((b, l, 1024), 110 + l, dev)
+    whole = oobleck_kernels._k7(a, u, d, None)
+    split = oobleck_kernels._k7(a, u, d, oobleck_kernels._streamk(a))
+    torch.cuda.synchronize()
+    diff = (split.float() - whole.float()).abs()
+    assert (diff <= 2.0**-7 * whole.float().abs() + 4e-3).all()
+    assert (diff > 0).float().mean().item() < 1e-2
+
+
+@pytest.mark.parametrize("b,l", [(1, 2240), (2, 77)])
+def test_res_units_kernel_repeats_bit_identical(dev, oobleck_biased, b, l):
+    """The stream-K owner adds its peers' partials in a fixed order."""
+    bp = oobleck_biased["block"][0]
+    units = (bp["res_unit1"], bp["res_unit2"], bp["res_unit3"])
+    x = _randn((b, l, 1024), 95, dev)
+    first = res_units_kernel(x, units)
+    again = res_units_kernel(x, units)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+def test_res_units_kernel_refuses_other_channel_counts(dev, oobleck):
+    """128 channels are outside CHAIN_CHANNELS: the wrapper raises before any launch."""
+    h = _randn((1, 64, 128), 82, dev)
+    before = res_units_kernel.launches
+    with pytest.raises(ValueError):
+        res_units_kernel(h, [oobleck["block"][3][f"res_unit{i}"] for i in (1, 2, 3)])
+    assert res_units_kernel.launches == before
+
+
+# The 16-channel VAE of tests/test_torch_vae.py.
+_TINY = dict(encoder_hidden_size=16, downsampling_ratios=(2, 4, 4), channel_multiples=(1, 2, 4),
+             decoder_channels=16, decoder_input_channels=8, audio_channels=2, sampling_rate=320)
+
+
+def test_tiny_vae_decodes_on_the_card(dev):
+    """Widths no kernel takes (64/32/16 channels) run in torch on the card,
+    as they do on the CPU, and agree with the CPU decode (fp32, TF32 off)."""
+    cfg = OobleckConfig(**_TINY)
+    p = init_oobleck_params(cfg, seed=4, device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    for blk in p["decoder"]["block"]:
+        for part in [blk["snake1"]] + [blk[f"res_unit{i}"][s] for i in (1, 2, 3) for s in ("snake1", "snake2")]:
+            for key in ("alpha", "beta"):
+                part[key] = 0.3 * torch.randn(part[key].shape, generator=gen)
+    z = torch.randn((2, 40, cfg.decoder_input_channels), generator=gen)
+    to_dev = lambda t: {k: to_dev(v) for k, v in t.items()} if isinstance(t, dict) else (
+        [to_dev(v) for v in t] if isinstance(t, list) else t.to(dev))
+    before = (decoder_block_kernel.launches, res_units_kernel.launches)
+    got = vae.decode(to_dev(p), cfg, z.to(dev))
+    torch.cuda.synchronize()
+    assert (decoder_block_kernel.launches, res_units_kernel.launches) == before
+    want = vae.decode(p, cfg, z)
+    assert got.shape == want.shape == (2, 40 * cfg.hop_length, 2)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -1,11 +1,13 @@
-"""The decoder-block kernel's weight packing and launch sequence on the CPU.
+"""The Oobleck kernels' weight packing, schedules and launch sequences on the CPU.
 
 `csrc/oobleck_sm90.cu` computes acc[t, n] = sum_j sum_ci a[t + j d - pad, ci]
 W[j, n, ci] from weights that `ops/oobleck_kernels.pack_conv_weights` packs
 K-major as (tap, n, ci), and the upsampling conv from `phase_weights`' phase
-columns packed the same way. The CUDA kernel cannot run here, so these tests
-hold its arithmetic as a plain emulation: the packed layouts against the
-unpacked convolutions (fp32), and the launch sequence with the kernel's bf16
+columns packed the same way. The CUDA kernels cannot run here, so these tests
+hold their arithmetic as a plain emulation: the packed layouts against the
+unpacked convolutions (fp32); the residual chain's stream-K schedule
+(`streamk_schedule`, walked as the kernel walks it) for coverage and for its
+fixed-order sum of partials; and the launch sequences with the kernels' bf16
 rounding points against `res_units_plain` / `decoder_block_plain` (bf16).
 """
 
@@ -20,13 +22,20 @@ from acestep_tpu_torch.ops import oobleck_kernels
 from acestep_tpu_torch.ops.conv import conv_transpose1d
 from acestep_tpu_torch.ops.oobleck_kernels import (
     DILATIONS,
+    STEP_CHANNELS,
+    TILE_COLS,
+    TILE_ROWS,
     _conv_f32,
+    conv_tiles,
     decoder_block_plain,
     pack_conv_weights,
     phase_weights,
     res_unit_plain,
     res_units_plain,
     snake_f32,
+    streamk_peers,
+    streamk_schedule,
+    streamk_segments,
 )
 
 
@@ -161,3 +170,120 @@ def test_packed_operands_are_kept_per_weight_tensor():
     del k, first, again, phase
     gc.collect()
     assert key not in oobleck_kernels._DERIVED
+
+
+# The residual chain (kernel 3): k7 launches on the stream-K schedule.
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize(
+    "b,l,c,sms",
+    [
+        (1, 2240, 1024, H100_SMS),  # 224-frame chunk: 72 tiles, all split
+        (1, 5440, 1024, H100_SMS),  # 544-frame chunk: 172 = one whole round + 40 split
+        (2, 5440, 1024, H100_SMS),  # two whole rounds + 80 split
+        (1, 4224, 1024, H100_SMS),  # 132 tiles: whole rounds only
+        (2, 77, 1024, H100_SMS),  # ragged, below a tile: 8 tiles over 112 CTAs
+        (1, 40, 256, H100_SMS),  # one tile, fewer steps than CTAs x STREAMK_MIN_STEPS
+        (2, 300, 256, 4),  # ragged, a small card: whole rounds and a split round
+    ],
+)
+def test_streamk_schedule_covers_every_step_once(b, l, c, sms):
+    tiles, steps = conv_tiles(b, l, c), 7 * c // STEP_CHANNELS
+    sched = streamk_schedule(tiles, steps, sms)
+    grid, dp_tiles, sk_ctas, q, r = sched
+    assert 1 <= grid <= sms and sk_ctas <= grid and dp_tiles % grid == 0
+    assert sk_ctas * q + r == (tiles - dp_tiles) * steps
+    seen, owners, partial_of = {}, {}, {}
+    for cta in range(grid):
+        segs = streamk_segments(sched, steps, cta)
+        for i, (t, k0, k1) in enumerate(segs):
+            assert 0 <= t < tiles and 0 <= k0 < k1 <= steps
+            for k in range(k0, k1):
+                assert (t, k) not in seen
+                seen[t, k] = cta
+            if k0 == 0:
+                assert t not in owners
+                owners[t] = (cta, k1)
+            else:  # only the first segment past the whole tiles leaves a partial: one slot per CTA
+                assert i == len(range(cta, dp_tiles, grid)) and cta not in partial_of
+                partial_of[cta] = t
+    assert len(seen) == tiles * steps and sorted(owners) == list(range(tiles))
+    for t, (cta, k1) in owners.items():
+        peers = streamk_peers(sched, steps, t, k1)
+        assert peers == sorted(c2 for c2, t2 in partial_of.items() if t2 == t)
+        assert all(p > cta for p in peers)  # an owner waits only for CTAs that never wait first
+    assert set(partial_of) <= set(range(grid))
+
+
+def streamk_conv(a, wp, dil, pad, sms):
+    """conv_packed as the stream-K k7 launch sums it: per tile, the owner's
+    steps in the mainloop's order, then each peer's partial (its own steps in
+    order) in CTA order."""
+    bsz, l, ci = a.shape
+    kt, n = wp.shape[:2]
+    n_ci, n_rt, n_nt = ci // STEP_CHANNELS, -(-l // TILE_ROWS), n // TILE_COLS
+    tiles, steps = conv_tiles(bsz, l, n), kt * ci // STEP_CHANNELS
+    ap = F.pad(a.float(), (0, 0, pad, (kt - 1) * dil - pad + TILE_ROWS))
+
+    def tile_at(t):  # row tiles fastest, then output-channel tiles, then batch
+        return (t % n_rt) * TILE_ROWS, (t // n_rt % n_nt) * TILE_COLS, t // n_rt // n_nt
+
+    def steps_sum(t, k0, k1):
+        t0, n0, bb = tile_at(t)
+        acc = torch.zeros(TILE_ROWS, TILE_COLS)
+        for k in range(k0, k1):
+            j, c = divmod(k, n_ci)
+            rows = ap[bb, t0 + j * dil : t0 + j * dil + TILE_ROWS, c * STEP_CHANNELS : (c + 1) * STEP_CHANNELS]
+            acc += rows @ wp[j, n0 : n0 + TILE_COLS, c * STEP_CHANNELS : (c + 1) * STEP_CHANNELS].float().t()
+        return acc
+
+    sched = streamk_schedule(tiles, steps, sms)
+    partial, owned = {}, {}
+    for cta in range(sched[0]):
+        for t, k0, k1 in streamk_segments(sched, steps, cta):
+            if k0:
+                partial[cta] = steps_sum(t, k0, k1)
+            else:
+                owned[t] = (steps_sum(t, k0, k1), k1)
+    out = torch.zeros(bsz, n_rt * TILE_ROWS, n)
+    for t, (acc, k1) in owned.items():
+        for peer in streamk_peers(sched, steps, t, k1):
+            acc = acc + partial[peer]
+        t0, n0, bb = tile_at(t)
+        out[bb, t0 : t0 + TILE_ROWS, n0 : n0 + TILE_COLS] = acc
+    return out[:, :l]
+
+
+@pytest.mark.parametrize("d", DILATIONS)
+def test_streamk_partials_sum_to_the_conv(d):
+    rng = np.random.default_rng(100 + d)
+    a, k = _t(rng, (2, 300, 256)), _t(rng, (7, 256, 256), 256**-0.5)
+    wp = pack_conv_weights(k)
+    sched = streamk_schedule(conv_tiles(2, 300, 256), 28, 4)
+    assert sched[2] > 0 and sched[1] > 0  # whole rounds and split tiles both
+    got = streamk_conv(a, wp, d, 3 * d, sms=4)
+    torch.testing.assert_close(got, conv_packed(a, wp, d, 3 * d), rtol=1e-5, atol=1e-5)
+
+
+def chain_launches(h, units, sms):
+    """`res_units_kernel`'s 7 launches with their rounding points: Snake1 of
+    unit 1, then per unit the stream-K k7 (z = bf16(Snake2(. + b1))) and the
+    k1 (h' = bf16(h + . + b2), a_next = bf16(Snake1_next(h')))."""
+    dt = h.dtype
+    a = snake_f32(h.float(), units[0]["snake1"]).to(dt)
+    for k, (p, d) in enumerate(zip(units, DILATIONS)):
+        z = streamk_conv(a, pack_conv_weights(p["conv1"]["kernel"]), d, 3 * d, sms) + p["conv1"]["bias"]
+        z = snake_f32(z, p["snake2"]).to(dt)
+        h = (conv_packed(z, pack_conv_weights(p["conv2"]["kernel"]), 1, 0) + p["conv2"]["bias"] + h.float()).to(dt)
+        if k < 2:
+            a = snake_f32(h.float(), units[k + 1]["snake1"]).to(dt)
+    return h
+
+
+def test_chain_launches_match_res_units_plain():
+    rng = np.random.default_rng(7)
+    units = [_unit(rng, 256, torch.bfloat16) for _ in range(3)]
+    h = _t(rng, (2, 150, 256), dtype=torch.bfloat16)
+    _bf16_close(chain_launches(h, units, sms=3), res_units_plain(h, units))
