@@ -20,34 +20,43 @@
 // the fp32 residual sum and the fp32 conv_t sum, each rounded once; a Snake
 // epilogue reads the rounded value it follows.
 //
-// Kernel 3 replaces `res_units_pallas` (same file, :89): the 3 units alone at
-// C = 1024 (block 0's output, after its plain Snake and conv_t), 7 launches:
-// snake_kernel for unit 1's Snake1, then per unit k7 (z -> HBM) and k1 (h',
-// with the next unit's Snake1 in its epilogue), on the stream-K instance
-// (SK) below. Bound at C = 1024: 48 L C^2 flops against ~4 L C bytes of
-// activations and 48 MB of weights, so operations (1x2240 rows: 0.114 ms;
-// 1x5440: 0.277 ms), and the k7s are 7/8 of them. What held the
-// data-parallel walk far above that is the tile count: a k7 tile of 128 rows
-// x 256 channels is K = 7 taps x 16 chunks = 112 steps of 4.19 MFLOP, at
-// least 62.7 us on one SM (989/132 TFLOP/s). The 224-frame chunk has 18 row
-// tiles x 4 = 72 tiles: one round on 72 of 132 SMs, a floor of 0.188 ms for
-// the three k7s; the 544-frame chunk 43 x 4 = 172: two rounds, the second 30 %
-// full, 0.376 ms. Stream-K splits the (tile, K step) space evenly over the
-// persistent CTAs instead (CUTLASS's hybrid: whole data-parallel rounds
-// first, then the last, partial round's K steps): 62 steps per CTA at c224
-// (floor 0.104 ms), 112 + 34 = 146 at c544 (0.245 ms). A CTA's steps are cut
-// at tile edges into segments; the CTA that holds a tile's step 0 owns it,
-// and any other CTA holds only its first segment's tile partly, so each CTA
-// leaves at most one fp32 partial (128 KB, its workspace slot) and raises its
-// flag (release). The owner, after its own steps, waits for its peers' flags
-// (acquire; they wrote their partials first thing) and adds their partials in
-// CTA order, a fixed order: the result is the same bits on every run. Only
-// then the epilogue, since Snake2 is not linear. The waits are safe because
-// the grid never exceeds the CTAs the card holds at once (one per SM at 212
-// KB; checked on the host), and a wait over 10 s traps. The host computes
-// the split (ops/oobleck_kernels.streamk_schedule) and passes it in Params;
-// the k1 launches take the same instance with every tile whole (16 steps a
-// tile, bound by bytes). Flags carry a per-launch epoch, so nothing is reset.
+// Kernel 3 replaces `res_units_pallas` (same file, :89): the 3 units alone
+// (block 0's output at C = 1024, after its plain Snake and conv_t; any C that
+// is a multiple of 128 up to 1024): snake_kernel for unit 1's Snake1, then per
+// unit either kernel 2's fused launch (C <= 256; 4 launches) or k7 (z -> HBM)
+// and k1 (h', with the next unit's Snake1 in its epilogue; 7 launches). At
+// multiples of 256 both run on the stream-K instance (SK) below; at 384, 640
+// and 896 on whole tiles of 128 channels. Bound at C = 1024: 48 L C^2 flops
+// against ~4 L C bytes of activations and 48 MB of weights, so operations
+// (1x2240 rows: 0.114 ms; 1x5440: 0.277 ms), and the k7s are 7/8 of them.
+// What held the data-parallel walk far above that is the tile count: a k7
+// tile of 128 rows x 256 channels is K = 7 taps x 16 chunks = 112 steps of
+// 4.19 MFLOP, at least 62.7 us on one SM (989/132 TFLOP/s). The 224-frame
+// chunk has 18 row tiles x 4 = 72 tiles: one round on 72 of 132 SMs, a floor
+// of 0.188 ms for the three k7s; the 544-frame chunk 43 x 4 = 172: two
+// rounds, the second 30 % full, 0.376 ms. Stream-K splits the (tile, K step)
+// space evenly over the persistent CTAs instead (CUTLASS's hybrid: whole
+// data-parallel rounds first, then the last, partial round's K steps): 62
+// steps per CTA at c224 (floor 0.104 ms), 112 + 34 = 146 at c544 (0.245 ms).
+// A CTA walks its run of split steps from the top down, cut at tile edges
+// into segments, as CUTLASS's stream-K does, so that only its first segment
+// can end inside a tile and only its last start inside one. A segment that
+// starts inside a tile first adds the sum of the tile's lower steps: CTA c - 1
+// holds the steps just below (its run ends where c's begins) and has left
+// there the sum of its own and of all lower ones, in its workspace slot (128
+// KB of fp32), under its flag (c waits for it: acquire). A segment that ends
+// inside a tile then leaves that running sum in its own slot and raises its
+// flag (release); one that ends the tile runs the epilogue, which only a
+// tile's full sum may pass since Snake2 is not linear. Each tile's partial
+// sums thus add in K order, the same bits on every run. A CTA waits only for
+// CTA c - 1, which the hardware dispatches first and which waits only for
+// lower ones still, so the launch finishes without the whole grid resident:
+// beside other kernels, on other streams or under MPS. A wait over 10 s
+// traps. The host computes the
+// split (ops/oobleck_kernels.streamk_schedule) and passes it in Params; the k1
+// launches take the same instance with every tile whole (16 steps a tile,
+// bound by bytes). Flags carry a per-launch epoch, so nothing is reset (and
+// no launch may be replayed from a CUDA graph: the wrapper refuses capture).
 //
 // Mainloop: acc[t, n] = sum_j sum_ci a[t + j d - pad, ci] W[j, n, ci].
 //   - Tile: 128 output rows x NT output channels of one batch row. The grid is
@@ -88,9 +97,10 @@
 // tile re-reads all weights from L2 (32-48 KB per K step), and the epilogue
 // does not overlap the products of its own warpgroups.
 // Shared memory: a stage is 16 KB of A + NT * 128 bytes of B; the epilogue
-// tiles are 2 x 64 x 136 fp32 (68 KB). At NT = 128 (C = 128): 4 x 32 KB +
-// 68 KB = 196 KB; at NT = 256 (C = 256, C = 512, the conv_t): 3 x 48 KB +
-// 68 KB = 212 KB; plus barriers and 1 KB of alignment slack, of 227 KB.
+// tiles are 2 x 64 x 136 fp32 (68 KB). At NT = 128 (C = 128; kernel 3's
+// stages at 384, 640, 896): 4 x 32 KB + 68 KB = 196 KB; at NT = 256 (C = 256,
+// the stages at multiples of 256, the conv_t): 3 x 48 KB + 68 KB = 212 KB;
+// plus barriers and 1 KB of alignment slack, of 227 KB.
 // Why z is in registers at C <= 256 and in HBM at 512: per consumer thread
 // the k7 accumulators take C / 2 fp32 registers, then z C / 4 registers of
 // packed bf16 beside one 64-register k1 accumulator (one 128-channel half of
@@ -186,25 +196,22 @@ __host__ __device__ __forceinline__ int n_steps(const Params& p) {
 }
 
 // Stream-K segments of CTA blockIdx.x, in order: its run of K steps over the
-// split tiles, cut at tile edges, as f(tile, k0, k1) for steps k0 .. k1 - 1.
-// ops/oobleck_kernels.streamk_segments is the same walk in Python.
+// split tiles from the top down, cut at tile edges, as f(tile, k0, k1) for
+// steps k0 .. k1 - 1 (each segment's steps run upwards). Only the first
+// segment can end inside a tile (k1 < steps: it leaves a running sum), only
+// the last start inside one (k0 > 0: it adds CTA blockIdx.x - 1's).
 template <class F>
 __device__ __forceinline__ void sk_segments(const Params& p, int steps, F&& f) {
   const int c = blockIdx.x;
   if (c >= p.sk_ctas) return;
-  int i = c * p.sk_q + min(c, p.sk_r);
-  const int end = i + p.sk_q + (c < p.sk_r ? 1 : 0);
-  while (i < end) {
-    const int k0 = i % steps, k1 = min(steps, k0 + end - i);
-    f(p.dp_tiles + i / steps, k0, k1);
-    i += k1 - k0;
+  const int begin = c * p.sk_q + min(c, p.sk_r);
+  int end = begin + p.sk_q + (c < p.sk_r ? 1 : 0);
+  while (end > begin) {
+    const int t = (end - 1) / steps, base = t * steps;
+    const int k0 = max(begin - base, 0), k1 = end - base;
+    f(p.dp_tiles + t, k0, k1);
+    end = base + k0;
   }
-}
-
-// The CTA whose stream-K run holds split step i (counted over the split tiles).
-__device__ __forceinline__ int sk_cta_of(const Params& p, int i) {
-  const int big = p.sk_r * (p.sk_q + 1);
-  return i < big ? i / (p.sk_q + 1) : p.sk_r + (i - big) / p.sk_q;
 }
 
 __device__ __forceinline__ float2 ld2(const float* p) {
@@ -545,15 +552,15 @@ __device__ __forceinline__ void partial_add(float (&acc)[NH][64], const float4* 
 }
 
 // One stream-K segment: ring steps it0 .. of K steps k0 .. k1 - 1 of `tile`.
-// A peer (k0 > 0) leaves its partial in its slot and raises its flag after
-// both warpgroups' stores; the owner (k0 = 0) adds its peers' partials in
-// CTA order, then runs the epilogue.
+// Starting inside the tile, it adds the running sum of CTA blockIdx.x - 1
+// (the tile's steps 0 .. k0 - 1); ending inside it, it leaves its own running
+// sum in the CTA's slot and raises the CTA's flag after both warpgroups'
+// stores; ending the tile, it runs the epilogue.
 template <class SM>
 __device__ __forceinline__ void consume_segment(SM& sm, const Params& p, int tile, int k0,
                                                 int k1, int wg, int it0) {
   constexpr int NH = SM::NH;
   constexpr int SLOT = 2 * NH * 16 * 128;  // float4s per CTA (128 KB at NT = 256)
-  const int steps = n_steps<SM>(p);
   float acc[NH][64];
 #pragma unroll
   for (int h = 0; h < NH; ++h)
@@ -562,6 +569,11 @@ __device__ __forceinline__ void consume_segment(SM& sm, const Params& p, int til
   mainloop_ss<SM>(sm, acc, wg, it0, k1 - k0);
   float4* ws = reinterpret_cast<float4*>(p.ws) + wg * (SLOT / 2);
   if (k0 > 0) {
+    if (threadIdx.x == 0) flag_wait(p.flags + blockIdx.x - 1, p.epoch);
+    consumers_sync();
+    partial_add<NH>(acc, ws + (size_t)(blockIdx.x - 1) * SLOT);
+  }
+  if (k1 < n_steps<SM>(p)) {
     partial_store<NH>(acc, ws + (size_t)blockIdx.x * SLOT);
     consumers_sync();
     if (threadIdx.x == 0) {
@@ -571,14 +583,6 @@ __device__ __forceinline__ void consume_segment(SM& sm, const Params& p, int til
                    : "memory");
     }
     return;
-  }
-  if (k1 < steps) {
-    const int base = (tile - p.dp_tiles) * steps;
-    const int c0 = sk_cta_of(p, base + k1), c1 = sk_cta_of(p, base + steps - 1);
-    if (threadIdx.x == 0)
-      for (int c = c0; c <= c1; ++c) flag_wait(p.flags + c, p.epoch);
-    consumers_sync();
-    for (int c = c0; c <= c1; ++c) partial_add<NH>(acc, ws + (size_t)c * SLOT);
   }
   const TileIdx ti = tile_at<SM>(p, tile);
   store<NH>(acc, sm.tile[wg], p.epi, p, ti.b, ti.t0 + wg * 64, ti.n0, wg);
@@ -660,8 +664,8 @@ std::atomic<int> resident[MAX_DEVICES];
 // `sched` null: one CTA per SM (at most one per tile), each walking tiles
 // blockIdx.x, blockIdx.x + gridDim.x, ... Else the stream-K walk
 // {grid, dp_tiles, sk_ctas, sk_q, sk_r, epoch} (SK) with its workspace and
-// flags, refused unless it covers every (tile, K step) once on a grid the
-// card holds at once: an owner waits for CTAs that must be running.
+// flags, refused unless it covers every (tile, K step) once on a persistent
+// grid (no more CTAs than the card holds at once).
 template <int NT, bool FUSED, bool SK>
 int launch_conv(const CUtensorMap& ma, const CUtensorMap& mw, const CUtensorMap& mw2, Params p,
                 int B, int N, const int* sched, void* ws, void* flags, cudaStream_t stream) {
@@ -723,14 +727,18 @@ Params base_params(int L, long long ld, int Ci, int taps, int dil, int pad) {
   return p;
 }
 
-// The two stages of a unit as two launches, C a multiple of 256: kernel 2's
+// The two stages of a unit as two launches, C a multiple of 128: kernel 2's
 // units at C = 512 (`sched` null: the data-parallel instance) and kernel 3's
 // chain (`sched` = the stream-K walk, see launch_conv; ws and flags are read
-// only where it splits tiles).
+// only where it splits tiles). Tiles of 256 output channels where C is a
+// multiple of 256, else of 128, on whole tiles only.
 using LaunchFn = int (*)(const CUtensorMap&, const CUtensorMap&, const CUtensorMap&, Params, int,
                          int, const int*, void*, void*, cudaStream_t);
 
-LaunchFn unit_stage(const int* sched) {
+int stage_nt(int C) { return C % 256 ? 128 : 256; }
+
+LaunchFn unit_stage(int C, const int* sched) {
+  if (C % 256) return sched ? nullptr : launch_conv<128, false, false>;
   return sched ? launch_conv<256, false, true> : launch_conv<256, false, false>;
 }
 
@@ -738,7 +746,8 @@ LaunchFn unit_stage(const int* sched) {
 
 // Each entry point returns a cudaError_t: cudaErrorInvalidValue for a shape it
 // does not take or a tensor map that cannot be made. Channel counts are
-// multiples of 64; N of the upsample a multiple of 256. C linkage inside the
+// multiples of 64; N of the upsample a multiple of 256; C of the k7 and k1
+// stages a multiple of 128, and of 256 on the stream-K walk. C linkage inside the
 // namespace: the symbols are the plain names.
 
 // conv_t as a 3-tap conv over phase columns: y (B, L, N = s C_out) = conv(a0) + bias,
@@ -786,15 +795,14 @@ extern "C" int acestep_oob_unit(const void* a, const void* h, const void* w1, co
 extern "C" int acestep_oob_k7(const void* a, const void* w1, const void* b1, const void* ae1,
                               const void* ib1, void* z, int B, int L, int C, int dil,
                               const int* sched, void* ws, void* flags, void* stream) {
-  if (C % 256) return BAD;
+  const LaunchFn launch = C % 128 ? nullptr : unit_stage(C, sched);
   CUtensorMap ma, mw;
-  if (!act_map(&ma, a, B, L, C) || !weight_map(&mw, w1, 7, C, C, 256)) return BAD;
+  if (!launch || !act_map(&ma, a, B, L, C) || !weight_map(&mw, w1, 7, C, C, stage_nt(C))) return BAD;
   Params p = base_params(L, C, C, 7, dil, 3 * dil);
   p.epi = {static_cast<const float*>(b1), static_cast<const float*>(ae1),
            static_cast<const float*>(ib1), nullptr, static_cast<bf16*>(z), nullptr, nullptr,
            nullptr, C};
-  return unit_stage(sched)(ma, mw, mw, p, B, C, sched, ws, flags,
-                           static_cast<cudaStream_t>(stream));
+  return launch(ma, mw, mw, p, B, C, sched, ws, flags, static_cast<cudaStream_t>(stream));
 }
 
 // The k1 stage alone: out = h + conv_k1(z) + b2; a_next = Snake1_next(out)
@@ -803,15 +811,14 @@ extern "C" int acestep_oob_k1(const void* z, const void* h, const void* w2, cons
                               const void* aen, const void* ibn, void* out, void* a_next, int B,
                               int L, int C, const int* sched, void* ws, void* flags,
                               void* stream) {
-  if (C % 256) return BAD;
+  const LaunchFn launch = C % 128 ? nullptr : unit_stage(C, sched);
   CUtensorMap mz, mw;
-  if (!act_map(&mz, z, B, L, C) || !weight_map(&mw, w2, 1, C, C, 256)) return BAD;
+  if (!launch || !act_map(&mz, z, B, L, C) || !weight_map(&mw, w2, 1, C, C, stage_nt(C))) return BAD;
   Params p = base_params(L, C, C, 1, 1, 0);
   p.epi = {static_cast<const float*>(b2), nullptr, nullptr, static_cast<const bf16*>(h),
            static_cast<bf16*>(out), static_cast<const float*>(aen), static_cast<const float*>(ibn),
            static_cast<bf16*>(a_next), C};
-  return unit_stage(sched)(mz, mw, mw, p, B, C, sched, ws, flags,
-                           static_cast<cudaStream_t>(stream));
+  return launch(mz, mw, mw, p, B, C, sched, ws, flags, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace sm90

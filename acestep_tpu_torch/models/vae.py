@@ -59,12 +59,14 @@ def decoder_block(p: Params, x: torch.Tensor, stride: int) -> torch.Tensor:
     c <= 1024 takes the residual-chain kernel. On the card a kernel is taken
     only at the widths it has (`decoder_block_takes`, CHAIN_CHANNELS); any
     other width runs here in torch, as short sequences run in XLA in the JAX
-    package."""
+    package, and counts one in `decoder_block.torch_on_card` per part (block
+    or chain) that the JAX package would run in a Pallas kernel."""
     c_out = p["conv_t1"]["kernel"].shape[2]
     card = x.is_cuda
-    if (stride % 2 == 0 and c_out <= 512 and _fused_block_supports(x.shape[1], stride)
-            and (not card or decoder_block_takes(x.shape[-1], c_out))):
-        return decoder_block_kernel(x, p, stride)
+    if stride % 2 == 0 and c_out <= 512 and _fused_block_supports(x.shape[1], stride):
+        if not card or decoder_block_takes(x.shape[-1], c_out):
+            return decoder_block_kernel(x, p, stride)
+        decoder_block.torch_on_card += 1
     x = snake(p["snake1"], x)
     x = conv_transpose1d(
         x, p["conv_t1"]["kernel"], p["conv_t1"].get("bias"),
@@ -72,11 +74,16 @@ def decoder_block(p: Params, x: torch.Tensor, stride: int) -> torch.Tensor:
     )
     units = (p["res_unit1"], p["res_unit2"], p["res_unit3"])
     c = x.shape[-1]
-    if c <= 1024 and _res_units_supports(x.shape[1]) and (not card or c in CHAIN_CHANNELS):
-        return res_units_kernel(x, units)
+    if c <= 1024 and _res_units_supports(x.shape[1]):
+        if not card or c in CHAIN_CHANNELS:
+            return res_units_kernel(x, units)
+        decoder_block.torch_on_card += 1
     for u, d in zip(units, (1, 3, 9)):
         x = residual_unit(u, x, d)
     return x
+
+
+decoder_block.torch_on_card = 0
 
 
 def decode(p: Params, cfg: OobleckConfig, latents: torch.Tensor) -> torch.Tensor:

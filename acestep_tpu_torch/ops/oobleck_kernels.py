@@ -10,11 +10,13 @@ launch (`csrc/oobleck.cu`) and then run the implicit-GEMM convolutions of
   its epilogue, then one fused launch per residual unit at C <= 256 (z stays
   in registers) or two at C = 512 (z through HBM).
 - `res_units_kernel` replaces `res_units_pallas`: the 3-residual-unit chain
-  alone (decoder block 0, 1024 channels; C in CHAIN_CHANNELS), 7 launches:
-  Snake, then per unit a k7 launch (z through HBM) on a stream-K schedule
-  (`streamk_schedule`: the 72 or 172 tiles of a decode chunk leave SMs idle
-  in whole-tile rounds) and a k1 launch with the next unit's Snake in its
-  epilogue.
+  alone (decoder block 0, 1024 channels; C in CHAIN_CHANNELS, every multiple
+  of 128 up to 1024): Snake, then per unit kernel 2's fused launch at C <= 256
+  (4 launches), else a k7 launch (z through HBM) and a k1 launch with the
+  next unit's Snake in its epilogue (7 launches). At multiples of 256 the
+  k7s run on a stream-K schedule (`streamk_schedule`: the 72 or 172 tiles of
+  a decode chunk leave SMs idle in whole-tile rounds); at 384, 640 and 896
+  both stages run whole tiles of 128 channels.
 
 The source notes give each design and what bounds it on an H100. Each wrapper
 counts its calls that launch the kernels in `.launches`. A CPU tensor takes
@@ -53,13 +55,13 @@ _SM90_SIGNATURES = {
     "acestep_oob_k1": ([_P] * 8 + [ctypes.c_int] * 3 + [_P] * 4, ctypes.c_int),
 }
 SM90_CHANNELS = (128, 256, 512)  # output channels the decoder-block kernels take
-CHAIN_CHANNELS = (256, 512, 768, 1024)  # channels the residual-chain kernel takes
+CHAIN_CHANNELS = tuple(range(128, 1025, 128))  # channels the residual-chain kernel takes
 
 # The k7 and k1 launches' tiles: 128 rows x 256 output channels of one batch
 # row, K steps of 64 input channels per tap.
 TILE_ROWS, TILE_COLS, STEP_CHANNELS = 128, 256, 64
-# Fewest K steps a stream-K CTA takes: every split adds a 128 KB partial
-# written to L2 and read back by the tile's owner, so a launch of few tiles
+# Fewest K steps a stream-K CTA takes: every split adds a 128 KB running sum
+# written to L2 and read back by the CTA above it, so a launch of few tiles
 # splits each over at most steps / 8 CTAs (14 at 1024 channels).
 STREAMK_MIN_STEPS = 8
 # A CTA's workspace slot: fp32 accumulators of one 128 x 256 tile.
@@ -149,7 +151,8 @@ def streamk_schedule(tiles: int, steps: int, sms: int) -> Schedule:
     [0, dp_tiles), CTA c taking c, c + grid, ...), then the last, partial
     round's K steps split evenly over the first sk_ctas CTAs, CTA c taking
     sk_q steps plus one if c < sk_r, at least STREAMK_MIN_STEPS each.
-    `csrc/oobleck_sm90.cu` walks it as `streamk_segments` does."""
+    `csrc/oobleck_sm90.cu` (`sk_segments`) walks each CTA's run of steps
+    from the top down, so a CTA waits only for the CTA below it."""
     sk_tiles = tiles % sms
     dp_tiles = tiles - sk_tiles
     sk_steps = sk_tiles * steps
@@ -158,34 +161,6 @@ def streamk_schedule(tiles: int, steps: int, sms: int) -> Schedule:
     sk_ctas = min(sms, max(1, sk_steps // STREAMK_MIN_STEPS))
     sk_q, sk_r = divmod(sk_steps, sk_ctas)
     return (sms if dp_tiles else sk_ctas), dp_tiles, sk_ctas, sk_q, sk_r
-
-
-def streamk_segments(sched: Schedule, steps: int, cta: int) -> list:
-    """CTA `cta`'s work in order, as (tile, k0, k1): K steps k0 .. k1 - 1 of
-    the tile. It owns a tile where k0 == 0 (adds the peers' partials, runs the
-    epilogue) and leaves a partial in its workspace slot where k0 > 0: only
-    its first segment past the whole tiles can be such."""
-    grid, dp_tiles, sk_ctas, q, r = sched
-    segs = [(t, 0, steps) for t in range(cta, dp_tiles, grid)]
-    if cta < sk_ctas:
-        i = cta * q + min(cta, r)
-        end = i + q + (cta < r)
-        while i < end:
-            k0 = i % steps
-            k1 = min(steps, k0 + end - i)
-            segs.append((dp_tiles + i // steps, k0, k1))
-            i += k1 - k0
-    return segs
-
-
-def streamk_peers(sched: Schedule, steps: int, tile: int, k1: int) -> list:
-    """The CTAs whose partials the owner of split `tile` adds after its own
-    steps 0 .. k1 - 1, in the order it adds them."""
-    _, dp_tiles, _, q, r = sched
-    big = r * (q + 1)
-    cta_of = lambda i: i // (q + 1) if i < big else r + (i - big) // q
-    base = (tile - dp_tiles) * steps
-    return list(range(cta_of(base + k1), cta_of(base + steps - 1) + 1)) if k1 < steps else []
 
 
 def _check_act(x: torch.Tensor, what: str) -> None:
@@ -353,8 +328,10 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 class _StreamK:
     """The stream-K state of one card and stream: a workspace slot and a flag
     per SM, and the launch epoch. Launches on one stream run in order, so
-    they share the workspace; a flag holds the epoch of the launch that last
-    filled its slot, so no launch resets the flags."""
+    they share the workspace, and launches on two streams use two; a flag
+    holds the epoch of the launch that last filled its slot, so no launch
+    resets the flags. A CUDA graph would replay a launch with its old epoch,
+    which the flags may already hold: `res_units_kernel` refuses capture."""
 
     def __init__(self, device: torch.device):
         self.sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -386,9 +363,10 @@ def _sched(sched: Schedule, epoch: int) -> ctypes.Array:
 
 
 def _k7(a: torch.Tensor, p: Dict[str, Any], dilation: int, sk: Optional[_StreamK]) -> torch.Tensor:
-    """A unit's k7 launch, C a multiple of 256: z = bf16(Snake2(conv_k7,d(a)
-    + b1)) to HBM, on whole tiles (`sk` None: kernel 2's units at C = 512) or
-    on the stream-K schedule of `sk`'s card (kernel 3)."""
+    """A unit's k7 launch, C a multiple of 128: z = bf16(Snake2(conv_k7,d(a)
+    + b1)) to HBM, on whole tiles (`sk` None: kernel 2's units at C = 512,
+    kernel 3 at 384, 640, 896) or on the stream-K schedule of `sk`'s card
+    (kernel 3 at multiples of 256)."""
     b, l, c = a.shape
     w1 = _packed(p["conv1"]["kernel"])
     b1 = _f32(p["conv1"].get("bias"), c, a.device)
@@ -439,17 +417,25 @@ def _k1(
 def res_units_kernel(x: torch.Tensor, unit_params: Sequence[Dict[str, Any]]) -> torch.Tensor:
     """3-residual-unit chain (dilations 1/3/9) on (B, L, C) NLC activations,
     C in CHAIN_CHANNELS on the card: a Snake launch for the first unit's
-    Snake1, then per unit the k7 on the stream-K schedule and the k1 with
-    the next unit's Snake1 in its epilogue (7 launches)."""
+    Snake1, then per unit one fused launch at C <= 256, else the k7 (on the
+    stream-K schedule at multiples of 256) and the k1 with the next unit's
+    Snake1 in its epilogue (4 or 7 launches)."""
     if x.device.type == "cpu":
         return res_units_plain(x, unit_params)
-    _check_sm90("res_units_kernel", x.shape[-1], x, channels=CHAIN_CHANNELS)
+    c = x.shape[-1]
+    _check_sm90("res_units_kernel", c, x, channels=CHAIN_CHANNELS)
+    split = c > 256 and c % 256 == 0
+    if split and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("res_units_kernel: a CUDA graph cannot replay the stream-K launches' epochs")
     with torch.cuda.device(x.device):
-        sk = _streamk(x)
+        sk = _streamk(x) if split else None
         a = _snake_launch(x, *_snake_consts(unit_params[0]["snake1"]))
         for k, (p, d) in enumerate(zip(unit_params, DILATIONS)):
             nxt = unit_params[k + 1]["snake1"] if k + 1 < len(unit_params) else None
-            x, a = _k1(_k7(a, p, d, sk), x, p, nxt, sk)
+            if c <= 256:
+                x, a = res_unit_sm90(x, a, p, d, nxt)
+            else:
+                x, a = _k1(_k7(a, p, d, sk), x, p, nxt, sk)
     res_units_kernel.launches += 1
     return x
 

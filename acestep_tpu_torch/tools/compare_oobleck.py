@@ -10,8 +10,12 @@ blocks 1-4 (kernel 2) at the 224-frame decode chunk of a 30 s request and the
 544-frame chunk of the 240 s and 600 s requests, on the same random weights
 (seed 11, random Snake logs) and inputs, each with its max abs error against
 the plain version in fp32 (and, in the --out file, the root mean square of
-that error). Times are ms from CUDA events, mean of 10 calls after 2 warm-up
-calls.
+that error). For kernel 3 the --out file also holds the error against the
+plain chain run on the bf16 input, which rounds to bf16 at the kernel's
+points and sums in fp32 in another order (the largest difference and the
+share of elements that differ), and the max abs and RMS errors of 8 more
+inputs (seeds 1000-1007). Times are ms from CUDA events, mean of 10 calls
+after 2 warm-up calls.
 
 Usage: python -m acestep_tpu_torch.tools.compare_oobleck DIR [DIR ...] [--out FILE]
 """
@@ -79,9 +83,25 @@ for chunk in (224, 544):
             run = lambda: decoder_block_kernel(x, bp, s)
             ref = decoder_block_plain(x.float(), bp, s)
             name = f"k2 block{i} c{chunk}"
-        diff = run().float() - ref
+        got = run().float()
+        diff = got - ref
         out[name] = dict(ms=ms(run, 10), max_abs_err=diff.abs().max().item(),
                          rms_err=diff.square().mean().sqrt().item(), ref_max=ref.abs().max().item())
+        if i == 0:
+            m = res_units_plain(x, units).float()
+            out[name].update(matched_max_abs_err=(got - m).abs().max().item(),
+                             matched_differ_share=(got != m).float().mean().item())
+            more = []
+            for sd in range(1000, 1008):
+                xs = torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(sd),
+                                 device=dev).to(torch.bfloat16)
+                ds = res_units_kernel(xs, units).float() - res_units_plain(xs.float(), units)
+                more.append(dict(seed=sd, max_abs_err=ds.abs().max().item(),
+                                 rms_err=ds.square().mean().sqrt().item()))
+                del xs, ds
+            out[name]["seeds"] = more
+            del m
+        del got
         del x, ref, diff
         torch.cuda.empty_cache()
         l *= s

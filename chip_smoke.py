@@ -50,6 +50,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -76,34 +77,59 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_events(fn, reps: int, cpu: bool = False, windows: int = 3) -> list:
-    """The device-kernel events of `reps` calls of `fn` from the
-    `torch.profiler` window, of `windows`, in which the profiler delivered
-    the most: it sometimes delivers a window only in part (a kernel missing
-    altogether, or a sixth of a decode chunk's kernels), never more than ran."""
+# Host-side calls that launch one kernel each, as the profiler names them.
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def _window(fn, reps: int) -> tuple:
+    """One `torch.profiler` window of `reps` calls of `fn`: its device-kernel
+    events (copies and fills left out) and the kernel launches it saw on the
+    host."""
     from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
-    best: list = []
-    for _ in range(windows):
-        with profile(activities=activities) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if len(events) > len(best):
-            best = events
-    return best
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    launches = sum(e.device_type == torch.autograd.DeviceType.CPU and e.name in _LAUNCH_CALLS for e in events)
+    return kernels, launches
 
 
-def device_ms(fn, iters: int, *name_parts: str):
-    """Device time per call of the kernels whose name holds one of
-    `name_parts`, from `torch.profiler`: the kernels alone, without the
-    host's share of a call; None (not measured) if no window had one."""
+def kernel_events(fn, reps: int, ours: Optional[dict] = None, tries: int = 3) -> list:
+    """The device-kernel events of `reps` calls of `fn` from one
+    `torch.profiler` window that passes two checks: no more kernels than
+    launch calls the window saw on the host, and for each name part in
+    `ours` (the port's own kernels, whose launches per call are known)
+    exactly `reps * ours[part]` kernels whose name holds it. The profiler has
+    delivered windows in part (one without the kernel of a small attention
+    call, one short of a sixth of a decode chunk's kernels): a window that
+    fails is reported and taken again, at most `tries` times in all, and the
+    phase fails if none passes. The totals cannot be held equal: library
+    and torch calls launch some kernels that the profiler never records (one
+    a decode chunk)."""
+    ours = ours or {}
+    for _ in range(tries):
+        kernels, launches = _window(fn, reps)
+        got = {part: sum(part in e.name for e in kernels) for part in ours}
+        if len(kernels) <= launches and all(got[part] == reps * n for part, n in ours.items()):
+            return kernels
+        print(json.dumps(dict(phase="profiler window rejected", kernels=len(kernels), launches=launches,
+                              ours=got, ours_launched={part: reps * n for part, n in ours.items()})),
+              flush=True)
+    raise SystemExit(f"torch.profiler delivered no whole window in {tries} tries")
+
+
+def device_ms(fn, iters: int, ours: dict) -> float:
+    """Device time per call of the port's kernels named in `ours` (name part
+    -> launches per call), from `torch.profiler`: the kernels alone, without
+    the host's share of a call."""
     fn()
     torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in kernel_events(fn, iters) if any(n in e.name for n in name_parts)]
-    return sum(us) / 1e3 / iters if us else None
+    us = [e.time_range.elapsed_us() for e in kernel_events(fn, iters, ours) if any(n in e.name for n in ours)]
+    return sum(us) / 1e3 / iters
 
 
 def nbytes(*ts) -> int:
@@ -179,7 +205,7 @@ def run_attention_phase(dev, gen, results):
         run = lambda: flash_attention(q, k, v, kw.get("kv_mask"), window=kw.get("window"),
                                       causal=kw.get("causal", False))
         k_ms = time_ms(run, 20)
-        d_ms = device_ms(run, 10, "attention_sm90")
+        d_ms = device_ms(run, 10, {"attention_sm90": 1})
         p_ms = time_ms(lambda: flash_attention_plain(q, k, v, kw.get("kv_mask"), window=kw.get("window"),
                                                      causal=kw.get("causal", False)), 3)
         # Yardstick only: SDPA on the same bf16 inputs (the port never calls it).
@@ -311,7 +337,10 @@ def run_vae_phase(dev, gen, results):
         ok = bool(err <= tol) and bool(torch.isfinite(out).all())
         b_ms, b_by = bound_ms(flops, nbytes(x, out) + w_bytes)
         k_ms = time_ms(run, 10)
-        d_ms = device_ms(run, 10, "oobleck_conv_sm90", "snake_kernel")
+        # Per call: a Snake launch, then 6 conv launches (the chain), 7 (a
+        # block at 512 channels) or 4 (fused units at <= 256).
+        convs = 6 if kname == "res_units" else (7 if prm["conv_t1"]["kernel"].shape[2] == 512 else 4)
+        d_ms = device_ms(run, 10, {"oobleck_conv_sm90": convs, "snake_kernel": 1})
         p_ms = time_ms(lambda: plain(x), 2)
         line = dict(phase=f"kernel {kname} {label}", ok=ok, max_abs_err=err, tol=tol,
                     kernel_ms=k_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
@@ -393,18 +422,29 @@ def _counters():
 
 
 def _path_launches(path: str, need) -> dict:
-    """Read the counters after a path and fail if one of its kernels never ran."""
+    """Read the counters after a path and fail if one of its kernels never ran,
+    or if a decoder block ran in torch on the card a part that the JAX
+    package runs in a Pallas kernel (a width no kernel takes)."""
+    from acestep_tpu_torch.models import vae
+
     launches = {k: fn.launches for k, fn in _counters().items()}
-    print(json.dumps(dict(phase=f"{path} launches", launches=launches)), flush=True)
+    torch_parts = vae.decoder_block.torch_on_card
+    print(json.dumps(dict(phase=f"{path} launches", launches=launches, vae_torch_on_card=torch_parts)),
+          flush=True)
     missing = [k for k in need if launches[k] <= 0]
     if missing:
         raise SystemExit(f"kernels never launched on the {path}: {missing}")
+    if torch_parts:
+        raise SystemExit(f"{torch_parts} decoder-block parts ran in torch on the card on the {path}")
     return launches
 
 
 def _reset_counters() -> None:
+    from acestep_tpu_torch.models import vae
+
     for fn in _counters().values():
         fn.launches = 0
+    vae.decoder_block.torch_on_card = 0
 
 
 def run_small_thinking_reference(dev):
@@ -567,7 +607,7 @@ def _dit_step_profile(dit_forward, step_args: dict, steps: int = 3) -> dict:
             run()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3 / steps
-        events = kernel_events(run, steps, cpu=True)
+        events = kernel_events(run, steps, {"attention_sm90": 48})  # 24 layers, self and cross
     dev_ms, n_kernels, kinds, top = _device_summary(events, steps, _kernel_kind)
     return dict(tokens=7500, wall_ms_per_step=wall_ms, device_ms_per_step=dev_ms,
                 kernels_per_step=n_kernels, device_idle_share=max(0.0, 1.0 - dev_ms / wall_ms),
@@ -657,7 +697,9 @@ def _vae_decode_profile(h, frames: int = 544, reps: int = 3) -> dict:
             chunk()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3 / reps
-        events = kernel_events(chunk, reps, cpu=True)
+        # Kernel 3: a Snake and 6 convs; kernel 2: a Snake and 7 convs at 512
+        # channels (block 1), a Snake and 4 at 256 and 128 (blocks 2-4).
+        events = kernel_events(chunk, reps, {"oobleck_conv_sm90": 25, "snake_kernel": 5})
     dev_ms, n_kernels, kinds, top = _device_summary(events, reps, _decode_kind)
     return dict(frames=frames, wall_ms_per_chunk=wall_ms, parts_ms=dict(zip(names, parts)),
                 device_ms_per_chunk=dev_ms, kernels_per_chunk=n_kernels,
@@ -686,7 +728,7 @@ def _decode_profile(llm, rows: int, max_len: int, steps: int = 10) -> dict:
             qwen3.decode_step(llm.params, llm.config, tok, pos, cache)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3 / steps
-        events = kernel_events(lambda: qwen3.decode_step(llm.params, llm.config, tok, pos, cache), steps, cpu=True)
+        events = kernel_events(lambda: qwen3.decode_step(llm.params, llm.config, tok, pos, cache), steps)
     n_kernels = len(events)
     dev_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / steps
     del cache

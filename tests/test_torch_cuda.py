@@ -340,7 +340,7 @@ def test_streamk_k7_matches_whole_tiles(dev, oobleck_biased, b, l, d):
 
 @pytest.mark.parametrize("b,l", [(1, 2240), (2, 77)])
 def test_res_units_kernel_repeats_bit_identical(dev, oobleck_biased, b, l):
-    """The stream-K owner adds its peers' partials in a fixed order."""
+    """Each stream-K tile's partial sums add in K order, the same on every call."""
     bp = oobleck_biased["block"][0]
     units = (bp["res_unit1"], bp["res_unit2"], bp["res_unit3"])
     x = _randn((b, l, 1024), 95, dev)
@@ -351,11 +351,58 @@ def test_res_units_kernel_repeats_bit_identical(dev, oobleck_biased, b, l):
 
 
 def test_res_units_kernel_refuses_other_channel_counts(dev, oobleck):
-    """128 channels are outside CHAIN_CHANNELS: the wrapper raises before any launch."""
-    h = _randn((1, 64, 128), 82, dev)
+    """64 and 1152 channels are outside CHAIN_CHANNELS (the multiples of 128
+    up to 1024): the wrapper raises before any launch."""
     before = res_units_kernel.launches
-    with pytest.raises(ValueError):
-        res_units_kernel(h, [oobleck["block"][3][f"res_unit{i}"] for i in (1, 2, 3)])
+    for c in (64, 1152):
+        h = _randn((1, 64, c), 82, dev)
+        with pytest.raises(ValueError):
+            res_units_kernel(h, [oobleck["block"][3][f"res_unit{i}"] for i in (1, 2, 3)])
+    assert res_units_kernel.launches == before
+
+
+def _units(c, seed, dev):
+    """Three residual units at c channels with random conv biases and Snakes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape, scale=1.0: scale * torch.randn(shape, generator=g, device=dev)
+    snake = lambda: {"alpha": rnd(c, scale=0.3), "beta": rnd(c, scale=0.3)}
+    return [{"snake1": snake(), "snake2": snake(),
+             "conv1": {"kernel": rnd(7, c, c, scale=(7 * c) ** -0.5).to(torch.bfloat16), "bias": rnd(c, scale=0.3)},
+             "conv2": {"kernel": rnd(1, c, c, scale=c**-0.5).to(torch.bfloat16), "bias": rnd(c, scale=0.3)}}
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("c", [128, 256, 384, 512, 640, 768, 896])
+@pytest.mark.parametrize("b,l", [(1, 40), (2, 300)])
+def test_res_units_kernel_takes_every_chain_width(dev, c, b, l):
+    """Every width of CHAIN_CHANNELS below block 0's 1024 launches the kernels:
+    kernel 2's fused units at 128 and 256, whole 128-channel tiles at 384,
+    640 and 896, the stream-K k7s at 512 and 768; one count, close to the
+    plain chain."""
+    units = _units(c, c + l, dev)
+    x = _randn((b, l, c), 120 + c, dev)
+    before = res_units_kernel.launches
+    got = res_units_kernel(x, units)
+    torch.cuda.synchronize()
+    assert res_units_kernel.launches == before + 1
+    want = res_units_plain(x.float(), units)
+    assert got.shape == x.shape and torch.isfinite(got).all()
+    assert _close(got, want)
+
+
+def test_res_units_kernel_refuses_graph_capture(dev, oobleck_biased):
+    """A replayed stream-K launch would keep its epoch, which the flags may
+    already hold: the wrapper raises during capture, before any launch."""
+    bp = oobleck_biased["block"][0]
+    units = (bp["res_unit1"], bp["res_unit2"], bp["res_unit3"])
+    x = _randn((1, 77, 1024), 96, dev)
+    res_units_kernel(x, units)
+    torch.cuda.synchronize()
+    before = res_units_kernel.launches
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(graph):
+            res_units_kernel(x, units)
     assert res_units_kernel.launches == before
 
 
@@ -378,9 +425,12 @@ def test_tiny_vae_decodes_on_the_card(dev):
     to_dev = lambda t: {k: to_dev(v) for k, v in t.items()} if isinstance(t, dict) else (
         [to_dev(v) for v in t] if isinstance(t, list) else t.to(dev))
     before = (decoder_block_kernel.launches, res_units_kernel.launches)
+    torch_parts = vae.decoder_block.torch_on_card
     got = vae.decode(to_dev(p), cfg, z.to(dev))
     torch.cuda.synchronize()
     assert (decoder_block_kernel.launches, res_units_kernel.launches) == before
+    # Each of the 3 blocks: the fused block (c_out <= 512) and the chain in torch.
+    assert vae.decoder_block.torch_on_card == torch_parts + 6
     want = vae.decode(p, cfg, z)
     assert got.shape == want.shape == (2, 40 * cfg.hop_length, 2)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

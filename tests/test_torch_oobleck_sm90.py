@@ -33,9 +33,7 @@ from acestep_tpu_torch.ops.oobleck_kernels import (
     res_unit_plain,
     res_units_plain,
     snake_f32,
-    streamk_peers,
     streamk_schedule,
-    streamk_segments,
 )
 
 
@@ -126,7 +124,9 @@ def _bf16_close(got, want):
     assert err <= 2e-2 * max(1.0, want.float().abs().max().item()), err
 
 
-@pytest.mark.parametrize("c", [128, 256])
+# 384: `res_units_kernel`'s k7 + k1 on whole 128-channel tiles, with the fused
+# unit's rounding points.
+@pytest.mark.parametrize("c", [128, 256, 384])
 def test_unit_launches_match_res_units_plain(c):
     rng = np.random.default_rng(c)
     units = [_unit(rng, c, torch.bfloat16) for _ in range(3)]
@@ -177,6 +177,27 @@ def test_packed_operands_are_kept_per_weight_tensor():
 H100_SMS = 132
 
 
+def streamk_segments(sched, steps, cta):
+    """CTA `cta`'s work in order, as `sk_segments` in csrc/oobleck_sm90.cu
+    walks it: (tile, k0, k1), K steps k0 .. k1 - 1 of the tile; its whole
+    tiles, then its run of split steps from the top down, cut at tile edges.
+    A segment with k0 > 0 first adds the running sum that CTA `cta` - 1
+    left for the tile's steps 0 .. k0 - 1; one with k1 < steps then leaves
+    its running sum in the CTA's workspace slot, one with k1 == steps runs
+    the epilogue."""
+    grid, dp_tiles, sk_ctas, q, r = sched
+    segs = [(t, 0, steps) for t in range(cta, dp_tiles, grid)]
+    if cta < sk_ctas:
+        begin = cta * q + min(cta, r)
+        end = begin + q + (cta < r)
+        while end > begin:
+            t, base = (end - 1) // steps, (end - 1) // steps * steps
+            k0 = max(begin - base, 0)
+            segs.append((dp_tiles + t, k0, end - base))
+            end = base + k0
+    return segs
+
+
 @pytest.mark.parametrize(
     "b,l,c,sms",
     [
@@ -195,32 +216,34 @@ def test_streamk_schedule_covers_every_step_once(b, l, c, sms):
     grid, dp_tiles, sk_ctas, q, r = sched
     assert 1 <= grid <= sms and sk_ctas <= grid and dp_tiles % grid == 0
     assert sk_ctas * q + r == (tiles - dp_tiles) * steps
-    seen, owners, partial_of = {}, {}, {}
+    seen, last, partial_of = {}, {}, {}
     for cta in range(grid):
         segs = streamk_segments(sched, steps, cta)
+        n_whole = len(range(cta, dp_tiles, grid))
         for i, (t, k0, k1) in enumerate(segs):
             assert 0 <= t < tiles and 0 <= k0 < k1 <= steps
             for k in range(k0, k1):
                 assert (t, k) not in seen
                 seen[t, k] = cta
-            if k0 == 0:
-                assert t not in owners
-                owners[t] = (cta, k1)
-            else:  # only the first segment past the whole tiles leaves a partial: one slot per CTA
-                assert i == len(range(cta, dp_tiles, grid)) and cta not in partial_of
-                partial_of[cta] = t
-    assert len(seen) == tiles * steps and sorted(owners) == list(range(tiles))
-    for t, (cta, k1) in owners.items():
-        peers = streamk_peers(sched, steps, t, k1)
-        assert peers == sorted(c2 for c2, t2 in partial_of.items() if t2 == t)
-        assert all(p > cta for p in peers)  # an owner waits only for CTAs that never wait first
-    assert set(partial_of) <= set(range(grid))
+            if k1 == steps:  # one segment ends each tile and runs its epilogue
+                assert t not in last
+                last[t] = cta
+            else:  # only the first split segment ends inside a tile: one slot per CTA
+                assert i == n_whole and cta not in partial_of
+                partial_of[cta] = (t, k1)
+            if k0 > 0:  # only the last segment starts inside a tile
+                assert i == len(segs) - 1
+    assert len(seen) == tiles * steps and sorted(last) == list(range(tiles))
+    for cta, segs in ((c, streamk_segments(sched, steps, c)) for c in range(grid)):
+        for t, k0, k1 in segs:
+            if k0 > 0:  # CTA - 1 holds the steps just below, its running sum ready in its slot
+                assert partial_of[cta - 1] == (t, k0) and seen[t, k0 - 1] == cta - 1
 
 
 def streamk_conv(a, wp, dil, pad, sms):
-    """conv_packed as the stream-K k7 launch sums it: per tile, the owner's
-    steps in the mainloop's order, then each peer's partial (its own steps in
-    order) in CTA order."""
+    """conv_packed as the stream-K k7 launch sums it: each segment sums its
+    steps in the mainloop's order, then, if it starts inside the tile, adds
+    the running sum that the CTA below left in its slot."""
     bsz, l, ci = a.shape
     kt, n = wp.shape[:2]
     n_ci, n_rt, n_nt = ci // STEP_CHANNELS, -(-l // TILE_ROWS), n // TILE_COLS
@@ -240,17 +263,18 @@ def streamk_conv(a, wp, dil, pad, sms):
         return acc
 
     sched = streamk_schedule(tiles, steps, sms)
-    partial, owned = {}, {}
-    for cta in range(sched[0]):
+    slot, done = {}, {}
+    for cta in range(sched[0]):  # in CTA order: a CTA reads only the slot of the one below
         for t, k0, k1 in streamk_segments(sched, steps, cta):
-            if k0:
-                partial[cta] = steps_sum(t, k0, k1)
+            acc = steps_sum(t, k0, k1)
+            if k0 > 0:
+                acc = acc + slot[cta - 1]
+            if k1 < steps:
+                slot[cta] = acc
             else:
-                owned[t] = (steps_sum(t, k0, k1), k1)
+                done[t] = acc
     out = torch.zeros(bsz, n_rt * TILE_ROWS, n)
-    for t, (acc, k1) in owned.items():
-        for peer in streamk_peers(sched, steps, t, k1):
-            acc = acc + partial[peer]
+    for t, acc in done.items():
         t0, n0, bb = tile_at(t)
         out[bb, t0 : t0 + TILE_ROWS, n0 : n0 + TILE_COLS] = acc
     return out[:, :l]
@@ -287,3 +311,4 @@ def test_chain_launches_match_res_units_plain():
     units = [_unit(rng, 256, torch.bfloat16) for _ in range(3)]
     h = _t(rng, (2, 150, 256), dtype=torch.bfloat16)
     _bf16_close(chain_launches(h, units, sms=3), res_units_plain(h, units))
+

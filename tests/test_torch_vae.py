@@ -104,3 +104,18 @@ def test_decode_and_tiled_decode_match_jax(weights):
     want_t = np.asarray(jvae.tiled_decode(jp, J_TINY, jnp.asarray(z), chunk_frames=24, overlap_frames=6))
     got_t = tvae.tiled_decode(tp, T_TINY, torch.tensor(z), chunk_frames=24, overlap_frames=6).numpy()
     np.testing.assert_allclose(got_t, want_t, **TOL)
+
+
+def test_cpu_routing_follows_the_jax_gates_at_every_width(weights, monkeypatch):
+    """On a CPU tensor the widths of the card's kernels do not gate: every
+    block of the 16-channel VAE takes the block wrapper (its plain version),
+    as the JAX package takes `decoder_block_pallas`, and no part counts as
+    run in torch on the card."""
+    _, tp = weights
+    calls = []
+    real = tvae.decoder_block_kernel
+    monkeypatch.setattr(tvae, "decoder_block_kernel", lambda x, p, s: calls.append(x.shape[-1]) or real(x, p, s))
+    before = tvae.decoder_block.torch_on_card
+    tvae.decode(tp, T_TINY, torch.tensor(_x((1, 40, J_TINY.latent_dim), 7)))
+    assert calls == [64, 32, 16]
+    assert tvae.decoder_block.torch_on_card == before
