@@ -13,13 +13,14 @@ Port of `acestep_tpu/lm/handler.py` (reference `acestep/llm_inference.py`):
 - KV cache: preallocated, bucketed prompt lengths, prefill dedup and reuse
   (`lm/prefix_cache.py`).
 
-Random init only (a checkpoint raises `NotImplementedError`, as in the DiT
-handler); the understand/create/format APIs raise until `generate_free` is
-ported.
+Weights come from the reference checkpoint layout (config.json, safetensors
+and `genres_vocab.txt`, which constrains the CoT's genres) or from a seed;
+the understand/create/format APIs raise until `generate_free` is ported.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
 import time
@@ -33,7 +34,7 @@ from acestep_tpu_torch.device import resolve_device
 from acestep_tpu_torch.lm import prefix_cache, sampling
 from acestep_tpu_torch.lm.constrained import ConstrainedDecoderFSM
 from acestep_tpu_torch.models import qwen3
-from acestep_tpu_torch.params import LM_CONFIGS, init_qwen3_params
+from acestep_tpu_torch.params import LM_CONFIGS, init_qwen3_params, load_safetensors_state
 from acestep_tpu_torch.utils.constants import DEFAULT_LM_INSTRUCTION
 from acestep_tpu_torch.utils.tokenizer import load_tokenizer, tokenize_padded
 
@@ -77,21 +78,53 @@ class LLMHandler:
         max_duration: Optional[int] = None,
         seed: int = 0,
     ) -> str:
-        """Random weights from `seed` and the byte-level fallback tokenizer."""
+        """Load the planner from `checkpoint_dir` (config.json, *.safetensors,
+        its tokenizer where `transformers` can read one, `genres_vocab.txt`
+        where present), or random weights from `seed` with the byte-level
+        fallback tokenizer, as the JAX handler decides."""
         t0 = time.time()
         if random_init is None:
             random_init = checkpoint_dir is None or not os.path.isdir(checkpoint_dir)
-        if not random_init:
-            raise NotImplementedError("loading an LM checkpoint is not ported yet")
-        self.tokenizer = load_tokenizer(None)
-        self.params = init_qwen3_params(self.config, seed=seed, device=self.device, dtype=self.dtype)
-        self.fsm = ConstrainedDecoderFSM(self.tokenizer, max_duration=max_duration, genres_vocab=None)
+        if random_init:
+            tokenizer = load_tokenizer(None)
+            params = init_qwen3_params(self.config, seed=seed, device=self.device, dtype=self.dtype)
+        else:
+            with open(os.path.join(checkpoint_dir, "config.json")) as f:
+                raw = json.load(f)
+            config = Qwen3Config(
+                vocab_size=raw["vocab_size"],
+                hidden_size=raw["hidden_size"],
+                intermediate_size=raw["intermediate_size"],
+                num_hidden_layers=raw["num_hidden_layers"],
+                num_attention_heads=raw["num_attention_heads"],
+                num_key_value_heads=raw["num_key_value_heads"],
+                head_dim=raw.get("head_dim", 128),
+                rope_theta=raw.get("rope_theta", 1e6),
+                tie_word_embeddings=raw.get("tie_word_embeddings", True),
+            )
+            state = load_safetensors_state(checkpoint_dir)
+            if not state:
+                raise FileNotFoundError(
+                    f"LM checkpoint at {checkpoint_dir!r} has no *.safetensors "
+                    "weights; re-download it or pass random_init=True"
+                )
+            params = qwen3.convert_torch_qwen3_state(state, config, self.dtype, self.device)
+            self.config = config
+            tokenizer = load_tokenizer(checkpoint_dir)
+        genres_vocab = None
+        if checkpoint_dir:
+            gpath = os.path.join(checkpoint_dir, "genres_vocab.txt")
+            if os.path.exists(gpath):
+                with open(gpath) as f:
+                    genres_vocab = [l.strip() for l in f if l.strip()]
+        self.tokenizer, self.params, self.genres_vocab = tokenizer, params, genres_vocab
+        self.fsm = ConstrainedDecoderFSM(self.tokenizer, max_duration=max_duration, genres_vocab=genres_vocab)
         self.prefill_cache = prefix_cache.PrefillCache()  # entries are tied to these weights
         self._dfa_cache = {}
         self.initialized = True
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return f"LM initialized in {time.time() - t0:.1f}s (random_init=True, device={self.device})"
+        return f"LM initialized in {time.time() - t0:.1f}s (random_init={random_init}, device={self.device})"
 
     # ------------------------------------------------------------------
     # Prompt building (ref llm_inference.py:1487-1620)

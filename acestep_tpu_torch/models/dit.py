@@ -1,18 +1,20 @@
-"""ACE-Step v1.5 DiT and condition encoders, text2music subset.
+"""ACE-Step v1.5 DiT and condition encoders (turbo, without guidance).
 
 Port of `acestep_tpu/models/dit.py` as plain functions on the JAX package's
 parameter tree (tensors; layers as per-layer lists, see `params.py`):
 
 - `attention_block`, `encoder_layer`, `encoder_stack`, `lyric_encoder`,
   `timbre_encoder`, `condition_encoder`;
-- `detokenizer` and `decode_audio_codes` (LM audio codes -> FSQ -> 25 Hz
-  hints), and `prepare_condition` with precomputed hints or audio codes (the
-  audio tokenizer chain, `attention_pooler`/`audio_tokenize`, which a cover
-  without hints needs, raises until the cover slice);
+- the audio tokenizer chain: `attention_pooler` and `audio_tokenize` (25 Hz
+  latents -> 5 Hz FSQ tokens), `detokenizer` and `decode_audio_codes` (LM
+  audio codes -> FSQ -> 25 Hz hints), and `prepare_condition` with
+  precomputed hints, audio codes, or the source latents through the chain;
 - `timestep_embedding`, `dit_layer`, `precompute_cross_kv`, `dit_forward`;
 - `build_t_schedule`, `build_linspace_schedule`, `prepare_noise`;
 - `denoise` (the ODE loop of `denoise_scan` without CFG, as a Python loop)
-  and `generate_audio` with the `noise=` injection hook.
+  and `generate_audio` with cover noise (the renoised entry partway down the
+  schedule), cover strength (the non-cover segment) and the `noise=`
+  injection hook. CFG/APG/ADG and SDE sampling raise until their slice.
 
 The bf16 rounding points follow the JAX package: modulation in fp32 then cast
 (`dit_layer`), rope in fp32, the ODE step size cast to the latent dtype.
@@ -31,7 +33,7 @@ from acestep_tpu_torch.config import AceStepConfig
 from acestep_tpu_torch.ops.attention import attention
 from acestep_tpu_torch.ops.basic import linear, mlp_swiglu, rms_norm
 from acestep_tpu_torch.ops.conv import conv1d, conv_transpose1d
-from acestep_tpu_torch.ops.fsq import residual_fsq_decode_indices
+from acestep_tpu_torch.ops.fsq import residual_fsq_decode_indices, residual_fsq_forward
 from acestep_tpu_torch.ops.packing import pack_sequences
 from acestep_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
@@ -172,6 +174,25 @@ def condition_encoder(
     return pack_sequences(enc, text, enc_mask, text_attention_mask.to(torch.int32))
 
 
+def attention_pooler(p: Params, cfg: AceStepConfig, x: torch.Tensor) -> torch.Tensor:
+    """(B, T, P, D) patches -> (B, T, D): the output at a prepended special token."""
+    b, t, pw, _ = x.shape
+    x = linear(p["embed_tokens"], x)
+    cls = p["special_token"].to(x.dtype).expand(b, t, 1, x.shape[-1])
+    x = torch.cat([cls, x], dim=2).reshape(b * t, pw + 1, -1)
+    x = encoder_stack(p["layers"], p["norm"]["weight"], cfg, x, None)
+    return x[:, 0, :].reshape(b, t, -1)
+
+
+def audio_tokenize(p: Params, cfg: AceStepConfig, hidden_states: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """25 Hz acoustic latents (B, T25, 64), T25 a multiple of the pool window,
+    -> (quantized 5 Hz tokens (B, T25 / P, D), integer indices (B, T25 / P))."""
+    b, t25, _ = hidden_states.shape
+    x = linear(p["audio_acoustic_proj"], hidden_states)
+    x = x.reshape(b, t25 // cfg.pool_window_size, cfg.pool_window_size, -1)
+    return residual_fsq_forward(p["quantizer"], attention_pooler(p["attention_pooler"], cfg, x), cfg.fsq_levels)
+
+
 def detokenizer(p: Params, cfg: AceStepConfig, quantized: torch.Tensor) -> torch.Tensor:
     """(B, T5, D) 5 Hz tokens -> (B, T5 * P, 64) 25 Hz acoustic (ref AudioTokenDetokenizer)."""
     b, t, _ = quantized.shape
@@ -212,31 +233,42 @@ def prepare_condition(
     """-> (encoder_hidden_states, encoder_mask, context_latents).
 
     The LM hints come from `precomputed_lm_hints_25hz`, else from
-    `audio_codes` (B, T5) through `decode_audio_codes`; with neither, the
-    hints would need the audio tokenizer chain, which is not ported yet.
+    `audio_codes` (B, T5) through `decode_audio_codes`, else from the source
+    latents themselves through the audio tokenizer and the detokenizer
+    (padded with silence to a pool-window multiple); they replace the source
+    latents of the cover rows.
     """
-    if precomputed_lm_hints_25hz is None and audio_codes is None:
-        raise NotImplementedError(
-            "LM hints without precomputed hints or audio codes need the audio tokenizer "
-            "(attention_pooler / audio_tokenize), not ported yet (cover slice)"
-        )
     enc, enc_mask = condition_encoder(
         params["encoder"], cfg, text_hidden_states, text_attention_mask,
         lyric_hidden_states, lyric_attention_mask, refer_packed, refer_order_mask, max_refs,
     )
     t = src_latents.shape[1]
+
+    def fit(h: torch.Tensor) -> torch.Tensor:
+        h = h[:, :t, :]
+        short = t - h.shape[1]
+        if short > 0:
+            if silence_latent is not None:
+                fill = silence_latent[:1, :short, :].expand(h.shape[0], short, h.shape[2])
+            else:
+                fill = torch.zeros((h.shape[0], short, h.shape[2]), dtype=h.dtype, device=h.device)
+            h = torch.cat([h, fill.to(h.dtype)], dim=1)
+        return h
+
     if precomputed_lm_hints_25hz is not None:
-        h = precomputed_lm_hints_25hz
+        h = fit(precomputed_lm_hints_25hz)
+    elif audio_codes is not None:
+        h = fit(decode_audio_codes(params, cfg, audio_codes, src_latents.dtype))
     else:
-        h = decode_audio_codes(params, cfg, audio_codes, src_latents.dtype)
-    h = h[:, :t, :]
-    short = t - h.shape[1]
-    if short > 0:
-        if silence_latent is not None:
-            fill = silence_latent[:1, :short, :].expand(h.shape[0], short, h.shape[2])
-        else:
-            fill = torch.zeros((h.shape[0], short, h.shape[2]), dtype=h.dtype, device=h.device)
-        h = torch.cat([h, fill.to(h.dtype)], dim=1)
+        hs = src_latents
+        pad = (-t) % cfg.pool_window_size
+        if pad:
+            if silence_latent is None:
+                raise ValueError("the tokenizer chain pads with the silence latent, which was not given")
+            fill = silence_latent[:1, :pad, :].expand(hs.shape[0], pad, hs.shape[2])
+            hs = torch.cat([hs, fill.to(hs.dtype)], dim=1)
+        quantized, _ = audio_tokenize(params["tokenizer"], cfg, hs)
+        h = detokenizer(params["detokenizer"], cfg, quantized)[:, :t, :]
     is_c = is_covers.to(torch.bool)[:, None, None]
     src = torch.where(is_c, h.to(src_latents.dtype), src_latents)
     cm = chunk_masks if chunk_masks.dim() == 3 else chunk_masks[..., None].expand(src.shape)
@@ -393,10 +425,12 @@ def denoise(
     cross_kvs,
     encoder_mask: Optional[torch.Tensor],
     latent_mask: Optional[torch.Tensor],
+    t_after: float = 0.0,
 ) -> torch.Tensor:
-    """ODE (Euler) trajectory without CFG: x <- x - v(x, t) * (t - t_next)."""
+    """ODE (Euler) trajectory without CFG: x <- x - v(x, t) * (t - t_next),
+    over `schedule` (a segment of a trajectory that goes on at `t_after`)."""
     t_sched = np.asarray(schedule, np.float32)
-    t_next = np.asarray(list(schedule[1:]) + [0.0], np.float32)
+    t_next = np.asarray(list(schedule[1:]) + [t_after], np.float32)
     b = xt.shape[0]
     for t_curr, t_nxt in zip(t_sched, t_next):
         tvec = torch.full((b,), float(t_curr), dtype=torch.float32, device=xt.device)
@@ -430,6 +464,8 @@ def generate_audio(
     infer_method: str = "ode",
     audio_cover_strength: float = 1.0,
     cover_noise_strength: float = 0.0,
+    non_cover_text_hidden_states: Optional[torch.Tensor] = None,
+    non_cover_text_attention_mask: Optional[torch.Tensor] = None,
     precomputed_lm_hints_25hz: Optional[torch.Tensor] = None,
     audio_codes: Optional[torch.Tensor] = None,
     guidance_scale: float = 1.0,
@@ -438,13 +474,17 @@ def generate_audio(
     return_condition: bool = False,
     noise: Optional[torch.Tensor] = None,  # injection hook (tests)
 ) -> Dict[str, Any]:
-    """Turbo generation: prepare_condition, cross K/V once, ODE loop."""
+    """Turbo generation: prepare_condition, cross K/V once per segment, ODE loop.
+
+    With `cover_noise_strength` > 0 the trajectory starts at the schedule
+    step nearest 1 - strength, from that mix of noise and the source
+    latents. With `audio_cover_strength` < 1 the steps from
+    int(steps * strength) on run a second condition: the source replaced by
+    silence, no cover rows, and the `non_cover_text_*` prompt when given."""
     if infer_method != "ode":
         raise NotImplementedError("SDE sampling is not ported yet")
     if guidance_scale > 1.0:
         raise NotImplementedError("CFG/APG/ADG guidance is not ported yet")
-    if audio_cover_strength < 1.0 or cover_noise_strength > 0.0:
-        raise NotImplementedError("cover strength / cover noise are not ported yet (cover slice)")
     if cfg.model_version == "turbo" and infer_steps is None:
         schedule = build_t_schedule(shift, timesteps)
     elif infer_steps is not None:
@@ -452,32 +492,65 @@ def generate_audio(
     else:
         schedule = build_t_schedule(shift, timesteps)
 
-    enc, enc_mask, context_latents = prepare_condition(
-        params, cfg,
-        text_hidden_states=text_hidden_states,
-        text_attention_mask=text_attention_mask,
+    cond = dict(
         lyric_hidden_states=lyric_hidden_states,
         lyric_attention_mask=lyric_attention_mask,
         refer_packed=refer_packed,
         refer_order_mask=refer_order_mask,
-        src_latents=src_latents,
         chunk_masks=chunk_masks,
-        is_covers=is_covers,
         silence_latent=silence_latent,
+        max_refs=max_refs,
+    )
+    enc, enc_mask, context_latents = prepare_condition(
+        params, cfg, **cond,
+        text_hidden_states=text_hidden_states,
+        text_attention_mask=text_attention_mask,
+        src_latents=src_latents,
+        is_covers=is_covers,
         precomputed_lm_hints_25hz=precomputed_lm_hints_25hz,
         audio_codes=audio_codes,
-        max_refs=max_refs,
     )
     b, t, d = src_latents.shape
     seeds = list(seeds) if seeds is not None else list(range(b))
     if noise is None:
         noise = prepare_noise((b, t, d), seeds, src_latents.dtype, src_latents.device)
-    xt = noise.to(device=src_latents.device, dtype=src_latents.dtype)
+    noise = noise.to(device=src_latents.device, dtype=src_latents.dtype)
+
+    if cover_noise_strength > 0.0:
+        nearest = min(schedule, key=lambda v: abs(v - (1.0 - cover_noise_strength)))
+        schedule = schedule[schedule.index(nearest):]
+        xt = nearest * noise + (1.0 - nearest) * src_latents
+    else:
+        xt = noise
+
+    num_steps = len(schedule)
+    segments = [(0, num_steps, enc, enc_mask, context_latents)]
+    cover_steps = int(num_steps * audio_cover_strength)
+    if audio_cover_strength < 1.0 and cover_steps < num_steps:
+        if silence_latent is None:
+            raise ValueError("audio_cover_strength < 1 needs the silence latent")
+        sil = silence_latent[:, :t, :].expand(b, t, d).to(src_latents.dtype)
+        # No cover rows: the hints go unused, so the silence stands in for them.
+        nc = prepare_condition(
+            params, cfg, **cond,
+            text_hidden_states=(non_cover_text_hidden_states if non_cover_text_hidden_states is not None
+                                else text_hidden_states),
+            text_attention_mask=(non_cover_text_attention_mask if non_cover_text_attention_mask is not None
+                                 else text_attention_mask),
+            src_latents=sil,
+            is_covers=torch.zeros_like(is_covers),
+            precomputed_lm_hints_25hz=sil,
+        )
+        segments = [(0, cover_steps, enc, enc_mask, context_latents), (cover_steps, num_steps, *nc)]
 
     dec = params["decoder"]
-    kvs = precompute_cross_kv(dec, cfg, enc)
-    xt = denoise(dec, cfg, xt, schedule, context_latents, kvs, enc_mask, attention_mask)
-    out = {"target_latents": xt, "num_steps": len(schedule)}
+    for s0, s1, seg_enc, seg_mask, seg_ctx in segments:
+        if s1 <= s0:
+            continue
+        kvs = precompute_cross_kv(dec, cfg, seg_enc)
+        xt = denoise(dec, cfg, xt, schedule[s0:s1], seg_ctx, kvs, seg_mask, attention_mask,
+                     t_after=schedule[s1] if s1 < num_steps else 0.0)
+    out = {"target_latents": xt, "num_steps": num_steps}
     if return_condition:
         out["condition"] = {
             "encoder_hidden_states": enc,

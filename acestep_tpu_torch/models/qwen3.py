@@ -13,7 +13,8 @@ Port of `acestep_tpu/models/qwen3.py` in its two roles:
 Unlike the JAX version, which returns a new cache, `prefill` and
 `decode_step` write into the cache's tensors in place (one row per step and
 layer) and return the same `KVCache`. Parameters are the JAX package's tree of
-tensors (see `params.py`).
+tensors (see `params.py`); `convert_torch_qwen3_state` builds it from an HF
+Qwen3 state dict.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from acestep_tpu_torch.config import Qwen3Config
 from acestep_tpu_torch.ops.attention import attention, attention_xla
 from acestep_tpu_torch.ops.basic import linear, matmul_f32, mlp_swiglu, rms_norm
 from acestep_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from acestep_tpu_torch.params import leaf, np32
 
 Params = Dict[str, Any]
 
@@ -198,3 +200,50 @@ def decode_step(
     logits = logits_from_hidden(params, cfg, x)[:, 0]
     cache.length = cache.length + 1
     return logits, cache
+
+
+def convert_torch_qwen3_state(state: Dict[str, Any], cfg: Qwen3Config, dtype=torch.bfloat16, device="cpu") -> Params:
+    """An HF Qwen3Model / Qwen3ForCausalLM state_dict -> the port's tree
+    (names with or without the "model." prefix; `lm_head` kept when the
+    state has one and the embeddings are untied)."""
+
+    def get(name):
+        for cand in (name, "model." + name):
+            if cand in state:
+                return np32(state[cand])
+        raise KeyError(name)
+
+    def lin(prefix):
+        return {"kernel": leaf(get(prefix + ".weight").T, device, dtype)}
+
+    def norm(prefix):
+        return {"weight": leaf(get(prefix + ".weight"), device, dtype)}
+
+    layers = []
+    for i in range(cfg.num_hidden_layers):
+        pre = f"layers.{i}"
+        layers.append({
+            "input_layernorm": norm(pre + ".input_layernorm"),
+            "self_attn": {
+                "q_proj": lin(pre + ".self_attn.q_proj"),
+                "k_proj": lin(pre + ".self_attn.k_proj"),
+                "v_proj": lin(pre + ".self_attn.v_proj"),
+                "o_proj": lin(pre + ".self_attn.o_proj"),
+                "q_norm": norm(pre + ".self_attn.q_norm"),
+                "k_norm": norm(pre + ".self_attn.k_norm"),
+            },
+            "post_attention_layernorm": norm(pre + ".post_attention_layernorm"),
+            "mlp": {
+                "gate_proj": lin(pre + ".mlp.gate_proj"),
+                "up_proj": lin(pre + ".mlp.up_proj"),
+                "down_proj": lin(pre + ".mlp.down_proj"),
+            },
+        })
+    params = {
+        "embed_tokens": {"weight": leaf(get("embed_tokens.weight"), device, dtype)},
+        "layers": layers,
+        "norm": norm("norm"),
+    }
+    if "lm_head.weight" in state and not cfg.tie_word_embeddings:
+        params["lm_head"] = {"kernel": leaf(np32(state["lm_head.weight"]).T, device, dtype)}
+    return params

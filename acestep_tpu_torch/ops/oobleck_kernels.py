@@ -1,27 +1,37 @@
 """Oobleck decoder kernels (CUDA) and their plain PyTorch versions.
 
-Port of `acestep_tpu/ops/pallas_vae.py`. Both kernels start with a Snake
-launch (`csrc/oobleck.cu`) and then run the implicit-GEMM convolutions of
-`csrc/oobleck_sm90.cu` (TMA + wgmma):
+Port of `acestep_tpu/ops/pallas_vae.py`. On the card each wrapper takes one
+of two routes:
+
+- the Hopper route, bf16 activations at the widths of `csrc/oobleck_sm90.cu`:
+  a Snake launch (`csrc/oobleck.cu`), then implicit-GEMM convolutions (TMA +
+  wgmma);
+- the narrow route, every other width the JAX package sends to its Pallas
+  kernels (C_out <= 512, chain C <= 1024) and fp32 activations at any width:
+  SIMT launches of `csrc/oobleck_generic.cu` (Snake, conv_t, k7, k1), fp32
+  weights, rounded to the activation dtype where the plain versions round.
 
 - `decoder_block_kernel` replaces `decoder_block_pallas`: one Oobleck decoder
-  block, Snake -> ConvTranspose1d (K = 2s, pad s/2) -> 3 residual units, at
-  C_out in SM90_CHANNELS: the upsampling conv with the first unit's Snake in
-  its epilogue, then one fused launch per residual unit at C <= 256 (z stays
-  in registers) or two at C = 512 (z through HBM).
+  block, Snake -> ConvTranspose1d (K = 2s, pad s/2) -> 3 residual units. On
+  the Hopper route (C_out in SM90_CHANNELS, C_in a multiple of 128): the
+  upsampling conv with the first unit's Snake in its epilogue, then one fused
+  launch per residual unit at C <= 256 (z stays in registers) or two at
+  C = 512 (z through HBM).
 - `res_units_kernel` replaces `res_units_pallas`: the 3-residual-unit chain
-  alone (decoder block 0, 1024 channels; C in CHAIN_CHANNELS, every multiple
-  of 128 up to 1024): Snake, then per unit kernel 2's fused launch at C <= 256
-  (4 launches), else a k7 launch (z through HBM) and a k1 launch with the
-  next unit's Snake in its epilogue (7 launches). At multiples of 256 the
-  k7s run on a stream-K schedule (`streamk_schedule`: the 72 or 172 tiles of
-  a decode chunk leave SMs idle in whole-tile rounds); at 384, 640 and 896
-  both stages run whole tiles of 128 channels.
+  alone (decoder block 0, 1024 channels). On the Hopper route (C in
+  CHAIN_CHANNELS, every multiple of 128 up to 1024): Snake, then per unit
+  kernel 2's fused launch at C <= 256 (4 launches), else a k7 launch (z
+  through HBM) and a k1 launch with the next unit's Snake in its epilogue (7
+  launches). At multiples of 256 the k7s run on a stream-K schedule
+  (`streamk_schedule`: the 72 or 172 tiles of a decode chunk leave SMs idle
+  in whole-tile rounds); at 384, 640 and 896 both stages run whole tiles of
+  128 channels.
 
 The source notes give each design and what bounds it on an H100. Each wrapper
-counts its calls that launch the kernels in `.launches`. A CPU tensor takes
-the plain version beside it, which rounds to the input dtype at the same
-points as the kernels; a CUDA tensor launches the kernels or raises.
+counts its calls that launch kernels in `.launches`, and those that took the
+narrow route also in `.narrow_launches`. A CPU tensor takes the plain version
+beside it, which rounds to the input dtype at the same points as the kernels;
+a CUDA tensor launches the kernels or raises.
 
 Rows outside [0, L) read as zeros (torch zero padding), so the halo gates of
 the TPU kernels (`TOTAL_HALO`, `_upsample_halo`) only keep the dispatch in
@@ -54,8 +64,17 @@ _SM90_SIGNATURES = {
     "acestep_oob_k7": ([_P] * 6 + [ctypes.c_int] * 4 + [_P] * 4, ctypes.c_int),
     "acestep_oob_k1": ([_P] * 8 + [ctypes.c_int] * 3 + [_P] * 4, ctypes.c_int),
 }
-SM90_CHANNELS = (128, 256, 512)  # output channels the decoder-block kernels take
-CHAIN_CHANNELS = tuple(range(128, 1025, 128))  # channels the residual-chain kernel takes
+_GEN_SIGNATURES = {
+    "acestep_gen_snake": ([_P] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
+    "acestep_gen_conv": ([_P] * 8 + [ctypes.c_int] * 7 + [_P], ctypes.c_int),
+    "acestep_gen_upsample": ([_P] * 7 + [ctypes.c_int] * 6 + [_P], ctypes.c_int),
+}
+SM90_CHANNELS = (128, 256, 512)  # output channels the Hopper decoder-block kernels take
+CHAIN_CHANNELS = tuple(range(128, 1025, 128))  # channels the Hopper residual-chain kernel takes
+# The JAX package's gates for its Pallas kernels: the widths the two wrappers
+# take on the card at all (the narrow route below the Hopper widths).
+BLOCK_MAX_CHANNELS, CHAIN_MAX_CHANNELS = 512, 1024
+NARROW_DTYPES = (torch.bfloat16, torch.float32)
 
 # The k7 and k1 launches' tiles: 128 rows x 256 output channels of one batch
 # row, K steps of 64 input channels per tap.
@@ -414,14 +433,126 @@ def _k1(
     return out, a_next
 
 
+# ---------------------------------------------------------------------------
+# Narrow route (csrc/oobleck_generic.cu)
+# ---------------------------------------------------------------------------
+
+
+def _generic():
+    return cuda_lib.load("oobleck_generic", _GEN_SIGNATURES)
+
+
+def _check_narrow(what: str, *ts: torch.Tensor) -> None:
+    for t in ts:
+        if (t.device.type != "cuda" or t.dtype not in NARROW_DTYPES or t.dtype != ts[0].dtype
+                or t.dim() != 3 or not t.is_contiguous()):
+            raise ValueError(f"{what}: expects contiguous bf16 or fp32 (B, L, C) CUDA tensors of one dtype, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _w32(kernel: torch.Tensor) -> torch.Tensor:
+    """A conv kernel as the narrow route reads it: fp32 (K, C_in, C_out), contiguous."""
+    return _derived("w32", (kernel,), lambda: kernel.float().contiguous())
+
+
+def _fp32(x: torch.Tensor) -> int:
+    return int(x.dtype == torch.float32)
+
+
+def _narrow_snake(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    ae, ib = _snake_consts(p)
+    y = torch.empty_like(x)
+    rc = _generic().acestep_gen_snake(
+        x.data_ptr(), ae.data_ptr(), ib.data_ptr(), y.data_ptr(), x.numel(), x.shape[-1], _fp32(x), _stream(x)
+    )
+    cuda_lib.check(rc, "oobleck_generic snake")
+    return y
+
+
+def _narrow_unit(
+    h: torch.Tensor, a: torch.Tensor, p: Dict[str, Any], dilation: int, snake_next: Optional[Dict[str, torch.Tensor]]
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One residual unit from h and a = T(Snake1(h)): the k7 launch (z =
+    T(Snake2(conv_k7,d(a) + b1))), then the k1 launch (h' = T((h +
+    conv_k1(z)) + b2), and a_next = T(snake_next(h')) when given)."""
+    b, l, c = h.shape
+    dev, lib = h.device, _generic()
+    ae2, ib2 = _snake_consts(p["snake2"])
+    z = torch.empty_like(h)
+    rc = lib.acestep_gen_conv(
+        a.data_ptr(), _w32(p["conv1"]["kernel"]).data_ptr(), _f32(p["conv1"].get("bias"), c, dev).data_ptr(),
+        None, ae2.data_ptr(), ib2.data_ptr(), z.data_ptr(), None, b, l, c, c, 7, dilation, _fp32(h), _stream(h),
+    )
+    cuda_lib.check(rc, "oobleck_generic k7")
+    out = torch.empty_like(h)
+    a_next = aen = ibn = None
+    if snake_next is not None:
+        a_next = torch.empty_like(h)
+        aen, ibn = _snake_consts(snake_next)
+    rc = lib.acestep_gen_conv(
+        z.data_ptr(), _w32(p["conv2"]["kernel"]).data_ptr(), _f32(p["conv2"].get("bias"), c, dev).data_ptr(),
+        h.data_ptr(), _ptr(aen), _ptr(ibn), out.data_ptr(), _ptr(a_next), b, l, c, c, 1, 1, _fp32(h), _stream(h),
+    )
+    cuda_lib.check(rc, "oobleck_generic k1")
+    return out, a_next
+
+
+def _narrow_units(h: torch.Tensor, a: torch.Tensor, units: Sequence[Dict[str, Any]]) -> torch.Tensor:
+    for k, (p, d) in enumerate(zip(units, DILATIONS)):
+        h, a = _narrow_unit(h, a, p, d, units[k + 1]["snake1"] if k + 1 < len(units) else None)
+    return h
+
+
+def res_units_narrow(x: torch.Tensor, unit_params: Sequence[Dict[str, Any]]) -> torch.Tensor:
+    """The chain on the narrow route: the Snake launch, then each unit's k7
+    and k1 (7 launches); CUDA tensors only, any C."""
+    _check_narrow("res_units_narrow", x)
+    return _narrow_units(x, _narrow_snake(x, unit_params[0]["snake1"]), unit_params)
+
+
+def decoder_block_narrow(x: torch.Tensor, p: Dict[str, Any], stride: int) -> torch.Tensor:
+    """A decoder block on the narrow route: the Snake launch, the conv_t
+    launch with the first unit's Snake1, then each unit's k7 and k1 (8
+    launches); CUDA tensors only, any widths."""
+    _check_narrow("decoder_block_narrow", x)
+    b, l, ci = x.shape
+    ct, units = p["conv_t1"], (p["res_unit1"], p["res_unit2"], p["res_unit3"])
+    co = ct["kernel"].shape[2]
+    a0 = _narrow_snake(x, p["snake1"])
+    ae, ib = _snake_consts(units[0]["snake1"])
+    y = torch.empty((b, l * stride, co), dtype=x.dtype, device=x.device)
+    a1 = torch.empty_like(y)
+    rc = _generic().acestep_gen_upsample(
+        a0.data_ptr(), _w32(ct["kernel"]).data_ptr(), _f32(ct.get("bias"), co, x.device).data_ptr(),
+        ae.data_ptr(), ib.data_ptr(), y.data_ptr(), a1.data_ptr(), b, l, ci, co, stride, _fp32(x), _stream(x),
+    )
+    cuda_lib.check(rc, "oobleck_generic upsample")
+    return _narrow_units(y, a1, units)
+
+
 def res_units_kernel(x: torch.Tensor, unit_params: Sequence[Dict[str, Any]]) -> torch.Tensor:
-    """3-residual-unit chain (dilations 1/3/9) on (B, L, C) NLC activations,
-    C in CHAIN_CHANNELS on the card: a Snake launch for the first unit's
-    Snake1, then per unit one fused launch at C <= 256, else the k7 (on the
-    stream-K schedule at multiples of 256) and the k1 with the next unit's
-    Snake1 in its epilogue (4 or 7 launches)."""
+    """3-residual-unit chain (dilations 1/3/9) on (B, L, C) NLC activations.
+    On the card, bf16 at C in CHAIN_CHANNELS: a Snake launch for the first
+    unit's Snake1, then per unit one fused launch at C <= 256, else the k7
+    (on the stream-K schedule at multiples of 256) and the k1 with the next
+    unit's Snake1 in its epilogue (4 or 7 launches); any other C up to 1024,
+    or fp32: the narrow route (7 launches)."""
     if x.device.type == "cpu":
         return res_units_plain(x, unit_params)
+    c = x.shape[-1]
+    if x.dtype != torch.bfloat16 or c not in CHAIN_CHANNELS:
+        if c > CHAIN_MAX_CHANNELS:
+            raise ValueError(f"res_units_kernel: {c} channels; the chain takes at most {CHAIN_MAX_CHANNELS}")
+        with torch.cuda.device(x.device):
+            x = res_units_narrow(x, unit_params)
+        res_units_kernel.narrow_launches += 1
+    else:
+        x = _res_units_sm90(x, unit_params)
+    res_units_kernel.launches += 1
+    return x
+
+
+def _res_units_sm90(x: torch.Tensor, unit_params: Sequence[Dict[str, Any]]) -> torch.Tensor:
     c = x.shape[-1]
     _check_sm90("res_units_kernel", c, x, channels=CHAIN_CHANNELS)
     split = c > 256 and c % 256 == 0
@@ -436,20 +567,37 @@ def res_units_kernel(x: torch.Tensor, unit_params: Sequence[Dict[str, Any]]) -> 
                 x, a = res_unit_sm90(x, a, p, d, nxt)
             else:
                 x, a = _k1(_k7(a, p, d, sk), x, p, nxt, sk)
-    res_units_kernel.launches += 1
     return x
 
 
 res_units_kernel.launches = 0
+res_units_kernel.narrow_launches = 0
 
 
 def decoder_block_kernel(x: torch.Tensor, p: Dict[str, Any], stride: int) -> torch.Tensor:
-    """One decoder block (B, L, Ci) -> (B, L*stride, Co); stride even, Co in
-    SM90_CHANNELS on the card."""
+    """One decoder block (B, L, Ci) -> (B, L*stride, Co); stride even. On the
+    card, bf16 with Co in SM90_CHANNELS and Ci a multiple of 128: the Hopper
+    route (5 or 8 launches); any other Co up to 512, or fp32: the narrow route
+    (8 launches)."""
     if stride % 2:
         raise ValueError("Oobleck decoder strides are even")
     if x.device.type == "cpu":
         return decoder_block_plain(x, p, stride)
+    co = p["conv_t1"]["kernel"].shape[2]
+    if x.dtype != torch.bfloat16 or not decoder_block_takes(x.shape[-1], co):
+        if co > BLOCK_MAX_CHANNELS:
+            raise ValueError(f"decoder_block_kernel: {co} output channels; the block takes at most "
+                             f"{BLOCK_MAX_CHANNELS}")
+        with torch.cuda.device(x.device):
+            y = decoder_block_narrow(x, p, stride)
+        decoder_block_kernel.narrow_launches += 1
+    else:
+        y = _decoder_block_sm90(x, p, stride)
+    decoder_block_kernel.launches += 1
+    return y
+
+
+def _decoder_block_sm90(x: torch.Tensor, p: Dict[str, Any], stride: int) -> torch.Tensor:
     _check_act(x, "decoder_block_kernel")
     units = (p["res_unit1"], p["res_unit2"], p["res_unit3"])
     _check_sm90("decoder_block_kernel", p["conv_t1"]["kernel"].shape[2], x)
@@ -458,8 +606,8 @@ def decoder_block_kernel(x: torch.Tensor, p: Dict[str, Any], stride: int) -> tor
         y, a = upsample_sm90(a, p["conv_t1"], stride, units[0]["snake1"])
         for k, (u, d) in enumerate(zip(units, DILATIONS)):
             y, a = res_unit_sm90(y, a, u, d, units[k + 1]["snake1"] if k + 1 < len(units) else None)
-    decoder_block_kernel.launches += 1
     return y
 
 
 decoder_block_kernel.launches = 0
+decoder_block_kernel.narrow_launches = 0

@@ -1,9 +1,15 @@
-"""Parameter trees: random init in torch and conversion from the JAX package.
+"""Parameter trees: random init, reference checkpoints, and the JAX package's trees.
 
-Port of `acestep_tpu/params.py` (DiT), `models/vae.py:init_oobleck_params`
-and `models/qwen3.py:init_qwen3_params`. The port keeps the JAX package's
-tree layout and names (``kernel`` as (in, out), conv kernels as
-(K, C_in, C_out)), with tensors as leaves and layer stacks as per-layer lists.
+Port of `acestep_tpu/params.py` (DiT init, `convert_torch_state_dict`,
+`load_safetensors_state`), `models/vae.py:init_oobleck_params` and
+`models/qwen3.py:init_qwen3_params`. The port keeps the JAX package's tree
+layout and names (``kernel`` as (in, out), conv kernels as (K, C_in, C_out)),
+with tensors as leaves and layer stacks as per-layer lists.
+
+`load_safetensors_state` reads the safetensors format itself (an 8-byte
+little-endian header length, a JSON header, then the raw buffers), so no
+`safetensors` package is needed; the converters transpose and cast in numpy
+float32 as the JAX package's do, so a converted leaf has the same bits.
 
 Random init draws from the same distributions as the JAX package (normals
 with std 0.02, ones for norms, zeros for biases and Snake logs) from a seeded
@@ -14,6 +20,8 @@ the tests hold the two packages to the same inputs.
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
@@ -362,3 +370,188 @@ def from_jax_params(
     if n != want:
         raise ValueError(f"parameter tree has {n} layers/blocks, config says {want}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Reference checkpoints: safetensors files -> state dicts -> port trees
+# ---------------------------------------------------------------------------
+
+# safetensors dtype -> (dtype the buffer is read as, dtype it is viewed as).
+# numpy has no bf16, so BF16 is read as int16 and viewed as torch.bfloat16.
+_SAFETENSORS_DTYPES = {
+    "F32": (torch.float32, None),
+    "F16": (torch.float16, None),
+    "BF16": (torch.int16, torch.bfloat16),
+    "I64": (torch.int64, None),
+    "I32": (torch.int32, None),
+}
+
+
+def _read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    with open(path, "rb") as f:
+        blob = bytearray(f.read())
+    n = int.from_bytes(blob[:8], "little")
+    header = json.loads(blob[8 : 8 + n].decode("utf-8"))
+    base = 8 + n
+    out: Dict[str, torch.Tensor] = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in _SAFETENSORS_DTYPES:
+            raise ValueError(f"{path}: tensor {name!r} has dtype {info['dtype']}, which the reader does not take")
+        raw, view = _SAFETENSORS_DTYPES[info["dtype"]]
+        shape = [int(d) for d in info["shape"]]
+        count = int(np.prod(shape, dtype=np.int64))
+        begin, end = (int(v) for v in info["data_offsets"])
+        itemsize = torch.empty((), dtype=raw).element_size()
+        if end - begin != count * itemsize:
+            raise ValueError(f"{path}: tensor {name!r} holds {end - begin} bytes for shape {shape}")
+        if count == 0:
+            t = torch.empty(shape, dtype=raw)
+        elif (base + begin) % itemsize:  # unaligned: read a copy
+            t = torch.frombuffer(bytearray(blob[base + begin : base + end]), dtype=raw)
+        else:
+            t = torch.frombuffer(blob, dtype=raw, count=count, offset=base + begin)
+        out[name] = (t.view(view) if view is not None else t).reshape(shape)
+    return out
+
+
+def load_safetensors_state(path: str) -> Dict[str, torch.Tensor]:
+    """One .safetensors file, or every one in a directory in sorted order,
+    into a flat {name: CPU tensor} dict (BF16 stays torch.bfloat16)."""
+    if os.path.isdir(path):
+        files = [os.path.join(path, f) for f in sorted(os.listdir(path)) if f.endswith(".safetensors")]
+    else:
+        files = [path]
+    state: Dict[str, torch.Tensor] = {}
+    for f in files:
+        state.update(_read_safetensors(f))
+    return state
+
+
+def np32(value) -> np.ndarray:
+    """A state-dict entry (torch tensor of any float dtype, or array-like) as numpy float32."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().to(device="cpu", dtype=torch.float32).numpy()
+    return np.asarray(value, dtype=np.float32)
+
+
+def leaf(arr: np.ndarray, device, dtype) -> torch.Tensor:
+    """A numpy float32 array as a port leaf on `device` in `dtype`."""
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device=device, dtype=dtype)
+
+
+def convert_torch_state_dict(
+    state: Dict[str, Any], cfg: AceStepConfig, dtype=torch.bfloat16, device="cpu"
+) -> Params:
+    """A reference AceStepConditionGenerationModel state_dict -> the port's
+    DiT tree (per-layer lists). Linear weights (out, in) become (in, out)
+    kernels, conv weights (out, in, K) and conv_t weights (in, out, K)
+    become (K, in, out); a bias is kept wherever the state has one."""
+
+    def t(arr):
+        return leaf(arr, device, dtype)
+
+    def lin(prefix):
+        p = {"kernel": t(np32(state[prefix + ".weight"]).T)}
+        if prefix + ".bias" in state:
+            p["bias"] = t(np32(state[prefix + ".bias"]))
+        return p
+
+    def norm(prefix):
+        return {"weight": t(np32(state[prefix + ".weight"]))}
+
+    def attn(prefix):
+        return {
+            "q_proj": lin(prefix + ".q_proj"),
+            "k_proj": lin(prefix + ".k_proj"),
+            "v_proj": lin(prefix + ".v_proj"),
+            "o_proj": lin(prefix + ".o_proj"),
+            "q_norm": norm(prefix + ".q_norm"),
+            "k_norm": norm(prefix + ".k_norm"),
+        }
+
+    def mlp(prefix):
+        return {name: lin(f"{prefix}.{name}") for name in ("gate_proj", "up_proj", "down_proj")}
+
+    def enc_layer(prefix):
+        return {
+            "self_attn": attn(prefix + ".self_attn"),
+            "input_layernorm": norm(prefix + ".input_layernorm"),
+            "post_attention_layernorm": norm(prefix + ".post_attention_layernorm"),
+            "mlp": mlp(prefix + ".mlp"),
+        }
+
+    def conv(prefix, axes):
+        p = {"kernel": t(np.transpose(np32(state[prefix + ".weight"]), axes))}
+        if prefix + ".bias" in state:
+            p["bias"] = t(np32(state[prefix + ".bias"]))
+        return p
+
+    def enc_stack(prefix, n):
+        return {
+            "embed_tokens": lin(prefix + ".embed_tokens"),
+            "layers": [enc_layer(f"{prefix}.layers.{i}") for i in range(n)],
+            "norm": norm(prefix + ".norm"),
+        }
+
+    def time_embed(prefix):
+        return {name: lin(f"{prefix}.{name}") for name in ("linear_1", "linear_2", "time_proj")}
+
+    decoder = {
+        "layers": [
+            {
+                "self_attn_norm": norm(f"decoder.layers.{i}.self_attn_norm"),
+                "self_attn": attn(f"decoder.layers.{i}.self_attn"),
+                "cross_attn_norm": norm(f"decoder.layers.{i}.cross_attn_norm"),
+                "cross_attn": attn(f"decoder.layers.{i}.cross_attn"),
+                "mlp_norm": norm(f"decoder.layers.{i}.mlp_norm"),
+                "mlp": mlp(f"decoder.layers.{i}.mlp"),
+                "scale_shift_table": t(np32(state[f"decoder.layers.{i}.scale_shift_table"])),
+            }
+            for i in range(cfg.num_hidden_layers)
+        ],
+        # proj_in / proj_out are nn.Sequential(Lambda, Conv, Lambda): index 1.
+        "proj_in": conv("decoder.proj_in.1", (2, 1, 0)),
+        "time_embed": time_embed("decoder.time_embed"),
+        "time_embed_r": time_embed("decoder.time_embed_r"),
+        "condition_embedder": lin("decoder.condition_embedder"),
+        "norm_out": norm("decoder.norm_out"),
+        "proj_out": conv("decoder.proj_out.1", (2, 0, 1)),
+        "scale_shift_table": t(np32(state["decoder.scale_shift_table"])),
+    }
+    encoder = {
+        "text_projector": lin("encoder.text_projector"),
+        "lyric_encoder": enc_stack("encoder.lyric_encoder", cfg.num_lyric_encoder_hidden_layers),
+        "timbre_encoder": enc_stack("encoder.timbre_encoder", cfg.num_timbre_encoder_hidden_layers),
+    }
+    tokenizer = {
+        "audio_acoustic_proj": lin("tokenizer.audio_acoustic_proj"),
+        "attention_pooler": {
+            "embed_tokens": lin("tokenizer.attention_pooler.embed_tokens"),
+            "special_token": t(np32(state["tokenizer.attention_pooler.special_token"])),
+            "layers": [
+                enc_layer(f"tokenizer.attention_pooler.layers.{i}")
+                for i in range(cfg.num_attention_pooler_hidden_layers)
+            ],
+            "norm": norm("tokenizer.attention_pooler.norm"),
+        },
+        "quantizer": {
+            "project_in": lin("tokenizer.quantizer.project_in"),
+            "project_out": lin("tokenizer.quantizer.project_out"),
+        },
+    }
+    detok = {
+        "embed_tokens": lin("detokenizer.embed_tokens"),
+        "special_tokens": t(np32(state["detokenizer.special_tokens"])),
+        "layers": [enc_layer(f"detokenizer.layers.{i}") for i in range(cfg.num_attention_pooler_hidden_layers)],
+        "norm": norm("detokenizer.norm"),
+        "proj_out": lin("detokenizer.proj_out"),
+    }
+    return {
+        "decoder": decoder,
+        "encoder": encoder,
+        "tokenizer": tokenizer,
+        "detokenizer": detok,
+        "null_condition_emb": t(np32(state["null_condition_emb"])),
+    }

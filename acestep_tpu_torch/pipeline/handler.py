@@ -1,23 +1,29 @@
-"""Generation orchestration for turbo text2music on the card.
+"""Generation orchestration for the turbo DiT on the card.
 
-Port of the text2music path of `acestep_tpu/pipeline/handler.py`
-(`AceStepHandler`): host-side prompt formatting, seeds, chunk masks, bucketing
-and tokenization in numpy; text encoding, condition preparation, the 8-step
-ODE denoise, the chunked Oobleck decode and the peak normalisation in torch on
-the handler's device.
+Port of `acestep_tpu/pipeline/handler.py` (`AceStepHandler`): loading the
+reference checkpoint layout (or random weights); host-side prompt formatting,
+seeds, repaint spans, chunk masks, bucketing and tokenization in numpy; text
+encoding, the VAE encode of source and reference audio, condition
+preparation, the 8-step ODE denoise, the chunked Oobleck decode and the peak
+normalisation in torch on the handler's device.
 
-Audio-code hints (`<|audio_code_N|>` strings from the LM planner) decode
+Every task of the JAX handler runs: text2music, cover, repaint, extract,
+lego and complete. Audio-code hints (`<|audio_code_N|>` strings) decode
 through the FSQ chain and the detokenizer into 25 Hz hints, and a row with
-hints runs as a cover of them, as in the JAX handler.
+hints runs as a cover of them; a cover without hints takes its hints from the
+source latents through the audio tokenizer chain. Reference audio becomes
+packed timbre latents.
 
 Not ported yet, each raising `NotImplementedError` where a caller asks for it:
-checkpoint loading, a cover instruction without code hints (the audio
-tokenizer chain), repaint/extract/lego/complete, source/reference audio, CFG
-(APG/ADG), SDE sampling, LoRA, meshes, streaming sinks and pipelined finish.
+CFG (APG/ADG), SDE sampling, LoRA, meshes, streaming sinks and pipelined
+finish.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 import random
 import re
 import time
@@ -37,7 +43,13 @@ from acestep_tpu_torch.config import (
 )
 from acestep_tpu_torch.device import resolve_device
 from acestep_tpu_torch.models import dit, qwen3, vae
-from acestep_tpu_torch.params import init_acestep_params, init_oobleck_params, init_qwen3_params
+from acestep_tpu_torch.params import (
+    convert_torch_state_dict,
+    init_acestep_params,
+    init_oobleck_params,
+    init_qwen3_params,
+    load_safetensors_state,
+)
 from acestep_tpu_torch.utils.constants import MAX_AUDIO_CODE, SFT_GEN_PROMPT, TASK_INSTRUCTIONS
 from acestep_tpu_torch.utils.tokenizer import load_tokenizer, pick_bucket, tokenize_padded
 
@@ -76,22 +88,117 @@ class AceStepHandler:
     def initialize_service(
         self, checkpoint_dir: Optional[str] = None, *, random_init: Optional[bool] = None, seed: int = 0
     ) -> str:
-        """Random weights from `seed` (dev mode, the JAX package's `--random-init`)."""
+        """Load the reference checkpoint layout from `checkpoint_dir`, or
+        random weights from `seed` (dev mode, the JAX package's
+        `--random-init`), as the JAX handler decides: random when no
+        directory is given or found, unless `random_init` says otherwise."""
         t0 = time.time()
         if random_init is None:
-            random_init = checkpoint_dir is None
-        if not random_init:
-            raise NotImplementedError("loading the reference checkpoint layout is not ported yet")
-        self.params = init_acestep_params(self.config, seed=seed, device=self.device, dtype=self.dtype)
-        self.vae_params = init_oobleck_params(self.vae_config, seed=seed + 1, device=self.device)
-        self.text_params = init_qwen3_params(
-            self.text_config, seed=seed + 2, device=self.device, dtype=self.dtype
-        )
-        self.silence_latent = np.zeros((1, 750, self.config.audio_acoustic_hidden_dim), np.float32)
-        self.text_tokenizer = load_tokenizer(None)
+            random_init = checkpoint_dir is None or not os.path.isdir(checkpoint_dir)
+        if random_init:
+            self.params = init_acestep_params(self.config, seed=seed, device=self.device, dtype=self.dtype)
+            self.vae_params = init_oobleck_params(self.vae_config, seed=seed + 1, device=self.device)
+            self.text_params = init_qwen3_params(
+                self.text_config, seed=seed + 2, device=self.device, dtype=self.dtype
+            )
+            self.silence_latent = np.zeros((1, 750, self.config.audio_acoustic_hidden_dim), np.float32)
+            self.text_tokenizer = load_tokenizer(None)
+        else:
+            self._load_from_checkpoint(checkpoint_dir)
         self.initialized = True
         self._sync()
-        return f"initialized in {time.time() - t0:.1f}s (random_init=True, device={self.device})"
+        return f"initialized in {time.time() - t0:.1f}s (random_init={random_init}, device={self.device})"
+
+    def _load_from_checkpoint(self, checkpoint_dir: str) -> None:
+        """The reference layout: the DiT's config.json and safetensors at the
+        root, silence_latent.pt (or .npy), vae/ and Qwen3-Embedding-0.6B/,
+        each required: a missing one raises FileNotFoundError naming it, and
+        nothing is kept. DiT and text-encoder weights go to the handler's
+        dtype, the VAE's stay fp32, all on the handler's device."""
+
+        def missing(what: str, path: str) -> FileNotFoundError:
+            return FileNotFoundError(
+                f"checkpoint at {checkpoint_dir!r} is missing {what} ({path}); "
+                "re-run the downloader (`acestep-tpu download`) or pass "
+                "random_init=True for a dev instance"
+            )
+
+        cfg_path = os.path.join(checkpoint_dir, "config.json")
+        config = self.config
+        if os.path.exists(cfg_path):
+            with open(cfg_path) as f:
+                raw = json.load(f)
+            fields = {f.name for f in dataclasses.fields(AceStepConfig)}
+            rename = {"fsq_input_levels": "fsq_levels", "fsq_input_num_quantizers": "fsq_num_quantizers"}
+            kw = {}
+            for k, v in raw.items():
+                k = rename.get(k, k)
+                if k in fields:
+                    kw[k] = tuple(v) if isinstance(v, list) else v
+            config = AceStepConfig(**kw)
+        state = load_safetensors_state(checkpoint_dir)
+        if not state:
+            raise missing("the DiT model weights (*.safetensors)", checkpoint_dir)
+        params = convert_torch_state_dict(state, config, self.dtype, self.device)
+        del state
+
+        sil_pt = os.path.join(checkpoint_dir, "silence_latent.pt")
+        sil_npy = os.path.join(checkpoint_dir, "silence_latent.npy")
+        if os.path.exists(sil_pt):
+            sil = torch.load(sil_pt, map_location="cpu", weights_only=True).float().numpy()
+        elif os.path.exists(sil_npy):
+            sil = np.load(sil_npy)
+        else:
+            raise missing("silence_latent.pt (or .npy)", sil_pt)
+        sil = np.asarray(sil, np.float32)
+        if sil.ndim == 2:
+            sil = sil[None]
+
+        vae_dir = os.path.join(checkpoint_dir, "vae")
+        vcfg_path = os.path.join(vae_dir, "config.json")
+        if not os.path.exists(vcfg_path):
+            raise missing("the VAE (vae/config.json)", vcfg_path)
+        with open(vcfg_path) as f:
+            vraw = json.load(f)
+        vae_config = OobleckConfig(
+            encoder_hidden_size=vraw.get("encoder_hidden_size", 128),
+            downsampling_ratios=tuple(vraw.get("downsampling_ratios", (2, 4, 4, 6, 10))),
+            channel_multiples=tuple(vraw.get("channel_multiples", (1, 2, 4, 8, 16))),
+            decoder_channels=vraw.get("decoder_channels", 128),
+            decoder_input_channels=vraw.get("decoder_input_channels", 64),
+            audio_channels=vraw.get("audio_channels", 2),
+            sampling_rate=vraw.get("sampling_rate", 48_000),
+        )
+        vstate = load_safetensors_state(vae_dir)
+        if not vstate:
+            raise missing("the VAE weights (vae/*.safetensors)", vae_dir)
+        vae_params = vae.convert_torch_vae_state(vstate, vae_config, torch.float32, self.device)
+
+        te_dir = os.path.join(checkpoint_dir, "Qwen3-Embedding-0.6B")
+        tcfg_path = os.path.join(te_dir, "config.json")
+        if not os.path.exists(tcfg_path):
+            raise missing("the text encoder (Qwen3-Embedding-0.6B/)", te_dir)
+        with open(tcfg_path) as f:
+            traw = json.load(f)
+        text_config = Qwen3Config(
+            vocab_size=traw["vocab_size"],
+            hidden_size=traw["hidden_size"],
+            intermediate_size=traw["intermediate_size"],
+            num_hidden_layers=traw["num_hidden_layers"],
+            num_attention_heads=traw["num_attention_heads"],
+            num_key_value_heads=traw["num_key_value_heads"],
+            head_dim=traw.get("head_dim", 128),
+            rope_theta=traw.get("rope_theta", 1e6),
+            tie_word_embeddings=traw.get("tie_word_embeddings", True),
+        )
+        tstate = load_safetensors_state(te_dir)
+        if not tstate:
+            raise missing("the text encoder weights", te_dir)
+        text_params = qwen3.convert_torch_qwen3_state(tstate, text_config, self.dtype, self.device)
+        self.config, self.params, self.silence_latent = config, params, sil
+        self.vae_config, self.vae_params = vae_config, vae_params
+        self.text_config, self.text_params = text_config, text_params
+        self.text_tokenizer = load_tokenizer(te_dir)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -187,6 +294,26 @@ class AceStepHandler:
     @staticmethod
     def format_audio_codes(indices: Sequence[int]) -> str:
         return "".join(f"<|audio_code_{int(i)}|>" for i in indices)
+
+    @torch.inference_mode()
+    def encode_reference_audio(self, audio: np.ndarray) -> np.ndarray:
+        """Stereo audio (2, L) at the VAE's rate -> mean latents (L // hop, 64)
+        through the tiled fp32 VAE encode."""
+        x = self._tensor(np.ascontiguousarray(np.asarray(audio, np.float32).T[None]), torch.float32)
+        z = vae.tiled_encode(self.vae_params, self.vae_config, x)
+        return z[0].float().cpu().numpy()
+
+    @torch.inference_mode()
+    def convert_audio_to_codes(self, audio: np.ndarray) -> str:
+        """Source audio (2, L) -> a `<|audio_code_N|>` string: the latents,
+        padded with silence to a pool-window multiple, through the audio
+        tokenizer (ref audio_codes.py:68-99)."""
+        z = self.encode_reference_audio(audio)
+        pad = (-z.shape[0]) % self.config.pool_window_size
+        if pad:
+            z = np.concatenate([z, self._silence_tiled(pad)[:pad]], axis=0)
+        _, indices = dit.audio_tokenize(self.params["tokenizer"], self.config, self._tensor(z[None], self.dtype))
+        return self.format_audio_codes(indices[0].cpu().tolist())
 
     @staticmethod
     def format_lyrics(lyrics: str, language: str) -> str:
@@ -343,8 +470,56 @@ class AceStepHandler:
             rows.append(torch.cat([h[:n], silence[n:]], dim=0))
         return torch.stack(rows).to(self.dtype)
 
+    def _target_latents(self, target_latents, b: int, t_latent: int, silence_tiled: np.ndarray) -> np.ndarray:
+        """Source latents cut or padded with silence to the bucketed length,
+        one row per batch item (the reference crops the target wav by
+        duration before encoding)."""
+        tl = np.asarray(target_latents, np.float32)
+        if tl.ndim == 2:
+            tl = tl[None]
+        if tl.shape[0] != b:
+            tl = np.repeat(tl[:1], b, axis=0)
+        if tl.shape[1] >= t_latent:
+            return tl[:, :t_latent]
+        pad = np.broadcast_to(silence_tiled[tl.shape[1] : t_latent], (b, t_latent - tl.shape[1], tl.shape[2]))
+        return np.concatenate([tl, pad], axis=1)
+
+    def _reference_latents(
+        self, reference_audios, b: int, silence_tiled: np.ndarray
+    ) -> Tuple[np.ndarray, np.ndarray, int]:
+        """Reference audio -> packed timbre latents (N, timbre_fix_frame, 64),
+        the batch row of each packed row, and the most references of a row.
+        A row may carry one array or a list; a row without any gets one
+        silence row; each distinct array is encoded once and cut or
+        zero-padded to timbre_fix_frame frames."""
+        tf = self.config.timbre_fix_frame
+        silence_ref = silence_tiled[:tf] if silence_tiled.shape[0] >= tf else self._silence_tiled(tf)
+        packed, order, cache = [], [], {}
+        max_count = 1
+        for i in range(b):
+            refs = reference_audios[i] if reference_audios else None
+            if refs is None:
+                refs = []
+            elif isinstance(refs, np.ndarray):
+                refs = [refs]
+            refs = [r for r in refs if r is not None]
+            if not refs:
+                packed.append(silence_ref)
+                order.append(i)
+                continue
+            max_count = max(max_count, len(refs))
+            for ref in refs:
+                z = cache.get(id(ref))
+                if z is None:
+                    z = self.encode_reference_audio(ref)
+                    z = z[:tf] if z.shape[0] >= tf else np.pad(z, ((0, tf - z.shape[0]), (0, 0)))
+                    cache[id(ref)] = z
+                packed.append(z)
+                order.append(i)
+        return np.stack(packed), np.asarray(order, np.int32), max_count
+
     # ------------------------------------------------------------------
-    # generate_music (text2music)
+    # generate_music
     # ------------------------------------------------------------------
 
     @torch.inference_mode()
@@ -380,16 +555,12 @@ class AceStepHandler:
         return_int16: bool = False,
         return_condition: bool = False,
     ) -> Dict[str, Any]:
-        """Run turbo text2music, with optional LM audio-code hints per row.
+        """Run the DiT side of any task: `task_type` picks the default
+        instruction; source latents (`target_latents`), repaint spans, code
+        hints and reference audio condition each row as in the JAX handler.
         Returns latents, audio and stage timings."""
         if not self.initialized:
             raise RuntimeError("call initialize_service() first")
-        if task_type != "text2music":
-            raise NotImplementedError(f"task {task_type!r} is not ported yet (text2music only)")
-        if target_latents is not None or (reference_audios and any(r is not None for r in reference_audios)):
-            raise NotImplementedError("source/reference audio inputs are not ported yet")
-        if repainting_start or repainting_end:
-            raise NotImplementedError("repaint is not ported yet")
         time_costs: Dict[str, float] = {}
         t_start = time.time()
 
@@ -414,13 +585,12 @@ class AceStepHandler:
         code_hints = audio_code_strings or [None] * b
         has_code_hints = [bool(c and c.strip()) for c in code_hints]
         silence_tiled = self._silence_tiled(t_latent)
+        if target_latents is not None:
+            target_latents = self._target_latents(target_latents, b, t_latent, silence_tiled)
         chunk_masks, spans, is_covers, src_latents = self.build_chunk_masks_and_src_latents(
-            b, t_latent, instructions, has_code_hints, None, [False] * b, None, None, silence_tiled
+            b, t_latent, instructions, has_code_hints, target_latents, [target_latents is not None] * b,
+            repainting_start, repainting_end, silence_tiled,
         )
-        if is_covers.any() and not any(has_code_hints):
-            raise NotImplementedError(
-                "a cover without code hints needs the audio tokenizer chain, not ported yet"
-            )
 
         text_prompts = [SFT_GEN_PROMPT.format(instructions[i], captions[i], parsed_metas[i]) for i in range(b)]
         lyric_texts = [self.format_lyrics(lyrics[i], vocal_languages[i]) for i in range(b)]
@@ -430,23 +600,27 @@ class AceStepHandler:
         t0 = time.time()
         text_hidden = self.infer_text_embeddings(text_ids)
         lyric_hidden = self.infer_lyric_embeddings(lyric_ids)
-        tf = self.config.timbre_fix_frame
-        silence_ref = silence_tiled[:tf] if silence_tiled.shape[0] >= tf else self._silence_tiled(tf)
-        refer_packed = self._tensor(np.stack([silence_ref] * b), self.dtype)
-        refer_order = self._tensor(np.arange(b), torch.int32)
+        t_enc = time.time()
+        packed, order, max_refs = self._reference_latents(reference_audios, b, silence_tiled)
+        if reference_audios and any(r is not None for r in reference_audios):
+            time_costs["vae_encode_time_cost"] = time.time() - t_enc
+        refer_packed = self._tensor(packed, self.dtype)
+        refer_order = self._tensor(order, torch.int32)
         self._sync()
         time_costs["encoder_time_cost"] = time.time() - t0
 
         t0 = time.time()
         silence_dev = self._tensor(silence_tiled[None], self.dtype)
-        if any(has_code_hints):
-            src = self._tensor(src_latents, self.dtype)
-            hints = self._code_hints(code_hints, t_latent, silence_dev[0])
+        if not any(has_code_hints) and target_latents is None:
+            src = silence_dev.expand(b, -1, -1)  # every row's source is the tiled silence
         else:
-            # src is tiled silence for every row; with no cover row the hints
-            # are unused, so src stands in for them (no decode chain).
-            src = silence_dev.expand(b, -1, -1)
-            hints = src
+            src = self._tensor(src_latents, self.dtype)
+        if any(has_code_hints):
+            hints = self._code_hints(code_hints, t_latent, silence_dev[0])
+        elif not is_covers.any():
+            hints = src  # no cover row: the hints go unused, so no tokenizer chain runs
+        else:
+            hints = None  # cover rows without codes: hints from the source latents
         outputs = dit.generate_audio(
             self.params,
             self.config,
@@ -470,7 +644,7 @@ class AceStepHandler:
             precomputed_lm_hints_25hz=hints,
             guidance_scale=guidance_scale,
             infer_steps=inference_steps,
-            max_refs=1,
+            max_refs=max_refs,
             return_condition=return_condition,
         )
         pred = outputs["target_latents"]

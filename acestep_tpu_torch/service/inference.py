@@ -1,15 +1,22 @@
 """`generate_music`: the orchestration entry of the service layer.
 
-Port of the text2music +/- thinking branch of
-`acestep_tpu/service/inference.py` (reference `acestep/inference.py:309-776`):
-LM phase (CoT metadata + audio codes when `thinking`) -> metadata merge ->
-the text2music -> cover instruction switch when codes arrive -> DiT phase
+Port of `acestep_tpu/service/inference.py` (reference
+`acestep/inference.py:309-776`): LM phase (CoT metadata + audio codes when
+`thinking`) -> metadata merge -> source audio through the VAE encoder
+(`src_audio`) and reference audio for timbre (`reference_audio`) -> the
+instruction of the task (text2music, cover, repaint, extract, lego,
+complete; text2music becomes cover when codes arrive) -> DiT phase
 (`AceStepHandler.generate_music`) -> int16 PCM entries.
 
+The LM phase runs whenever `thinking` is on and a planner is loaded, for
+every task, as in the JAX package (`acestep_tpu/service/inference.py:289`);
+the original system skips it for cover and repaint (ROADMAP C, followed
+here, not fixed).
+
 Raise `NotImplementedError` until their slices land: drafts (`sample_mode`,
-`sample_query`, `use_format`), the analysis modes, reference/source audio,
-auto LRC/score, tasks other than text2music, `save_audio=True` (the CLI
-writes WAV files itself), deferred finish and streaming sinks.
+`sample_query`, `use_format`), the analysis modes, auto LRC/score,
+`save_audio=True` (the CLI writes WAV files itself), deferred finish and
+streaming sinks.
 """
 
 from __future__ import annotations
@@ -22,7 +29,10 @@ import traceback
 import uuid
 from typing import Any, Dict, Optional
 
+import numpy as np
+
 from acestep_tpu_torch.service.params import GenerationConfig, GenerationParams, GenerationResult
+from acestep_tpu_torch.utils import audio as audio_utils
 from acestep_tpu_torch.utils.constants import DURATION_MAX, DURATION_MIN, TASK_INSTRUCTIONS
 
 
@@ -69,12 +79,8 @@ def _unported(params: GenerationParams, save_audio: bool, defer_finish: bool, ch
         return "LM drafts (sample_mode/sample_query/use_format) need generate_free"
     if params.analysis_only or params.full_analysis_only:
         return "analysis_only/full_analysis_only"
-    if params.reference_audio or params.src_audio:
-        return "reference/source audio inputs"
     if params.auto_lrc or params.auto_score:
         return "auto LRC / lyric score"
-    if params.task_type != "text2music":
-        return f"task {params.task_type!r}"
     if save_audio:
         return "save_audio=True (write the returned int16 PCM, as the CLI does)"
     if defer_finish or chunk_sink is not None:
@@ -91,8 +97,9 @@ def generate_music(
     defer_finish: bool = False,
     chunk_sink=None,
 ) -> GenerationResult:
-    """Text2music with or without the LM planner. Returns a GenerationResult
-    whose `audios` entries hold int16 (2, L) PCM under "audio"."""
+    """Any task, with or without the LM planner, source audio or reference
+    audio. Returns a GenerationResult whose `audios` entries hold int16
+    (2, L) PCM under "audio"."""
     what = _unported(params, save_audio, defer_finish, chunk_sink)
     if what is not None:
         raise NotImplementedError(f"{what} is not ported yet")
@@ -148,6 +155,27 @@ def generate_music(
 
         # ------------------ DiT phase ------------------
         b = config.batch_size
+        reference_audio = None
+        if params.reference_audio:
+            paths = (params.reference_audio if isinstance(params.reference_audio, (list, tuple))
+                     else [params.reference_audio])
+            # One row's reference set; the handler packs several per row and
+            # encodes each distinct array once.
+            reference_audio = [audio_utils.load_audio(p) for p in paths]
+        target_latents = None
+        src_encode_s = 0.0
+        if params.src_audio:
+            src = audio_utils.load_audio(params.src_audio)
+            t0 = time.time()
+            z = dit_handler.encode_reference_audio(src)
+            src_encode_s = time.time() - t0
+            target_latents = np.repeat(z[None], b, axis=0)
+
+        repaint = params.task_type in ("repaint", "lego") and params.repainting_end != 0
+        rep_end = params.repainting_end
+        if repaint and rep_end is not None and rep_end < 0:
+            rep_end = merged["duration"]  # a negative end repaints to the end of the song
+
         instruction = params.instruction
         if not instruction or instruction == TASK_INSTRUCTIONS["text2music"]:
             task_for_instr = params.task_type
@@ -181,6 +209,10 @@ def generate_music(
             infer_method=params.infer_method,
             guidance_scale=params.guidance_scale if params.inference_steps > 8 else 1.0,
             audio_code_strings=code_strings,
+            target_latents=target_latents,
+            reference_audios=[reference_audio] * b if reference_audio is not None else None,
+            repainting_start=[params.repainting_start] * b if repaint else None,
+            repainting_end=[rep_end] * b if repaint else None,
             audio_cover_strength=params.audio_cover_strength,
             cover_noise_strength=params.cover_noise_strength,
             latent_shift=params.latent_shift,
@@ -189,6 +221,8 @@ def generate_music(
             return_int16=True,
         )
         time_costs.update(out["time_costs"])
+        if params.src_audio:
+            time_costs["vae_encode_time_cost"] = time_costs.get("vae_encode_time_cost", 0.0) + src_encode_s
 
         audios = []
         for i in range(out["audios"].shape[0]):

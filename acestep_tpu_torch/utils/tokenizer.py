@@ -1,7 +1,8 @@
 """Text tokenization: HF tokenizer when a checkpoint is available, byte-level
 fallback for checkpoint-free development and testing.
 
-A copy of `acestep_tpu/utils/tokenizer.py`.
+A copy of `acestep_tpu/utils/tokenizer.py`; a checkpoint directory counts as
+holding a tokenizer only when it has one of the tokenizer's files.
 """
 
 from __future__ import annotations
@@ -33,14 +34,19 @@ class ByteFallbackTokenizer:
         return self.encode(text, max_length)
 
 
+# Files an HF tokenizer is read from; a directory without any has none (some
+# `transformers` versions would build one with an empty vocabulary from it).
+TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json", "vocab.json", "tokenizer.model")
+
+
 def load_tokenizer(checkpoint_dir: Optional[str]):
     """AutoTokenizer from checkpoint if present, else byte fallback."""
-    if checkpoint_dir and os.path.isdir(checkpoint_dir):
+    if checkpoint_dir and any(os.path.isfile(os.path.join(checkpoint_dir, f)) for f in TOKENIZER_FILES):
         try:
             from transformers import AutoTokenizer
 
             return AutoTokenizer.from_pretrained(checkpoint_dir)
-        except (ImportError, OSError, ValueError):
+        except Exception:  # no transformers, or no tokenizer files in the directory
             pass
     return ByteFallbackTokenizer()
 

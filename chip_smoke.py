@@ -17,17 +17,26 @@ Phases, each fatal on failure:
      data-sheet rates). Attention also at the 4B
      planner's prefill (causal + right-padded prompt, 2 x 1024 and 2 x 2048,
      32/8 heads) and at 1 x 7 500 DiT tokens (full, sliding w = 128, cross onto
-     769 padded keys); the stage probe (kernel 4) in every mode and K layout
-     at seq 3840 and 7552;
+     769 padded keys); the narrow route of kernels 2 and 3 in bf16 and fp32
+     (the tiny checkpoint's 16-channel blocks, a 384 -> 192 block, the chain
+     at 64 channels; `run_narrow_phase`); the stage probe (kernel 4) in every
+     mode and K layout at seq 3840 and 7552;
   4. the whole pipeline at a narrow config on the card (bf16, kernels) against
      the same weights and noise on the CPU (fp32, plain versions), thinking
-     off; then with thinking on (`run_small_thinking_reference`);
+     off; then with thinking on (`run_small_thinking_reference`); then
+     `tests/goldens/checkpoint_tiny` loaded from disk on the card in bf16 and
+     fp32 against the port's CPU load, text2music and cover, and its planner
+     (`run_checkpoint_tiny`);
   5. `AceStepHandler.initialize_service(random_init=True)` at full width, one
      untimed warm-up request, then text2music requests (1 x 30 s, 2 x 60 s,
      1 x 240 s, 1 x 600 s: the longest bucket, 7 500 DiT tokens), and
      `torch.profiler` breakdowns of one 600 s DiT step and of one 544-frame
      VAE decode chunk (the 240 s / 600 s chunk; kernel 3's launches are the
-     stream-K instance of the conv kernel, kernel 2's the others);
+     stream-K instance of the conv kernel, kernel 2's the others); then the
+     audio-input requests through the service layer from WAV files (cover
+     from the source's codes, repaint, a reference audio, a 120 s cover
+     encoded in chunks; `run_audio_requests`) and the profile of one 20 s
+     VAE encode chunk;
   6. requests with thinking on through `service.inference.generate_music` and
      the 4B planner (`LLMHandler(LM_CONFIGS["4B"])`), 1 x 60 s and 2 x 60 s
      after an untimed warm-up, and a profile of the planner's decode step;
@@ -35,9 +44,12 @@ Phases, each fatal on failure:
   8. a `{"kernels": [...]}` JSON line, then the `{"ok": true, ...}` line last.
      In it a kernel's `ms`, `plain_ms`, `library_ms` and `bound_ms` are sums
      over its phase-3 shapes, `max_abs_err` their maximum, and `launches` the
-     sum over the paths of phases 5, 6 and 7. Each path is driven with every
-     launch counter set to 0 just before it and read just after, and fails if
-     one of its kernels was never launched.
+     sum over the paths of phases 4 (checkpoint_tiny), 5, 6 and 7 (the
+     Oobleck kernels' narrow-route calls also in `narrow_launches`). Each
+     path is driven with every launch counter set to 0 just before it and
+     read just after, and fails if one of its kernels was never launched or
+     its narrow-route calls differ from the expected count (0 at full
+     width).
 
 Imports nothing of JAX. Exits non-zero without a result line when no CUDA
 device is present or the port's package is not beside this file.
@@ -84,16 +96,24 @@ _LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "c
 def _window(fn, reps: int) -> tuple:
     """One `torch.profiler` window of `reps` calls of `fn`: its device-kernel
     events (copies and fills left out) and the kernel launches it saw on the
-    host."""
-    from torch.profiler import ProfilerActivity, profile
+    host. One call of `fn` runs first as the profiler's warm-up step, traced
+    and discarded, so that the window's kernels run with tracing under way:
+    without it, windows of short kernels lost their first kernels, or all.
+    The step's own range on the device ("ProfilerStep#") is no kernel."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        prof.step()
     events = prof.events()
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith(("Memcpy", "Memset"))]
+               and not e.name.startswith(("Memcpy", "Memset", "ProfilerStep"))]
     launches = sum(e.device_type == torch.autograd.DeviceType.CPU and e.name in _LAUNCH_CALLS for e in events)
     return kernels, launches
 
@@ -353,6 +373,98 @@ def run_vae_phase(dev, gen, results):
             raise SystemExit(f"{kname} {label}: max_abs_err {err} > {tol}")
 
 
+PEAK_FP32_FLOPS = 67e12  # fp32 outside the tensor cores (H100 SXM data sheet)
+NARROW_TOL = {torch.bfloat16: 3e-2, torch.float32: 5e-5}  # of max(1, max|ref|)
+
+
+def _narrow_units(c: int, gen) -> list:
+    """Three residual units at c channels, fp32 weights as a checkpoint's VAE
+    holds them, random biases and Snakes."""
+    rnd = lambda *shape, scale=1.0: scale * torch.randn(shape, generator=gen, device=gen.device)
+    snake = lambda: {"alpha": rnd(c, scale=0.3), "beta": rnd(c, scale=0.3)}
+    return [{"snake1": snake(), "snake2": snake(),
+             "conv1": {"kernel": rnd(7, c, c, scale=(7 * c) ** -0.5), "bias": rnd(c, scale=0.3)},
+             "conv2": {"kernel": rnd(1, c, c, scale=c**-0.5), "bias": rnd(c, scale=0.3)}} for _ in range(3)]
+
+
+def run_narrow_phase(dev, gen, results):
+    """The narrow route of kernels 2 and 3 (`csrc/oobleck_generic.cu`)
+    against `decoder_block_plain` / `res_units_plain` in fp32 on the same
+    inputs, in bf16 and fp32: the tiny checkpoint's three 16-channel blocks
+    (strides 4 / 4 / 2 over its 224-frame decode chunk), a block 384 -> 192
+    channels (between 128 and 512, outside SM90_CHANNELS) and the chain at 64
+    channels (outside CHAIN_CHANNELS). Tolerance of max(1, max|ref|): bf16
+    3e-2 (the Hopper rows' bound: bf16 rounding of every intermediate), fp32
+    5e-5 (summation order only). Bounds: bytes (activations in their type,
+    fp32 weights) or operations at the bf16 tensor-core peak for bf16 inputs
+    and the 67 TFLOP/s fp32 peak for fp32 inputs."""
+    from acestep_tpu_torch.ops.oobleck_kernels import (
+        decoder_block_kernel,
+        decoder_block_plain,
+        res_units_kernel,
+        res_units_plain,
+    )
+
+    def block(ci, co, stride):
+        units = _narrow_units(co, gen)
+        return {"snake1": {"alpha": 0.3 * torch.randn(ci, generator=gen, device=dev),
+                           "beta": 0.3 * torch.randn(ci, generator=gen, device=dev)},
+                "conv_t1": {"kernel": torch.randn((2 * stride, ci, co), generator=gen, device=dev) * (2 * ci) ** -0.5,
+                            "bias": 0.3 * torch.randn(co, generator=gen, device=dev)},
+                "res_unit1": units[0], "res_unit2": units[1], "res_unit3": units[2]}
+
+    cases = []
+    l_in = 224
+    for i, s in enumerate((4, 4, 2)):
+        cases.append(("decoder_block", f"tiny_block{i}_c224", (1, l_in, 16), block(16, 16, s), s))
+        l_in *= s
+    cases.append(("decoder_block", "c384to192_s4", (1, 544, 384), block(384, 192, 4), 4))
+    cases.append(("res_units", "chain64", (1, 2240, 64), _narrow_units(64, gen), None))
+    for dtype in (torch.bfloat16, torch.float32):
+        for kname, label, shape, prm, stride in cases:
+            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            wrapper = decoder_block_kernel if kname == "decoder_block" else res_units_kernel
+            if kname == "res_units":
+                run = lambda: res_units_kernel(x, prm)
+                plain = lambda xx: res_units_plain(xx, prm)
+                c, l_out = shape[2], shape[1]
+                flops, w_elems = 48.0 * l_out * c * c, 3 * 8 * c * c
+                ours = {"gen_snake_kernel": 1, "gen_conv_kernel": 6}
+            else:
+                run = lambda: decoder_block_kernel(x, prm, stride)
+                plain = lambda xx: decoder_block_plain(xx, prm, stride)
+                ci, co = prm["conv_t1"]["kernel"].shape[1:]
+                l_out = shape[1] * stride
+                flops = 4.0 * l_out * ci * co + 48.0 * l_out * co * co
+                w_elems = 2 * stride * ci * co + 3 * 8 * co * co
+                ours = {"gen_snake_kernel": 1, "gen_upsample_kernel": 1, "gen_conv_kernel": 6}
+            before = wrapper.narrow_launches
+            out = run()
+            torch.cuda.synchronize()
+            if wrapper.narrow_launches != before + 1:
+                raise SystemExit(f"{kname} {label} {dtype}: did not take the narrow route")
+            ref = plain(x.float())
+            err = (out.float() - ref).abs().max().item()
+            tol = NARROW_TOL[dtype] * max(1.0, ref.abs().max().item())
+            ok = bool(err <= tol) and bool(torch.isfinite(out).all()) and out.dtype == dtype
+            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+            t_ops, t_bytes = flops / peak, (nbytes(x, out) + 4 * w_elems) / PEAK_BYTES
+            b_ms, b_by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+            k_ms = time_ms(run, 10)
+            d_ms = device_ms(run, 10, ours)
+            p_ms = time_ms(lambda: plain(x), 2)
+            name = f"narrow_{'bf16' if dtype == torch.bfloat16 else 'fp32'}_{label}"
+            line = dict(phase=f"kernel {kname} {name}", ok=ok, max_abs_err=err, tol=tol, kernel_ms=k_ms,
+                        device_ms=d_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                        shapes=dict(x=list(shape), out=list(out.shape)), dtype=str(dtype))
+            print(json.dumps(line), flush=True)
+            results.setdefault(kname, []).append(line)
+            del x, out, ref
+            if not ok:
+                raise SystemExit(f"{kname} {name}: max_abs_err {err} > {tol}")
+    torch.cuda.empty_cache()
+
+
 LYRICS = "\n".join(
     ["[Verse]", "Neon rivers run beneath the city lights tonight",
      "Every signal fading into static on the line",
@@ -421,30 +533,33 @@ def _counters():
             "res_units": res_units_kernel, "attention_probe": attention_probe}
 
 
-def _path_launches(path: str, need) -> dict:
-    """Read the counters after a path and fail if one of its kernels never ran,
-    or if a decoder block ran in torch on the card a part that the JAX
-    package runs in a Pallas kernel (a width no kernel takes)."""
-    from acestep_tpu_torch.models import vae
+_OOBLECK = ("decoder_block", "res_units")
 
-    launches = {k: fn.launches for k, fn in _counters().items()}
-    torch_parts = vae.decoder_block.torch_on_card
-    print(json.dumps(dict(phase=f"{path} launches", launches=launches, vae_torch_on_card=torch_parts)),
-          flush=True)
+
+def _path_launches(path: str, need, narrow: Optional[dict] = None) -> dict:
+    """Read the counters after a path and fail if one of its kernels never
+    ran, or if the Oobleck wrappers' narrow-route calls differ from `narrow`
+    ({"decoder_block": n, "res_units": n}; none at full width, where every
+    part takes a Hopper instance)."""
+    counters = _counters()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    got = {k: counters[k].narrow_launches for k in _OOBLECK}
+    want = {k: (narrow or {}).get(k, 0) for k in _OOBLECK}
+    print(json.dumps(dict(phase=f"{path} launches", launches=launches, narrow_launches=got,
+                          narrow_launches_expected=want)), flush=True)
     missing = [k for k in need if launches[k] <= 0]
     if missing:
         raise SystemExit(f"kernels never launched on the {path}: {missing}")
-    if torch_parts:
-        raise SystemExit(f"{torch_parts} decoder-block parts ran in torch on the card on the {path}")
+    if got != want:
+        raise SystemExit(f"narrow-route launches on the {path}: {got}, expected {want}")
     return launches
 
 
 def _reset_counters() -> None:
-    from acestep_tpu_torch.models import vae
-
     for fn in _counters().values():
         fn.launches = 0
-    vae.decoder_block.torch_on_card = 0
+    for k in _OOBLECK:
+        _counters()[k].narrow_launches = 0
 
 
 def run_small_thinking_reference(dev):
@@ -525,6 +640,112 @@ def run_small_thinking_reference(dev):
                          f"latents {lat_err}, audio {wav_err}")
 
 
+def _signal(seconds: float, seed: int, sr: int) -> np.ndarray:
+    """A seeded stereo test signal (2, L) in [-1, 1]: a chord whose notes
+    change each second, a slow envelope and a little noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    notes = rng.uniform(110.0, 880.0, (int(seconds) + 1, 3))[t.astype(int)]
+    chord = sum(np.sin(2 * np.pi * notes[:, k] * t + k) for k in range(3)) / 3
+    env = 0.6 + 0.4 * np.sin(2 * np.pi * 0.25 * t)
+    left = 0.5 * env * chord + 0.03 * rng.standard_normal(t.size)
+    right = 0.5 * env * np.roll(chord, sr // 100) + 0.03 * rng.standard_normal(t.size)
+    return np.clip(np.stack([left, right]), -1.0, 1.0).astype(np.float32)
+
+
+CKPT_TINY = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens", "checkpoint_tiny")
+
+
+def run_checkpoint_tiny(dev):
+    """The repository's reference-layout checkpoint (`tests/goldens/
+    checkpoint_tiny`: 16-channel VAE, head_dim 16, so attention is the
+    einsum, as in the JAX package) loaded from disk on the card, in bf16 and
+    in fp32, against the same files loaded by the port on the CPU in fp32;
+    the planner's directory with its genres vocabulary loaded on the card and
+    asked for a CoT. Requests of 10 s (250 latent frames, two 224-frame
+    decode chunks, each three 16-channel decoder blocks on the narrow route):
+      text2music, in bf16 and in fp32;
+      cover, bf16: the 10 s source through the card's `convert_audio_to_codes`
+        (its codes' agreement with the CPU's reported), both handlers then
+        covering those codes;
+      cover, fp32: each handler's own encode of the source, the hints through
+        the audio tokenizer chain.
+    Fatal: relative L2 of latents and audio over 5e-2 in bf16 (bf16 weights
+    and activations against fp32) or 1e-3 in fp32 (summation order through 8
+    steps; TF32 off); a malformed CoT; decoder-block launches other than the
+    narrow route's, exactly 6 a request."""
+    from acestep_tpu_torch.lm.handler import LLMHandler
+    from acestep_tpu_torch.pipeline.handler import AceStepHandler
+
+    cpu = AceStepHandler(dtype=torch.float32, device="cpu")
+    cpu.initialize_service(CKPT_TINY)
+    cards = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        h = AceStepHandler(dtype=dtype, device=dev)
+        t0 = time.time()
+        msg = h.initialize_service(CKPT_TINY)
+        print(json.dumps(dict(phase=f"checkpoint_tiny initialize_service {name}", seconds=time.time() - t0,
+                              msg=msg, vae_dtype=str(h.vae_params["decoder"]["conv1"]["kernel"].dtype))), flush=True)
+        cards[name] = h
+    llm = LLMHandler(device=dev)
+    t0 = time.time()
+    msg = llm.initialize(os.path.join(CKPT_TINY, "acestep-5Hz-lm-0.6B"))
+    plan = llm.generate_with_stop_condition(CAPTION, "[Instrumental]", temperature=0.8, stop_at_reasoning=True, seed=0)
+    md = plan["metadata"]
+    formed = (isinstance(md.get("bpm"), int) and 30 <= md["bpm"] <= 300 and isinstance(md.get("duration"), int)
+              and llm.genres_vocab == ["synthwave", "ambient", "rock"])
+    print(json.dumps(dict(phase="checkpoint_tiny LLMHandler.initialize + CoT", ok=formed, seconds=time.time() - t0,
+                          msg=msg, tokenizer=type(llm.tokenizer).__name__,
+                          metadata={k: str(v) for k, v in md.items()}, genres_vocab=llm.genres_vocab)),
+          flush=True)
+    if not formed:
+        raise SystemExit(f"checkpoint_tiny planner: malformed CoT metadata {md}")
+    del llm
+
+    sr = cpu.vae_config.sampling_rate
+    source = _signal(10.0, 21, sr)
+    kw = dict(captions=CAPTION, lyrics=LYRICS, audio_duration=10.0, seeds=[5], use_random_seed=False,
+              normalize_db=-1.0)
+    rel = lambda a, b: float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12))
+    cpu_codes = cpu.convert_audio_to_codes(source)
+    _reset_counters()
+    expected = 0
+    for name, h in cards.items():
+        tol = 5e-2 if name == "bf16" else 1e-3
+        if name == "bf16":
+            codes = h.convert_audio_to_codes(source)
+            ids, cpu_ids = h.parse_audio_codes(codes), h.parse_audio_codes(cpu_codes)
+            agree = sum(int(a == b) for a, b in zip(ids, cpu_ids)) / max(len(cpu_ids), 1)
+            cover = dict(task_type="cover", audio_code_strings=[codes])
+            cover_cpu = cover
+        else:
+            agree = None
+            cover = dict(task_type="cover", target_latents=h.encode_reference_audio(source))
+            cover_cpu = dict(task_type="cover", target_latents=cpu.encode_reference_audio(source))
+        for task, card_kw, cpu_kw in (("text2music", {}, {}), ("cover", cover, cover_cpu)):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            got = h.generate_music(**kw, **card_kw)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            want = cpu.generate_music(**kw, **cpu_kw)
+            core = h._decode_chunk_core(250, 1)
+            expected += (-(-250 // core) if 250 > core else 1) * len(h.vae_config.downsampling_ratios)
+            lat_err, wav_err = rel(got["latents"], want["latents"]), rel(got["audios"], want["audios"])
+            ok = (lat_err <= tol and wav_err <= tol and got["audios"].shape == want["audios"].shape == (1, 2, 250 * 32)
+                  and bool(np.isfinite(got["audios"]).all()) and float(np.abs(got["audios"]).max()) > 0)
+            print(json.dumps(dict(phase=f"checkpoint_tiny {task} {name} card vs CPU fp32", ok=ok, wall_s=wall,
+                                  latents_rel_l2=lat_err, audio_rel_l2=wav_err, tol=tol,
+                                  codes_agreement_with_cpu=agree if task == "cover" else None,
+                                  shape=list(got["audios"].shape), time_costs=got["time_costs"])), flush=True)
+            if not ok:
+                raise SystemExit(f"checkpoint_tiny {task} {name}: latents {lat_err}, audio {wav_err} > {tol}")
+    launches = _path_launches("checkpoint_tiny path", ("decoder_block",), {"decoder_block": expected, "res_units": 0})
+    if launches["decoder_block"] != expected or launches["res_units"]:
+        raise SystemExit(f"checkpoint_tiny path: {launches}, expected {expected} narrow decoder blocks only")
+    return launches
+
+
 def run_requests(dev):
     from acestep_tpu_torch.pipeline.handler import AceStepHandler
 
@@ -580,6 +801,140 @@ def run_requests(dev):
     del step_args
     print(json.dumps(dict(phase="VAE decode chunk profile b1x544", **_vae_decode_profile(h))), flush=True)
     return h, launches
+
+
+def run_audio_requests(h):
+    """The audio-input tasks through the service layer at full width (the
+    handler of `run_requests`: random weights, the widths of `config.py`),
+    each source or reference a WAV the script writes with the port's
+    `save_wav` from a seeded signal at 48 kHz, after one untimed warm-up
+    (a 30 s cover of a 60 s source):
+      cover 1 x 60 s: the 60 s source through `convert_audio_to_codes` (VAE
+        encode, audio tokenizer), then a cover of those codes;
+      repaint 1 x 60 s over 20-40 s of the 60 s source;
+      text2music 1 x 60 s with a 30 s reference audio (timbre);
+      cover 1 x 120 s from a 120 s source: `tiled_encode` in 20 s chunks
+        (16 s cores, 2 s overlaps: 8 chunks), hints through the tokenizer.
+    Each must give non-silent int16 audio of exactly its length. Then the
+    profile of one 20 s encode chunk."""
+    import tempfile
+
+    from acestep_tpu_torch.config import LATENT_FPS
+    from acestep_tpu_torch.service.inference import generate_music
+    from acestep_tpu_torch.service.params import GenerationConfig, GenerationParams
+    from acestep_tpu_torch.utils.audio import load_audio, save_wav
+
+    counters = _counters()
+    sr = h.vae_config.sampling_rate
+    with tempfile.TemporaryDirectory() as tmp:
+        def wav(name, seconds, seed):
+            path = os.path.join(tmp, name)
+            save_wav(path, _signal(seconds, seed, sr), sr)
+            return path
+
+        src60, src120, ref30 = wav("src60.wav", 60.0, 31), wav("src120.wav", 120.0, 32), wav("ref30.wav", 30.0, 33)
+
+        def request(fields, seed):
+            params = GenerationParams(caption=CAPTION, lyrics=LYRICS, seed=seed, thinking=False, **fields)
+            r = generate_music(h, None, params, GenerationConfig(batch_size=1, use_random_seed=False))
+            if not r.success:
+                raise SystemExit(f"audio-input request {fields.get('task_type')} failed: {r.error}")
+            return r
+
+        t0 = time.time()
+        request(dict(task_type="cover", src_audio=src60, duration=30.0), 40)
+        print(json.dumps(dict(phase="warm-up audio-input request cover b1x30s (untimed below)",
+                              seconds=time.time() - t0)), flush=True)
+        _reset_counters()
+        cases = [
+            ("cover b1x60s (codes from the source)", 60.0, dict(task_type="cover"), src60),
+            ("repaint b1x60s 20-40 s", 60.0, dict(task_type="repaint", src_audio=src60, repainting_start=20.0,
+                                                  repainting_end=40.0), None),
+            ("text2music b1x60s + 30 s reference", 60.0, dict(reference_audio=ref30), None),
+            ("cover b1x120s from a 120 s source", 120.0, dict(task_type="cover", src_audio=src120), None),
+        ]
+        for i, (label, dur, fields, codes_from) in enumerate(cases):
+            before = {k: fn.launches for k, fn in counters.items()}
+            torch.cuda.synchronize()
+            t0 = time.time()
+            convert_s = want_codes = None
+            if codes_from is not None:
+                src = load_audio(codes_from)
+                fields = dict(fields, audio_codes=h.convert_audio_to_codes(src))
+                convert_s = time.time() - t0
+                want_codes = -(-(src.shape[1] // h.vae_config.hop_length) // h.config.pool_window_size)
+            r = request(dict(fields, duration=dur), 50 + i)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            pcm = r.audios[0]["audio"]
+            tc = r.extra_outputs["time_costs"]
+            peak = int(np.abs(pcm.astype(np.int32)).max())
+            ok = pcm.dtype == np.int16 and pcm.shape == (2, int(dur * LATENT_FPS) * h.vae_config.hop_length) and peak > 0
+            n_codes = len(h.parse_audio_codes(fields.get("audio_codes", "")))
+            line = dict(phase=f"audio-input request {label}", ok=ok, wall_s=wall, audio_s_per_s=dur / wall,
+                        convert_audio_to_codes_s=convert_s, n_codes=n_codes,
+                        vae_encode_time_cost=tc.get("vae_encode_time_cost"),
+                        diffusion_time_cost=tc.get("diffusion_time_cost"),
+                        vae_decode_time_cost=tc.get("vae_decode_time_cost"), shape=list(pcm.shape), peak=peak,
+                        time_costs=tc, launches={k: fn.launches - before[k] for k, fn in counters.items()})
+            print(json.dumps(line), flush=True)
+            if not ok or n_codes != (want_codes or 0):
+                raise SystemExit(f"audio-input request {label}: bad output {pcm.dtype} {pcm.shape} peak {peak} "
+                                 f"codes {n_codes}")
+    launches = _path_launches("audio-input path", ("flash_attention", "decoder_block", "res_units"))
+    print(json.dumps(dict(phase="VAE encode chunk profile 20s", **_vae_encode_profile(h))), flush=True)
+    return launches
+
+
+def _encode_kind(name: str) -> str:
+    if any(t in name for t in ("conv", "cudnn", "gemm", "xmma", "nvjet", "cutlass", "sm90_", "implicit")):
+        return "conv (cuDNN / GEMM)"
+    return "other (elementwise: Snakes, bias adds, pads, copies)"
+
+
+def _vae_encode_profile(h, seconds: int = 20, reps: int = 3) -> dict:
+    """One `tiled_encode` chunk at full width (20 s, 960 000 samples, fp32,
+    TF32 off as served): host-clock ms per chunk around synchronised calls,
+    device ms by kernel kind, kernels per chunk and the device's idle share
+    from `torch.profiler`, peak memory of one chunk; then the same chunk
+    with cuDNN's TF32 allowed: its time and the relative L2 of its latents
+    against the served fp32 ones (a measurement, not the served path)."""
+    from acestep_tpu_torch.models import vae
+
+    x = torch.as_tensor(np.ascontiguousarray(_signal(seconds, 34, h.vae_config.sampling_rate).T[None]),
+                        device=h.device)
+    chunk = lambda: vae.encode_mean(h.vae_params, h.vae_config, x)
+    with torch.inference_mode():
+        ref = chunk()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(h.device)
+        base = torch.cuda.memory_allocated(h.device)
+        chunk()
+        torch.cuda.synchronize()
+        peak_gb = (torch.cuda.max_memory_allocated(h.device) - base) / 1e9
+        t0 = time.time()
+        for _ in range(reps):
+            chunk()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3 / reps
+        events = kernel_events(chunk, reps)
+        vae.ENCODER_ALLOW_TF32 = True
+        try:
+            tf32 = chunk()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(reps):
+                chunk()
+            torch.cuda.synchronize()
+            tf32_ms = (time.time() - t0) * 1e3 / reps
+        finally:
+            vae.ENCODER_ALLOW_TF32 = False
+        tf32_rel = float((tf32 - ref).norm() / ref.norm())
+    dev_ms, n_kernels, kinds, top = _device_summary(events, reps, _encode_kind)
+    return dict(samples=x.shape[1], latent_frames=ref.shape[1], wall_ms_per_chunk=wall_ms,
+                device_ms_per_chunk=dev_ms, kernels_per_chunk=n_kernels,
+                device_idle_share=max(0.0, 1.0 - dev_ms / wall_ms), peak_activation_gb=peak_gb, by_kind=kinds,
+                top_kernels=top, tf32_wall_ms_per_chunk=tf32_ms, tf32_latents_rel_l2=tf32_rel)
 
 
 def _kernel_kind(name: str) -> str:
@@ -869,8 +1224,14 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    try:
+        import transformers
+
+        hf = transformers.__version__
+    except ImportError:
+        hf = None
     print(json.dumps(dict(phase="versions", python=sys.version.split()[0], torch=torch.__version__,
-                          cuda=torch.version.cuda)), flush=True)
+                          cuda=torch.version.cuda, transformers=hf)), flush=True)
 
     from acestep_tpu_torch.ops import cuda_lib
 
@@ -887,16 +1248,21 @@ def main() -> int:
     results: dict = {}
     run_attention_phase(dev, gen, results)
     run_vae_phase(dev, gen, results)
+    run_narrow_phase(dev, gen, results)
     run_probe_phase(dev, gen, results)
     run_small_reference(dev)
     run_small_thinking_reference(dev)
+    checkpoint = run_checkpoint_tiny(dev)
     dit, text2music = run_requests(dev)
+    audio = run_audio_requests(dit)
     thinking = run_thinking_requests(dev, dit)
     del dit
     torch.cuda.empty_cache()
     probe = run_probe_entry()
-    launches = {k: text2music[k] + thinking[k] + probe[k] for k in text2music}
+    paths = (text2music, audio, thinking, probe, checkpoint)
+    launches = {k: sum(p[k] for p in paths) for k in text2music}
 
+    narrow_src = "acestep_tpu_torch/csrc/oobleck_generic.cu"
     replaces = {
         "flash_attention": ("acestep_tpu_torch/csrc/flash_attention.cu",
                             "acestep_tpu/ops/pallas_attention.py:130"),
@@ -908,8 +1274,11 @@ def main() -> int:
     for name, lines in results.items():
         src, rep = replaces[name]
         lib = [l["library_ms"] for l in lines if l["library_ms"] is not None]
+        narrow = {}
+        if name in _OOBLECK:  # the narrow route's source and its launches (all on the checkpoint_tiny path)
+            narrow = dict(narrow_source=narrow_src, narrow_launches=checkpoint[name] if name == "decoder_block" else 0)
         kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
+            name=name, route="cuda", source=src, **narrow, replaces=rep, launches=launches[name],
             max_abs_err=max(l["max_abs_err"] for l in lines),
             ms=sum(l["kernel_ms"] for l in lines), plain_ms=sum(l["plain_ms"] for l in lines),
             bound_ms=sum(l["bound_ms"] for l in lines),

@@ -289,9 +289,11 @@ def test_upsample_sm90_writes_the_first_units_snake(dev, oobleck_biased, block):
 
 
 def test_decoder_block_kernel_refuses_other_channel_counts(dev, oobleck):
-    """C_out = 384 is outside {128, 256, 512}: the wrapper raises before any launch."""
+    """C_out = 640 is above the 512 the JAX package's fused block takes: the
+    wrapper raises before any launch (C_out = 384 takes the narrow route);
+    the Hopper unit refuses 384, outside {128, 256, 512}."""
     bp = dict(oobleck["block"][2])
-    bp["conv_t1"] = dict(bp["conv_t1"], kernel=torch.zeros((8, 512, 384), device=dev))
+    bp["conv_t1"] = dict(bp["conv_t1"], kernel=torch.zeros((8, 512, 640), device=dev))
     x = _randn((1, 40, 512), 80, dev)
     before = decoder_block_kernel.launches
     with pytest.raises(ValueError):
@@ -351,10 +353,11 @@ def test_res_units_kernel_repeats_bit_identical(dev, oobleck_biased, b, l):
 
 
 def test_res_units_kernel_refuses_other_channel_counts(dev, oobleck):
-    """64 and 1152 channels are outside CHAIN_CHANNELS (the multiples of 128
-    up to 1024): the wrapper raises before any launch."""
+    """1152 and 2048 channels are above the 1024 the JAX package's chain
+    kernel takes: the wrapper raises before any launch (widths below 1024
+    outside CHAIN_CHANNELS take the narrow route)."""
     before = res_units_kernel.launches
-    for c in (64, 1152):
+    for c in (1152, 2048):
         h = _randn((1, 64, c), 82, dev)
         with pytest.raises(ValueError):
             res_units_kernel(h, [oobleck["block"][3][f"res_unit{i}"] for i in (1, 2, 3)])
@@ -411,9 +414,7 @@ _TINY = dict(encoder_hidden_size=16, downsampling_ratios=(2, 4, 4), channel_mult
              decoder_channels=16, decoder_input_channels=8, audio_channels=2, sampling_rate=320)
 
 
-def test_tiny_vae_decodes_on_the_card(dev):
-    """Widths no kernel takes (64/32/16 channels) run in torch on the card,
-    as they do on the CPU, and agree with the CPU decode (fp32, TF32 off)."""
+def _tiny_vae(dev):
     cfg = OobleckConfig(**_TINY)
     p = init_oobleck_params(cfg, seed=4, device="cpu")
     gen = torch.Generator().manual_seed(4)
@@ -421,16 +422,94 @@ def test_tiny_vae_decodes_on_the_card(dev):
         for part in [blk["snake1"]] + [blk[f"res_unit{i}"][s] for i in (1, 2, 3) for s in ("snake1", "snake2")]:
             for key in ("alpha", "beta"):
                 part[key] = 0.3 * torch.randn(part[key].shape, generator=gen)
+    return cfg, p, gen
+
+
+def _to_dev(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_dev(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_dev(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def test_tiny_vae_decodes_on_the_card(dev):
+    """Widths no Hopper instance takes (64/32/16 channels) take the narrow
+    route on the card: one decoder_block_kernel launch per block, all of them
+    narrow, no chain launch (the fused block holds the units), and the decode
+    agrees with the CPU decode (fp32, TF32 off)."""
+    cfg, p, gen = _tiny_vae(dev)
     z = torch.randn((2, 40, cfg.decoder_input_channels), generator=gen)
-    to_dev = lambda t: {k: to_dev(v) for k, v in t.items()} if isinstance(t, dict) else (
-        [to_dev(v) for v in t] if isinstance(t, list) else t.to(dev))
-    before = (decoder_block_kernel.launches, res_units_kernel.launches)
-    torch_parts = vae.decoder_block.torch_on_card
-    got = vae.decode(to_dev(p), cfg, z.to(dev))
+    before = (decoder_block_kernel.launches, decoder_block_kernel.narrow_launches, res_units_kernel.launches)
+    got = vae.decode(_to_dev(p, dev), cfg, z.to(dev))
     torch.cuda.synchronize()
-    assert (decoder_block_kernel.launches, res_units_kernel.launches) == before
-    # Each of the 3 blocks: the fused block (c_out <= 512) and the chain in torch.
-    assert vae.decoder_block.torch_on_card == torch_parts + 6
+    after = (decoder_block_kernel.launches, decoder_block_kernel.narrow_launches, res_units_kernel.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (3, 3, 0)
     want = vae.decode(p, cfg, z)
     assert got.shape == want.shape == (2, 40 * cfg.hop_length, 2)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# The narrow route against the plain versions. fp32: the same sums in another
+# order (1 344 products a k7 sum at 192 channels), 5e-5 of max(1, max|ref|).
+# bf16: against the fp32 chain on the same bf16 input, the 3e-2 of the Hopper
+# route's checks; against the plain version in bf16 (the same rounding
+# points), a flipped rounding step is rare: under 1 % of elements differ by
+# more than one bf16 step of the output's largest magnitude (a flip in the
+# residual stream carries its absolute size into every later unit).
+NARROW_FP32_TOL = 5e-5
+
+
+def _narrow_case(kind, c, stride, b, l, dtype, dev, seed):
+    """A decoder block C_in = 2c -> C_out = c (or c -> c when c is 16, the
+    tiny VAE's widths) or the chain at c, with random biases and Snakes."""
+    units = _units(c, seed, dev)
+    x = _randn((b, l, c if kind == "chain" else (c if c == 16 else 2 * c)), seed + 1, dev).to(dtype)
+    if kind == "chain":
+        return x, units, None
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    ci = x.shape[-1]
+    bp = {"snake1": {"alpha": 0.3 * torch.randn(ci, generator=g, device=dev),
+                     "beta": 0.3 * torch.randn(ci, generator=g, device=dev)},
+          "conv_t1": {"kernel": torch.randn((2 * stride, ci, c), generator=g, device=dev) * (2 * ci) ** -0.5,
+                      "bias": 0.3 * torch.randn(c, generator=g, device=dev)},
+          "res_unit1": units[0], "res_unit2": units[1], "res_unit3": units[2]}
+    return x, bp, stride
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind,c,stride,b,l", [
+    ("block", 16, 4, 2, 40), ("block", 16, 2, 1, 333),  # the tiny VAE's blocks
+    ("block", 192, 4, 1, 100), ("block", 384, 10, 2, 23),  # 128 < C_out <= 512 outside SM90_CHANNELS
+    ("chain", 64, None, 2, 300), ("chain", 16, None, 1, 40),  # chain widths outside CHAIN_CHANNELS
+    ("chain", 1024, None, 1, 77),  # fp32 at a Hopper width: narrow; bf16: the Hopper route
+])
+def test_narrow_route_matches_plain(dev, kind, c, stride, b, l, dtype):
+    x, prm, s = _narrow_case(kind, c, stride, b, l, dtype, dev, 7 * c + l)
+    wrapper, plain = ((res_units_kernel, res_units_plain) if kind == "chain"
+                      else (decoder_block_kernel, decoder_block_plain))
+    narrow = dtype == torch.float32 or (c not in oobleck_kernels.CHAIN_CHANNELS if kind == "chain"
+                                        else c not in oobleck_kernels.SM90_CHANNELS)
+    before = (wrapper.launches, wrapper.narrow_launches)
+    got = wrapper(x, prm) if kind == "chain" else wrapper(x, prm, s)
+    torch.cuda.synchronize()
+    assert (wrapper.launches - before[0], wrapper.narrow_launches - before[1]) == (1, int(narrow))
+    run_plain = (lambda xx: plain(xx, prm)) if kind == "chain" else (lambda xx: plain(xx, prm, s))
+    want = run_plain(x.float())
+    assert got.shape == want.shape and got.dtype == dtype and torch.isfinite(got).all()
+    if dtype == torch.float32:
+        err = (got - want).abs().max().item()
+        assert err <= NARROW_FP32_TOL * max(1.0, want.abs().max().item()), err
+        return
+    assert _close(got, want)
+    if narrow:
+        same = run_plain(x).float()
+        step = 2.0**-7 * same.abs().max().item()
+        assert ((got.float() - same).abs() > step).float().mean().item() < 1e-2
+
+
+def test_narrow_route_repeats_bit_identical(dev):
+    x, bp, s = _narrow_case("block", 192, 4, 2, 64, torch.bfloat16, dev, 5)
+    first, again = decoder_block_kernel(x, bp, s), decoder_block_kernel(x, bp, s)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)

@@ -327,10 +327,17 @@ def test_service_generate_music_with_thinking(lm_pair, monkeypatch):
     assert seen["instructions"] == [TH.TASK_INSTRUCTIONS["cover"]] * 2
     assert [len(TH.AceStepHandler.parse_audio_codes(c)) for c in seen["audio_code_strings"]] == [50, 50]
     assert "lm_codes_time_cost" in r.extra_outputs["time_costs"]
-    for bad in (dict(sample_mode=True), dict(analysis_only=True), dict(src_audio="x.wav"),
-                dict(auto_lrc=True), dict(task_type="repaint")):
+    for bad in (dict(sample_mode=True), dict(analysis_only=True), dict(auto_lrc=True)):
         with pytest.raises(NotImplementedError):
             generate_music(th, tlm, GenerationParams(caption="x", **bad), cfg)
+    # Ported since: a source audio that cannot be read fails the request (the
+    # service reports failures in its result), and a repaint runs.
+    r = generate_music(th, tlm, GenerationParams(caption="x", src_audio="x.wav", thinking=False), cfg)
+    assert not r.success and "x.wav" in r.error
+    r = generate_music(th, tlm, GenerationParams(caption="x", task_type="repaint", repainting_start=1.0,
+                                                 repainting_end=3.0, duration=10.0, thinking=False), cfg)
+    assert r.success, r.error
+    assert [a["audio"].shape for a in r.audios] == [(2, 8000)] * 2
     with pytest.raises(NotImplementedError):
         generate_music(th, tlm, params, cfg, save_audio=True)
     with pytest.raises(NotImplementedError):

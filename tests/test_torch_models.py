@@ -100,11 +100,20 @@ def test_prepare_condition(dit_params):
 
 
 def test_prepare_condition_without_hints_is_not_ported(dit_params):
-    _, tp = dit_params
-    _, ti = _both(_inputs())
-    ti.pop("precomputed_lm_hints_25hz")
-    with pytest.raises(NotImplementedError):
-        tdit.prepare_condition(tp, T_DIT, **ti)
+    """Without hints or codes the cover row's hints come from its source
+    latents through the audio tokenizer chain (ported since this test only
+    checked that it raised): T = 20 is padded with silence to a multiple of
+    the pool window first, as in the JAX package."""
+    jp, tp = dit_params
+    inp = _inputs()
+    inp.pop("precomputed_lm_hints_25hz")
+    inp["src_latents"] = inp["src_latents"][:, :18]
+    inp["chunk_masks"] = inp["chunk_masks"][:, :18]
+    ji, ti = _both(inp)
+    want = jdit.prepare_condition(jp, J_DIT, max_refs=2, **ji)
+    got = tdit.prepare_condition(tp, T_DIT, max_refs=2, **ti)
+    for g, w in zip(got, want):
+        _close(g, w)
 
 
 @pytest.mark.parametrize("layout", ["list", "stacked"])

@@ -88,12 +88,15 @@ def test_generate_music_text2music_matches_jax(handlers, duration):
 
 
 def test_unported_requests_raise(handlers):
+    """Guidance and SDE still raise; a cover request (the tokenizer chain on
+    the silence source) now runs, and a checkpoint directory that does not
+    exist raises FileNotFoundError."""
     _, th = handlers
-    with pytest.raises(NotImplementedError):
-        th.generate_music("x", "y", task_type="cover")
+    out = th.generate_music("x", "y", task_type="cover", audio_duration=2.0, seeds=[1], use_random_seed=False)
+    assert out["latents"].shape == (1, 50, 64) and np.isfinite(out["latents"]).all()
     with pytest.raises(NotImplementedError):
         th.generate_music("x", "y", guidance_scale=3.0, audio_duration=2.0)
     with pytest.raises(NotImplementedError):
         th.generate_music("x", "y", infer_method="sde", audio_duration=2.0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):
         th.initialize_service("/nonexistent", random_init=False)

@@ -109,13 +109,55 @@ def test_decode_and_tiled_decode_match_jax(weights):
 def test_cpu_routing_follows_the_jax_gates_at_every_width(weights, monkeypatch):
     """On a CPU tensor the widths of the card's kernels do not gate: every
     block of the 16-channel VAE takes the block wrapper (its plain version),
-    as the JAX package takes `decoder_block_pallas`, and no part counts as
-    run in torch on the card."""
+    as the JAX package takes `decoder_block_pallas`, and no call counts as a
+    kernel launch on either route."""
     _, tp = weights
     calls = []
     real = tvae.decoder_block_kernel
     monkeypatch.setattr(tvae, "decoder_block_kernel", lambda x, p, s: calls.append(x.shape[-1]) or real(x, p, s))
-    before = tvae.decoder_block.torch_on_card
+    counts = lambda: (decoder_block_kernel.launches, decoder_block_kernel.narrow_launches,
+                      res_units_kernel.launches, res_units_kernel.narrow_launches)
+    before = counts()
     tvae.decode(tp, T_TINY, torch.tensor(_x((1, 40, J_TINY.latent_dim), 7)))
     assert calls == [64, 32, 16]
-    assert tvae.decoder_block.torch_on_card == before
+    assert counts() == before
+
+
+def _np_units(rng, c):
+    snake = lambda: {"alpha": rng.standard_normal(c).astype(np.float32) * 0.3,
+                     "beta": rng.standard_normal(c).astype(np.float32) * 0.3}
+    conv = lambda k: {"kernel": (rng.standard_normal((k, c, c)) * (k * c) ** -0.5).astype(np.float32),
+                      "bias": rng.standard_normal(c).astype(np.float32) * 0.3}
+    return [{"snake1": snake(), "conv1": conv(7), "snake2": snake(), "conv2": conv(1)} for _ in range(3)]
+
+
+def _both(tree):
+    return jax.tree.map(jnp.asarray, tree), jax.tree.map(torch.tensor, tree)
+
+
+@pytest.mark.parametrize("kind,c,stride,l", [("block", 192, 4, 40), ("chain", 64, None, 120), ("chain", 192, None, 48)])
+def test_narrow_widths_plain_match_pallas(kind, c, stride, l):
+    """The widths of the card's narrow route between the tiny VAE's 16
+    channels and the Hopper widths: a decoder block 384 -> 192 channels and
+    chains at 64 and 192, plain versions against the Pallas kernels in
+    interpret mode (fp32)."""
+    rng = np.random.default_rng(c + l)
+    units = _np_units(rng, c)
+    if kind == "chain":
+        ju, tu = _both(units)
+        x = _x((2, l, c), 11)
+        want = np.asarray(res_units_pallas(jnp.asarray(x), ju, interpret=True))
+        got = res_units_kernel(torch.tensor(x), tu).numpy()
+    else:
+        ci = 2 * c
+        block = {"snake1": {"alpha": rng.standard_normal(ci).astype(np.float32) * 0.3,
+                            "beta": rng.standard_normal(ci).astype(np.float32) * 0.3},
+                 "conv_t1": {"kernel": (rng.standard_normal((2 * stride, ci, c)) * (2 * ci) ** -0.5).astype(np.float32),
+                             "bias": rng.standard_normal(c).astype(np.float32) * 0.3},
+                 "res_unit1": units[0], "res_unit2": units[1], "res_unit3": units[2]}
+        jb, tb = _both(block)
+        x = _x((1, l, ci), 12)
+        want = np.asarray(decoder_block_pallas(jnp.asarray(x), jb, stride, interpret=True))
+        got = decoder_block_kernel(torch.tensor(x), tb, stride).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, **TOL)
