@@ -1,16 +1,27 @@
-"""Command-line interface of the port: `generate` only.
+"""Command-line interface of the port: `generate` and `generate-examples`.
 
-Port of the `generate` subcommand of `acestep_tpu/cli.py`, with its flags,
-through the port's `service.inference.generate_music`; `--thinking` runs the
-5 Hz LM planner (`LLMHandler()`, the 0.6B size) before the DiT. Writes 16-bit
-stereo WAV files with the stdlib `wave` module, named by the request's
-deterministic key. Run as
-``python -m acestep_tpu_torch.cli generate --random-init --thinking --caption "..."``.
+Port of those subcommands of `acestep_tpu/cli.py`, with their flags, plus
+`--device` (the card unless `cpu` is asked for).
+
+- `generate` runs the port's `service.inference.generate_music`;
+  `--thinking` runs the 5 Hz LM planner (`LLMHandler()`, the 0.6B size)
+  before the DiT, and `--steps` above 8 runs the base model's guided
+  sampling (APG at the service's default scale 7.0). Writes 16-bit stereo
+  WAV files with the stdlib `wave` module, named by the request's
+  deterministic key.
+- `generate-examples` drafts `--num` samples with the planner's
+  create_sample and writes each as `example_NN.json` in the params-file
+  format. Draft i takes seed `--seed` + i (the JAX command draws every
+  example at seed 0, so its examples repeat).
+
+Run as ``python -m acestep_tpu_torch.cli generate --random-init --thinking --caption "..."``
+or ``python -m acestep_tpu_torch.cli generate-examples --random-init --num 3``.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import wave
@@ -71,6 +82,42 @@ def cmd_generate(args) -> int:
     return 0
 
 
+def cmd_generate_examples(args) -> int:
+    """Draft `--num` samples with the planner (create_sample) and write each
+    as `<output-dir>/example_NN.json`, the params-file format of the JAX
+    package's examples."""
+    from acestep_tpu_torch.lm.handler import LLMHandler
+    from acestep_tpu_torch.service.inference import create_sample
+
+    llm = LLMHandler(device=args.device)
+    print(llm.initialize(args.lm_checkpoint_dir, random_init=args.random_init or None))
+    os.makedirs(args.output_dir, exist_ok=True)
+    written = 0
+    for i in range(args.num):
+        try:
+            out = create_sample(llm, args.query, seed=args.seed + i)
+        except Exception as e:  # noqa: BLE001 — keep drafting the rest
+            print(f"example {i + 1} failed: {e}", file=sys.stderr)
+            continue
+        md = out["metadata"]
+        example = {
+            "think": True,
+            "caption": md.get("caption", ""),
+            "lyrics": md.get("lyrics", "[Instrumental]"),
+            "bpm": md.get("bpm"),
+            "duration": md.get("duration"),
+            "keyscale": md.get("keyscale", ""),
+            "language": md.get("language", "unknown"),
+            "timesignature": str(md.get("timesignature", "4")),
+        }
+        path = os.path.join(args.output_dir, f"example_{args.start_index + written:02d}.json")
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(example, f, indent=4, ensure_ascii=False)
+        written += 1
+        print(f"wrote {path}")
+    return 0 if written else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="acestep-tpu-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -91,6 +138,17 @@ def main(argv=None) -> int:
     g.add_argument("--format", default="wav")
     g.add_argument("--output-dir", default="./outputs")
     g.set_defaults(fn=cmd_generate)
+
+    ge = sub.add_parser("generate-examples", help="batch-generate example params via the LM")
+    ge.add_argument("--lm-checkpoint-dir", default=os.environ.get("ACESTEP_LM_MODEL_PATH"))
+    ge.add_argument("--random-init", action="store_true", help="dev mode: random weights")
+    ge.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ge.add_argument("--num", type=int, default=10)
+    ge.add_argument("--query", default="", help="optional inspiration query")
+    ge.add_argument("--seed", type=int, default=0, help="the first draft's seed; draft i takes seed + i")
+    ge.add_argument("--output-dir", default="examples/params")
+    ge.add_argument("--start-index", type=int, default=1)
+    ge.set_defaults(fn=cmd_generate_examples)
     args = ap.parse_args(argv)
     return args.fn(args)
 

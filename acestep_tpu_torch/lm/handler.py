@@ -12,10 +12,14 @@ Port of `acestep_tpu/lm/handler.py` (reference `acestep/llm_inference.py`):
   CFG, one read-back at the end.
 - KV cache: preallocated, bucketed prompt lengths, prefill dedup and reuse
   (`lm/prefix_cache.py`).
+- The free-form APIs (`understand_audio_from_codes`,
+  `create_sample_from_query`, `format_sample_from_input`): the understand
+  grammar (metadata with genres, then free text until EOS) through
+  `generate_cot_dfa`, or `sampling.generate_free` when that grammar does not
+  compile to device tables.
 
 Weights come from the reference checkpoint layout (config.json, safetensors
-and `genres_vocab.txt`, which constrains the CoT's genres) or from a seed;
-the understand/create/format APIs raise until `generate_free` is ported.
+and `genres_vocab.txt`, which constrains the CoT's genres) or from a seed.
 """
 
 from __future__ import annotations
@@ -35,7 +39,12 @@ from acestep_tpu_torch.lm import prefix_cache, sampling
 from acestep_tpu_torch.lm.constrained import ConstrainedDecoderFSM
 from acestep_tpu_torch.models import qwen3
 from acestep_tpu_torch.params import LM_CONFIGS, init_qwen3_params, load_safetensors_state
-from acestep_tpu_torch.utils.constants import DEFAULT_LM_INSTRUCTION
+from acestep_tpu_torch.utils.constants import (
+    DEFAULT_LM_INSPIRED_INSTRUCTION,
+    DEFAULT_LM_INSTRUCTION,
+    DEFAULT_LM_REWRITE_INSTRUCTION,
+    DEFAULT_LM_UNDERSTAND_INSTRUCTION,
+)
 from acestep_tpu_torch.utils.tokenizer import load_tokenizer, tokenize_padded
 
 PROMPT_BUCKETS = (128, 256, 512, 1024, 2048, 4096)
@@ -189,6 +198,21 @@ class LLMHandler:
             formatted += "\n"
         return formatted
 
+    def build_formatted_prompt_for_understanding(
+        self, audio_codes: str, is_negative_prompt: bool = False, negative_prompt: str = "NO USER INPUT"
+    ) -> str:
+        if is_negative_prompt:
+            user = negative_prompt if _has_meaningful_negative_prompt(negative_prompt) else ""
+        else:
+            user = audio_codes
+        return self._apply_chat_template(
+            [
+                {"role": "system", "content": f"# Instruction\n{DEFAULT_LM_UNDERSTAND_INSTRUCTION}\n\n"},
+                {"role": "user", "content": user},
+            ],
+            add_generation_prompt=True,
+        )
+
     # ------------------------------------------------------------------
     # Core decode machinery
     # ------------------------------------------------------------------
@@ -291,20 +315,31 @@ class LLMHandler:
     # Device-side DFA path (lm/dfa.py)
     # ------------------------------------------------------------------
 
-    def _cot_dfa_for(self, user_metadata, max_cot_tokens: int, target_duration: Optional[float] = None):
-        """Compile (and cache) the CoT grammar into device DFA tables; None
-        when the dense tables would be too large (host loop instead)."""
+    def _cot_dfa_for(
+        self,
+        user_metadata,
+        max_cot_tokens: int,
+        target_duration: Optional[float] = None,
+        phase: str = "cot",
+        skip_genres: bool = True,
+    ):
+        """Compile (and cache) the CoT or understand grammar into device DFA
+        tables; None when the dense tables would be too large (host loop or
+        free decoding instead). The main CoT skips genres; the understand /
+        create / format grammar (`phase="understand"`, `skip_genres=False`)
+        emits them. Both choices are part of the cache key."""
         from acestep_tpu_torch.lm.dfa import compile_cot_dfa
 
         md = tuple(sorted((k, str(v)) for k, v in (user_metadata or {}).items() if v not in (None, "", "N/A")))
-        key = (md, max_cot_tokens, self.genres_vocab is not None, target_duration)
+        key = (md, max_cot_tokens, self.genres_vocab is not None, target_duration, phase, skip_genres)
         if key in self._dfa_cache:
             return self._dfa_cache[key]
         fsm = ConstrainedDecoderFSM(
             self.tokenizer, max_duration=self.fsm.max_duration, genres_vocab=self.genres_vocab,
-            skip_genres=True, caption_max_tokens=min(512, max_cot_tokens // 3),
+            skip_genres=skip_genres, caption_max_tokens=min(512, max_cot_tokens // 3),
         )
-        fsm.reset(phase="cot", stop_at_reasoning=True, user_metadata=user_metadata, target_duration=target_duration)
+        fsm.reset(phase=phase, stop_at_reasoning=phase == "cot", user_metadata=user_metadata,
+                  target_duration=target_duration)
         dfa = compile_cot_dfa(fsm, self.config.vocab_size)
         entry = None
         if dfa.trans.size <= self._DFA_MAX_TABLE_ENTRIES:
@@ -573,17 +608,89 @@ class LLMHandler:
         return [[int(c) for c in row] for row in codes]
 
     # ------------------------------------------------------------------
-    # LM-only task APIs: wait for `generate_free`
+    # LM-only task APIs (ref inference.py:779-1253 surface)
     # ------------------------------------------------------------------
 
-    def understand_audio_from_codes(self, audio_codes: str, **kw) -> Dict[str, Any]:
-        raise NotImplementedError("understand needs sampling.generate_free, not ported yet")
+    def _chat_prompt(self, instruction: str, user: str) -> str:
+        return self._apply_chat_template(
+            [
+                {"role": "system", "content": f"# Instruction\n{instruction}\n\n"},
+                {"role": "user", "content": user},
+            ],
+            add_generation_prompt=True,
+        )
 
-    def create_sample_from_query(self, query: str, **kw) -> Dict[str, Any]:
-        raise NotImplementedError("create_sample needs sampling.generate_free, not ported yet")
+    def _free_api(self, prompt: str, temperature: float, max_new_tokens: int, seed: int) -> Dict[str, Any]:
+        ids, route = self._free_generate(prompt, temperature=temperature, max_new_tokens=max_new_tokens, seed=seed)
+        text = self.tokenizer.decode(ids)
+        metadata, _ = self.parse_lm_output(text)
+        return {"metadata": metadata, "text": text, "route": route, "tokens": len(ids)}
 
-    def format_sample_from_input(self, user_input: str, **kw) -> Dict[str, Any]:
-        raise NotImplementedError("format_sample needs sampling.generate_free, not ported yet")
+    def understand_audio_from_codes(self, audio_codes: str, *, temperature: float = 0.85,
+                                    max_new_tokens: int = 512, seed: int = 0) -> Dict[str, Any]:
+        """Codes -> metadata + lyrics. Each free-form API returns the parsed
+        metadata, the text, `route` (the decode that ran: "grammar", the
+        understand grammar, or "free") and `tokens` (generated before EOS)."""
+        return self._free_api(self.build_formatted_prompt_for_understanding(audio_codes),
+                              temperature, max_new_tokens, seed)
+
+    def create_sample_from_query(self, query: str, *, temperature: float = 0.85,
+                                 max_new_tokens: int = 512, seed: int = 0) -> Dict[str, Any]:
+        """Query -> a drafted sample (caption, lyrics, metadata)."""
+        return self._free_api(self._chat_prompt(DEFAULT_LM_INSPIRED_INSTRUCTION, query),
+                              temperature, max_new_tokens, seed)
+
+    def format_sample_from_input(self, user_input: str, *, temperature: float = 0.85,
+                                 max_new_tokens: int = 512, seed: int = 0) -> Dict[str, Any]:
+        """Free-form input -> a formatted sample."""
+        return self._free_api(self._chat_prompt(DEFAULT_LM_REWRITE_INSTRUCTION, user_input),
+                              temperature, max_new_tokens, seed)
+
+    @torch.inference_mode()
+    def _free_generate(self, prompt: str, *, temperature: float, max_new_tokens: int,
+                       seed: int) -> Tuple[List[int], str]:
+        """Decode until EOS on the device, one read-back at the end. Returns
+        (token ids before EOS, route). The understand grammar runs
+        (constrained metadata including genres, then free text until EOS);
+        when it cannot compile (a tokenizer without the grammar's tokens),
+        its tables are too large, or the device FSM is switched off,
+        unconstrained `generate_free` runs instead. This is a grammar
+        fallback: both routes run on the handler's device."""
+        if not self.initialized:
+            raise RuntimeError("call initialize() first")
+        ids, mask, bucket = self._encode_prompts([prompt], budget=max_new_tokens)
+        logits, cache = self._prefill(ids, mask, bucket + max_new_tokens)
+        positions = self._tensor(np.asarray([mask[0].sum()], np.int32))
+        eos = getattr(self.tokenizer, "eos_token_id", None) or 2
+
+        compiled = None
+        if _device_fsm_enabled():
+            try:
+                compiled = self._cot_dfa_for(None, max_new_tokens, phase="understand", skip_genres=False)
+            except Exception:  # noqa: BLE001 — a tokenizer the grammar cannot use
+                compiled = None
+        if compiled is not None:
+            dfa, tables = compiled
+            toks, _ = sampling.generate_cot_dfa(
+                self.params, self.config, logits, positions, cache, self._generator(seed), tables,
+                torch.full((1,), dfa.start_state, dtype=torch.int64, device=self.device),
+                float(temperature), max_steps=max_new_tokens, eos_token=dfa.eos_token_id,
+                newline_token=dfa.newline_token_id if bool(dfa.prob_end.any()) else -1,
+                top_k=0, top_p=0.9,
+            )
+            route = "grammar"
+        else:
+            toks, _ = sampling.generate_free(
+                self.params, self.config, logits, positions, cache, self._generator(seed),
+                float(temperature), max_steps=max_new_tokens, eos_token=eos, top_k=0, top_p=0.9,
+            )
+            route = "free"
+        out = []
+        for t in toks[0].cpu().numpy():
+            if int(t) == eos:
+                break
+            out.append(int(t))
+        return out, route
 
     # ------------------------------------------------------------------
     # Output parsing (ref llm_inference.py:2535-2658)

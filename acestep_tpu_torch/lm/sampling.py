@@ -10,13 +10,14 @@ Port of `acestep_tpu/lm/sampling.py`:
 - `generate_cot_dfa`: the whole constrained CoT phase as one device loop over
   the DFA tables of `lm/dfa.py`;
 - `generate_codes_scan`: the whole audio-code phase, with no read-back to the
-  host until the caller reads the returned tokens.
+  host until the caller reads the returned tokens;
+- `generate_free`: unconstrained decoding until EOS (the understand /
+  create_sample / format_sample APIs when their grammar does not compile).
 
 Randomness comes from an explicit `torch.Generator` on the logits' device and
 is drawn as a Gumbel-max, the way `jax.random.categorical` draws it; the
 numbers differ from JAX's for one seed (a recorded deviation). With
-temperature <= 0 every sampler is greedy and draws nothing. `generate_free`
-(the understand/create/format APIs) is not ported yet.
+temperature <= 0 every sampler is greedy and draws nothing.
 """
 
 from __future__ import annotations
@@ -35,8 +36,9 @@ _TINY = torch.finfo(torch.float32).tiny
 # (`torch.topk` returns them sorted), so top-p needs no full sort.
 _NUCLEUS_PREFILTER_K = 512
 
-# The CoT loop asks the device whether every row has finished once every
-# this many steps; steps past the end write EOS and do not change the result.
+# The CoT and free loops ask the device whether every row has finished once
+# every this many steps; steps past the end write EOS and do not change the
+# result.
 COT_CHECK_EVERY = 8
 
 
@@ -237,6 +239,44 @@ def generate_cot_dfa(
             seen[rows, tok] = True
         feed = torch.cat([tok, tok]) if use_cfg else tok
         logits, cache = qwen3.decode_step(params, cfg, feed, pos, cache)
+        pos = pos + 1
+        step += 1
+    return out, step
+
+
+def generate_free(
+    params,
+    cfg: Qwen3Config,
+    logits0: torch.Tensor,  # (B, V) from prefill
+    positions: torch.Tensor,  # (B,)
+    cache: qwen3.KVCache,
+    generator: torch.Generator,
+    temperature: float,
+    *,
+    max_steps: int,
+    eos_token: int,
+    top_k: int = 0,
+    top_p: float = 1.0,
+) -> Tuple[torch.Tensor, int]:
+    """Unconstrained decoding until every row has sampled EOS, as one device
+    loop. Returns (tokens (B, max_steps) EOS-padded, steps run). A row that
+    is done writes EOS; the host asks whether every row is done only every
+    `COT_CHECK_EVERY` steps, so there is no read-back per token."""
+    b = logits0.shape[0]
+    dev = logits0.device
+    out = torch.full((b, max_steps), eos_token, dtype=torch.int32, device=dev)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    pos = positions.clone()
+    logits = logits0
+    step = 0
+    while step < max_steps:
+        if step % COT_CHECK_EVERY == 0 and step > 0 and bool(done.all()):
+            break
+        tok = sample(logits.float(), generator, temperature, top_k=top_k, top_p=top_p)
+        tok = torch.where(done, eos_token, tok)
+        done = done | (tok == eos_token)
+        out[:, step] = tok.to(torch.int32)
+        logits, cache = qwen3.decode_step(params, cfg, tok, pos, cache)
         pos = pos + 1
         step += 1
     return out, step

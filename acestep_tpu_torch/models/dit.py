@@ -1,4 +1,4 @@
-"""ACE-Step v1.5 DiT and condition encoders (turbo, without guidance).
+"""ACE-Step v1.5 DiT and condition encoders (turbo and base).
 
 Port of `acestep_tpu/models/dit.py` as plain functions on the JAX package's
 parameter tree (tensors; layers as per-layer lists, see `params.py`):
@@ -11,19 +11,25 @@ parameter tree (tensors; layers as per-layer lists, see `params.py`):
   precomputed hints, audio codes, or the source latents through the chain;
 - `timestep_embedding`, `dit_layer`, `precompute_cross_kv`, `dit_forward`;
 - `build_t_schedule`, `build_linspace_schedule`, `prepare_noise`;
-- `denoise` (the ODE loop of `denoise_scan` without CFG, as a Python loop)
-  and `generate_audio` with cover noise (the renoised entry partway down the
-  schedule), cover strength (the non-cover segment) and the `noise=`
-  injection hook. CFG/APG/ADG and SDE sampling raise until their slice.
+- guidance: `cfg_forward`, `apg_forward` (momentum carried by the caller)
+  and `adg_forward`, plain tensor functions as in the JAX package;
+- `denoise` (`denoise_scan` as a Python loop: ODE or SDE steps, and with a
+  null branch CFG through APG or ADG inside the CFG interval) and
+  `generate_audio` with cover noise (the renoised entry partway down the
+  schedule), cover strength (the non-cover segment), the null condition per
+  segment, and the `noise=` and `sde_noise=` injection hooks.
 
 The bf16 rounding points follow the JAX package: modulation in fp32 then cast
-(`dit_layer`), rope in fp32, the ODE step size cast to the latent dtype.
-Decoder padding masks stay on, as in the JAX package.
+(`dit_layer`), rope in fp32, the ODE step size cast to the latent dtype; APG
+and ADG compute in fp32 and cast once (APG adds its cast update to the
+conditional velocity in the latent dtype); SDE noise is drawn in fp32, cast,
+and mixed in the latent dtype. Decoder padding masks stay on, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -375,6 +381,90 @@ def dit_forward(
 
 
 # ---------------------------------------------------------------------------
+# Guidance: plain CFG, APG, ADG (plain tensor functions, as in the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def cfg_forward(cond: torch.Tensor, uncond: torch.Tensor, scale: float) -> torch.Tensor:
+    return uncond + scale * (cond - uncond)
+
+
+def _norm(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return torch.linalg.vector_norm(x, dim=dim, keepdim=True)
+
+
+def apg_forward(
+    pred_cond: torch.Tensor,
+    pred_uncond: torch.Tensor,
+    guidance_scale: float,
+    running_avg: torch.Tensor,
+    *,
+    momentum: float = -0.75,
+    eta: float = 0.0,
+    norm_threshold: float = 2.5,
+    dim: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """APG with the momentum buffer (fp32) carried by the caller; the norms
+    run over `dim` 1, the time axis of (B, T, 64). Returns (guided, new_avg)."""
+    diff = (pred_cond - pred_uncond).float()
+    new_avg = diff + momentum * running_avg
+    diff = new_avg
+    if norm_threshold > 0:
+        diff = diff * torch.clamp(norm_threshold / torch.clamp(_norm(diff, dim), min=1e-12), max=1.0)
+    v1 = pred_cond.float()
+    v1n = v1 / torch.clamp(_norm(v1, dim), min=1e-12)
+    parallel = (diff * v1n).sum(dim=dim, keepdim=True) * v1n
+    update = (diff - parallel) + eta * parallel
+    scale = float(np.float32(guidance_scale) - np.float32(1.0))
+    return pred_cond + (scale * update).to(pred_cond.dtype), new_avg
+
+
+def adg_forward(
+    latents: torch.Tensor,
+    pred_cond: torch.Tensor,
+    pred_uncond: torch.Tensor,
+    sigma: float,
+    guidance_scale: float,
+    *,
+    angle_clip: float = 3.14 / 6,
+) -> torch.Tensor:
+    """Angle-based dynamic guidance, in fp32 with one cast at the end. Every
+    (batch, frame) row is its own 64-vector, so any batch size works (the
+    original system's version takes batch 1 only)."""
+    n, t, c = pred_cond.shape
+    sig = float(np.float32(sigma))
+    x = latents.float()
+    gs1 = np.float32(guidance_scale) - np.float32(1.0)
+    weight = float(gs1 * np.float32(gs1 > 0) + np.float32(1e-3))
+    hat_c = x - sig * pred_cond.float()
+    hat_u = x - sig * pred_uncond.float()
+    diff = hat_c - hat_u
+
+    fc = hat_c.reshape(-1, c)
+    fu = hat_u.reshape(-1, c)
+    cosv = (fc / torch.clamp(_norm(fc, 1), min=1e-12) * fu / torch.clamp(_norm(fu, 1), min=1e-12)).sum(
+        dim=1, keepdim=True
+    )
+    theta = torch.arccos(torch.clamp(cosv, -1.0, 1.0))
+    clip = float(np.float32(angle_clip))
+    theta_new = torch.clamp(weight * theta, -clip, clip)
+
+    fd = diff.reshape(-1, c)
+    dot = (fd * fu).sum(dim=1, keepdim=True)
+    nsq = (fu * fu).sum(dim=1, keepdim=True)
+    perp = fd - (dot / (nsq + 1e-8)) * fu
+
+    sin_theta = torch.sin(theta)
+    big = sin_theta > 1e-3
+    v_new = torch.cos(theta_new) * fc
+    p_new = torch.where(
+        big, perp * torch.sin(theta_new) / torch.where(big, sin_theta, torch.ones_like(sin_theta)), perp * weight
+    )
+    latent_new = (v_new + p_new).reshape(n, t, c)
+    return ((x - latent_new) / sig).to(latents.dtype)
+
+
+# ---------------------------------------------------------------------------
 # Schedules, noise, denoise loop, generation
 # ---------------------------------------------------------------------------
 
@@ -426,21 +516,71 @@ def denoise(
     encoder_mask: Optional[torch.Tensor],
     latent_mask: Optional[torch.Tensor],
     t_after: float = 0.0,
+    *,
+    null_cross_kvs=None,
+    null_encoder_mask: Optional[torch.Tensor] = None,
+    infer_method: str = "ode",
+    guidance_scale: float = 1.0,
+    use_adg: bool = False,
+    cfg_interval_start: float = 0.0,
+    cfg_interval_end: float = 1.0,
+    sde_noise: Optional[Callable[[int], torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """ODE (Euler) trajectory without CFG: x <- x - v(x, t) * (t - t_next),
-    over `schedule` (a segment of a trajectory that goes on at `t_after`)."""
+    """One segment of a trajectory over `schedule` (it goes on at `t_after`).
+
+    ODE: x <- x - v(x, t) * (t - t_next). SDE: x <- t_next * noise +
+    (1 - t_next) * (x - v * t) while t_next > 0, the clean prediction at the
+    end; `sde_noise(i)` gives step i's fp32 noise. With `null_cross_kvs` each
+    step runs a second forward on the null condition (two calls, not a
+    doubled batch) and, where float32 t lies in [cfg_interval_start,
+    cfg_interval_end], replaces v by APG (momentum from zero in each
+    segment, kept unchanged outside the interval) or ADG."""
     t_sched = np.asarray(schedule, np.float32)
     t_next = np.asarray(list(schedule[1:]) + [t_after], np.float32)
+    lo, hi = np.float32(cfg_interval_start), np.float32(cfg_interval_end)
     b = xt.shape[0]
-    for t_curr, t_nxt in zip(t_sched, t_next):
-        tvec = torch.full((b,), float(t_curr), dtype=torch.float32, device=xt.device)
-        vt = dit_forward(
-            decoder_params, cfg, xt, tvec, tvec, context_latents, cross_kvs,
-            encoder_mask=encoder_mask, latent_mask=latent_mask,
+    dtype, dev = xt.dtype, xt.device
+
+    def fwd(t_curr, kvs, mask):
+        tvec = torch.full((b,), float(t_curr), dtype=torch.float32, device=dev)
+        return dit_forward(
+            decoder_params, cfg, xt, tvec, tvec, context_latents, kvs,
+            encoder_mask=mask, latent_mask=latent_mask,
         )
-        dt = torch.tensor(float(t_curr - t_nxt), dtype=torch.float32).to(xt.dtype)
-        xt = (xt - vt * dt.to(xt.device)).to(xt.dtype)
+
+    def scalar(v) -> float:
+        """A float32 value rounded to the latent dtype, as a Python number: a
+        tensor op with it computes as with the rounded 0-d tensor, and no
+        host-to-device copy (a synchronisation) is made per step."""
+        return float(torch.tensor(float(v), dtype=torch.float32).to(dtype))
+
+    momentum = torch.zeros(xt.shape, dtype=torch.float32, device=dev) if null_cross_kvs is not None else None
+    for i, (t_curr, t_nxt) in enumerate(zip(t_sched, t_next)):
+        vt = fwd(t_curr, cross_kvs, encoder_mask)
+        if null_cross_kvs is not None:
+            vt_null = fwd(t_curr, null_cross_kvs, null_encoder_mask)
+            if lo <= t_curr <= hi:
+                if use_adg:
+                    vt = adg_forward(xt, vt, vt_null, t_curr, guidance_scale)
+                else:
+                    vt, momentum = apg_forward(vt, vt_null, guidance_scale, momentum)
+        if infer_method == "sde":
+            pred_clean = xt - vt * scalar(t_curr)
+            if t_nxt > 0:
+                noise = sde_noise(i).to(device=dev, dtype=dtype)
+                xt = scalar(t_nxt) * noise + scalar(np.float32(1.0) - t_nxt) * pred_clean
+            else:
+                xt = pred_clean
+        else:
+            xt = xt - vt * scalar(t_curr - t_nxt)
+        xt = xt.to(dtype)
     return xt
+
+
+def _sde_seed(seed: int, step: int) -> int:
+    """The SDE generator's seed for a segment that starts at `step` (JAX folds
+    the step into PRNGKey(seed) the same way)."""
+    return ((int(seed) & 0x7FFFFFFF) << 16) + int(step)
 
 
 def generate_audio(
@@ -469,22 +609,30 @@ def generate_audio(
     precomputed_lm_hints_25hz: Optional[torch.Tensor] = None,
     audio_codes: Optional[torch.Tensor] = None,
     guidance_scale: float = 1.0,
+    use_adg: bool = False,
+    cfg_interval_start: float = 0.0,
+    cfg_interval_end: float = 1.0,
     infer_steps: Optional[int] = None,
     max_refs: int = 1,
     return_condition: bool = False,
     noise: Optional[torch.Tensor] = None,  # injection hook (tests)
+    sde_noise: Optional[Sequence[torch.Tensor]] = None,  # injection hook: step i's SDE noise
 ) -> Dict[str, Any]:
-    """Turbo generation: prepare_condition, cross K/V once per segment, ODE loop.
+    """Turbo or base generation: prepare_condition, cross K/V once per
+    segment, the denoise loop (ODE or SDE).
 
     With `cover_noise_strength` > 0 the trajectory starts at the schedule
     step nearest 1 - strength, from that mix of noise and the source
     latents. With `audio_cover_strength` < 1 the steps from
     int(steps * strength) on run a second condition: the source replaced by
-    silence, no cover rows, and the `non_cover_text_*` prompt when given."""
-    if infer_method != "ode":
-        raise NotImplementedError("SDE sampling is not ported yet")
-    if guidance_scale > 1.0:
-        raise NotImplementedError("CFG/APG/ADG guidance is not ported yet")
+    silence, no cover rows, and the `non_cover_text_*` prompt when given.
+    With `guidance_scale` > 1 each segment also builds the null condition
+    (`null_condition_emb` broadcast to its encoder states, its own mask) for
+    CFG. SDE noise comes from a `torch.Generator` on the latents' device,
+    seeded per segment from seeds[0] and the segment's first step, unless
+    `sde_noise` gives each step's noise (indexed over the whole schedule)."""
+    if infer_method not in ("ode", "sde"):
+        raise ValueError(f"infer_method must be 'ode' or 'sde', not {infer_method!r}")
     if cfg.model_version == "turbo" and infer_steps is None:
         schedule = build_t_schedule(shift, timesteps)
     elif infer_steps is not None:
@@ -544,12 +692,29 @@ def generate_audio(
         segments = [(0, cover_steps, enc, enc_mask, context_latents), (cover_steps, num_steps, *nc)]
 
     dec = params["decoder"]
+    use_cfg = guidance_scale > 1.0
     for s0, s1, seg_enc, seg_mask, seg_ctx in segments:
         if s1 <= s0:
             continue
         kvs = precompute_cross_kv(dec, cfg, seg_enc)
+        null_kvs = None
+        if use_cfg:
+            null_states = params["null_condition_emb"].to(seg_enc.dtype).expand(seg_enc.shape)
+            null_kvs = precompute_cross_kv(dec, cfg, null_states)
+        step_noise = None
+        if infer_method == "sde":
+            if sde_noise is not None:
+                step_noise = lambda i, s0=s0: sde_noise[s0 + i]
+            else:
+                gen = torch.Generator(device=xt.device).manual_seed(_sde_seed(seeds[0], s0))
+                step_noise = lambda i, gen=gen, shape=tuple(xt.shape), dev=xt.device: torch.randn(
+                    shape, generator=gen, dtype=torch.float32, device=dev)
         xt = denoise(dec, cfg, xt, schedule[s0:s1], seg_ctx, kvs, seg_mask, attention_mask,
-                     t_after=schedule[s1] if s1 < num_steps else 0.0)
+                     t_after=schedule[s1] if s1 < num_steps else 0.0,
+                     null_cross_kvs=null_kvs, null_encoder_mask=seg_mask if use_cfg else None,
+                     infer_method=infer_method, guidance_scale=guidance_scale, use_adg=use_adg,
+                     cfg_interval_start=cfg_interval_start, cfg_interval_end=cfg_interval_end,
+                     sde_noise=step_noise)
     out = {"target_latents": xt, "num_steps": num_steps}
     if return_condition:
         out["condition"] = {

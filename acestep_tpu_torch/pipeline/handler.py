@@ -4,8 +4,10 @@ Port of `acestep_tpu/pipeline/handler.py` (`AceStepHandler`): loading the
 reference checkpoint layout (or random weights); host-side prompt formatting,
 seeds, repaint spans, chunk masks, bucketing and tokenization in numpy; text
 encoding, the VAE encode of source and reference audio, condition
-preparation, the 8-step ODE denoise, the chunked Oobleck decode and the peak
-normalisation in torch on the handler's device.
+preparation, the denoise (the turbo model's 8 steps, or the base model's
+`inference_steps` with CFG through APG or ADG inside the CFG interval; ODE or
+SDE steps), the chunked Oobleck decode and the peak normalisation in torch on
+the handler's device.
 
 Every task of the JAX handler runs: text2music, cover, repaint, extract,
 lego and complete. Audio-code hints (`<|audio_code_N|>` strings) decode
@@ -14,9 +16,8 @@ hints runs as a cover of them; a cover without hints takes its hints from the
 source latents through the audio tokenizer chain. Reference audio becomes
 packed timbre latents.
 
-Not ported yet, each raising `NotImplementedError` where a caller asks for it:
-CFG (APG/ADG), SDE sampling, LoRA, meshes, streaming sinks and pipelined
-finish.
+Not ported yet: LoRA, meshes, streaming sinks and pipelined finish (the
+handler has no parameters for them).
 """
 
 from __future__ import annotations
@@ -541,6 +542,9 @@ class AceStepHandler:
         timesteps: Optional[List[float]] = None,
         infer_method: str = "ode",
         guidance_scale: float = 1.0,
+        use_adg: bool = False,
+        cfg_interval_start: float = 0.0,
+        cfg_interval_end: float = 1.0,
         audio_code_strings: Optional[List[Optional[str]]] = None,
         target_latents: Optional[np.ndarray] = None,
         reference_audios: Optional[List[Optional[np.ndarray]]] = None,
@@ -643,6 +647,9 @@ class AceStepHandler:
             cover_noise_strength=cover_noise_strength,
             precomputed_lm_hints_25hz=hints,
             guidance_scale=guidance_scale,
+            use_adg=use_adg,
+            cfg_interval_start=cfg_interval_start,
+            cfg_interval_end=cfg_interval_end,
             infer_steps=inference_steps,
             max_refs=max_refs,
             return_condition=return_condition,

@@ -8,19 +8,28 @@ instruction of the task (text2music, cover, repaint, extract, lego,
 complete; text2music becomes cover when codes arrive) -> DiT phase
 (`AceStepHandler.generate_music`) -> int16 PCM entries.
 
+Before the LM phase, one call can run the planner's free-form APIs: the
+analysis modes (`analysis_only`: the CoT metadata of the caption and lyrics;
+`full_analysis_only`: understanding of `audio_codes` or of the source audio's
+codes) return metadata without audio, and the drafts (`sample_mode` or a
+`sample_query`: create_sample; `use_format`: format_sample) fill the request
+before generation. `understand_music`, `create_sample` and `format_sample`
+wrap the planner's APIs. The DiT call guides (APG or ADG, the CFG interval)
+only when `inference_steps > 8`.
+
 The LM phase runs whenever `thinking` is on and a planner is loaded, for
 every task, as in the JAX package (`acestep_tpu/service/inference.py:289`);
 the original system skips it for cover and repaint (ROADMAP C, followed
 here, not fixed).
 
-Raise `NotImplementedError` until their slices land: drafts (`sample_mode`,
-`sample_query`, `use_format`), the analysis modes, auto LRC/score,
+Raise `NotImplementedError` until their slices land: auto LRC/score,
 `save_audio=True` (the CLI writes WAV files itself), deferred finish and
 streaming sinks.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -31,7 +40,12 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from acestep_tpu_torch.service.params import GenerationConfig, GenerationParams, GenerationResult
+from acestep_tpu_torch.service.params import (
+    GenerationConfig,
+    GenerationParams,
+    GenerationResult,
+    UnderstandResult,
+)
 from acestep_tpu_torch.utils import audio as audio_utils
 from acestep_tpu_torch.utils.constants import DURATION_MAX, DURATION_MIN, TASK_INSTRUCTIONS
 
@@ -68,6 +82,34 @@ def _metas_string(merged: Dict[str, Any]) -> str:
     )
 
 
+def _draft_updates(params: GenerationParams, md: Dict[str, Any], wants_sample: bool) -> Dict[str, Any]:
+    """The request fields a draft fills. Drafted lyrics never override an
+    instrumental request in format mode (create_sample drafts from nothing,
+    so there its lyrics win); drafted metadata fills only the fields the user
+    left unset."""
+    updates: Dict[str, Any] = {}
+    if md.get("caption"):
+        updates["caption"] = str(md["caption"])
+    if md.get("lyrics") and (wants_sample or not params.instrumental):
+        updates["lyrics"] = str(md["lyrics"])
+        updates["instrumental"] = False
+    if md.get("bpm") and not params.bpm:
+        try:
+            updates["bpm"] = int(md["bpm"])
+        except (TypeError, ValueError):
+            pass
+    if md.get("keyscale") and not params.keyscale:
+        updates["keyscale"] = str(md["keyscale"])
+    if md.get("timesignature") and not params.timesignature:
+        updates["timesignature"] = str(md["timesignature"])
+    if md.get("duration") and params.duration <= 0:
+        try:
+            updates["duration"] = float(md["duration"])
+        except (TypeError, ValueError):
+            pass
+    return updates
+
+
 def deterministic_uuid(params: Dict[str, Any]) -> str:
     """Stable UUID from generation params (a copy of `acestep_tpu/utils/audio.py`'s)."""
     blob = json.dumps(params, sort_keys=True, default=str).encode()
@@ -75,10 +117,6 @@ def deterministic_uuid(params: Dict[str, Any]) -> str:
 
 
 def _unported(params: GenerationParams, save_audio: bool, defer_finish: bool, chunk_sink) -> Optional[str]:
-    if params.sample_mode or (params.sample_query or "").strip() or params.use_format:
-        return "LM drafts (sample_mode/sample_query/use_format) need generate_free"
-    if params.analysis_only or params.full_analysis_only:
-        return "analysis_only/full_analysis_only"
     if params.auto_lrc or params.auto_score:
         return "auto LRC / lyric score"
     if save_audio:
@@ -109,14 +147,85 @@ def generate_music(
     extra: Dict[str, Any] = {}
     try:
         lyrics = _resolve_lyrics(params)
-        # One resolved seed for the LM stages; an unseeded request draws anew.
+        wants_sample = params.sample_mode or bool((params.sample_query or "").strip())
+        lm_ok = llm_handler is not None and llm_handler.initialized
+        # One resolved seed for every LM stage of the request (analysis, draft,
+        # thinking); an unseeded request draws a fresh 31-bit seed.
         lm_seed = params.seed if params.seed >= 0 else int.from_bytes(os.urandom(4), "little") >> 1
+
+        # ------------------ metadata-only modes ------------------
+        if params.analysis_only or params.full_analysis_only:
+            if not lm_ok:
+                raise RuntimeError(
+                    "analysis_only/full_analysis_only require the 5Hz LM, which is not initialized")
+            t_an = time.time()
+            if params.full_analysis_only:
+                codes = (params.audio_codes or "").strip()
+                if not codes:
+                    if not params.src_audio:
+                        raise ValueError("full_analysis_only needs src_audio (or audio_codes)")
+                    codes = dit_handler.convert_audio_to_codes(audio_utils.load_audio(params.src_audio))
+                # The deep analysis runs at temperature 0.3, as the reference worker does.
+                md = llm_handler.understand_audio_from_codes(codes, temperature=0.3, seed=lm_seed).get(
+                    "metadata", {})
+                status = "full analysis complete"
+                extra["audio_codes"] = codes
+            else:
+                md = llm_handler.generate_with_stop_condition(
+                    caption=params.caption,
+                    lyrics=lyrics,
+                    temperature=params.lm_temperature,
+                    top_p=params.lm_top_p,
+                    use_constrained_decoding=True,
+                    stop_at_reasoning=True,
+                    seed=lm_seed,
+                ).get("metadata", {})
+                status = "analysis complete"
+            extra["lm_metadata"] = md
+            time_costs["analysis_time_cost"] = time.time() - t_an
+            time_costs["total_time_cost"] = time.time() - t_start
+            extra["time_costs"] = time_costs
+            return GenerationResult(audios=[], status_message=status, extra_outputs=extra, success=True)
+
+        # ------------------ drafts ------------------
+        if (wants_sample or params.use_format) and not lm_ok:
+            if params.sample_mode or params.use_format:
+                raise RuntimeError(
+                    "sample_mode/sample_query/use_format require the 5Hz LM, which is not initialized")
+            # A sample query alone demotes to the caption when no LM is loaded.
+            params = dataclasses.replace(params, sample_query="", caption=params.caption or params.sample_query)
+            wants_sample = False
+        if wants_sample or params.use_format:
+            t_draft = time.time()
+            if wants_sample:
+                query = (params.sample_query or "").strip() or "NO USER INPUT"
+                md = llm_handler.create_sample_from_query(
+                    query, temperature=params.lm_temperature, seed=lm_seed).get("metadata", {})
+            else:
+                # Only the user's own caption and lyrics count as input: the
+                # "[Instrumental]" placeholder of an instrumental request does not.
+                raw_lyrics = (params.lyrics or "").strip()
+                if not (params.caption or raw_lyrics):
+                    md = {}
+                else:
+                    fmt_input = params.caption
+                    if raw_lyrics and not params.instrumental:
+                        fmt_input = f"{fmt_input}\n\n# Lyrics\n{raw_lyrics}".strip()
+                    md = llm_handler.format_sample_from_input(
+                        fmt_input, temperature=params.lm_temperature, seed=lm_seed).get("metadata", {})
+            updates = _draft_updates(params, md, wants_sample)
+            if updates:
+                params = dataclasses.replace(params, **updates)
+                lyrics = _resolve_lyrics(params)
+            extra["lm_draft"] = {**updates, "mode": "create_sample" if wants_sample else "format_sample",
+                                 "seed": lm_seed}
+            time_costs["lm_draft_time_cost"] = time.time() - t_draft
 
         # ------------------ LM phase ------------------
         lm_meta: Dict[str, Any] = {}
         audio_codes = params.audio_codes or ""
         batch_codes = None
-        if params.thinking and llm_handler is not None and llm_handler.initialized:
+        if params.thinking and lm_ok:
             dur = params.cot_duration or params.duration
             user_metadata = {
                 "bpm": str(params.cot_bpm or params.bpm) if (params.cot_bpm or params.bpm) else None,
@@ -208,6 +317,9 @@ def generate_music(
             timesteps=params.timesteps,
             infer_method=params.infer_method,
             guidance_scale=params.guidance_scale if params.inference_steps > 8 else 1.0,
+            use_adg=params.use_adg,
+            cfg_interval_start=params.cfg_interval_start,
+            cfg_interval_end=params.cfg_interval_end,
             audio_code_strings=code_strings,
             target_latents=target_latents,
             reference_audios=[reference_audio] * b if reference_audio is not None else None,
@@ -250,3 +362,33 @@ def generate_music(
             audios=[], status_message="Generation failed", extra_outputs=extra, success=False,
             error=f"{e}\n{traceback.format_exc()}",
         )
+
+
+def understand_music(llm_handler, audio_codes: str, **kw) -> UnderstandResult:
+    """Audio codes -> metadata and lyrics."""
+    try:
+        md = llm_handler.understand_audio_from_codes(audio_codes, **kw)["metadata"]
+        return UnderstandResult(
+            caption=md.get("caption", ""),
+            lyrics=md.get("lyrics", ""),
+            bpm=md.get("bpm"),
+            duration=md.get("duration"),
+            keyscale=md.get("keyscale", ""),
+            language=md.get("language", ""),
+            timesignature=str(md.get("timesignature", "")),
+            success=True,
+        )
+    except Exception as e:  # noqa: BLE001
+        return UnderstandResult(success=False, error=str(e))
+
+
+def create_sample(llm_handler, query: str = "", **kw) -> Dict[str, Any]:
+    """A sample drafted from a query, or at random from an empty one."""
+    out = llm_handler.create_sample_from_query(query or "Create a random music sample.", **kw)
+    return {"metadata": out["metadata"], "text": out["text"], "success": True}
+
+
+def format_sample(llm_handler, user_input: str, **kw) -> Dict[str, Any]:
+    """Free-form input formatted into caption, lyrics and metadata."""
+    out = llm_handler.format_sample_from_input(user_input, **kw)
+    return {"metadata": out["metadata"], "text": out["text"], "success": True}

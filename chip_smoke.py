@@ -23,7 +23,10 @@ Phases, each fatal on failure:
      mode and K layout at seq 3840 and 7552;
   4. the whole pipeline at a narrow config on the card (bf16, kernels) against
      the same weights and noise on the CPU (fp32, plain versions), thinking
-     off; then with thinking on (`run_small_thinking_reference`); then
+     off; then with thinking on (`run_small_thinking_reference`); then the
+     base model's guided sampling (`run_small_base_reference`: APG at 3.0,
+     ADG at batch 2, the CFG interval 0.3-0.8, SDE with injected per-step
+     noise; latents' relative L2 within `BASE_REF_TOL`); then
      `tests/goldens/checkpoint_tiny` loaded from disk on the card in bf16 and
      fp32 against the port's CPU load, text2music and cover, and its planner
      (`run_checkpoint_tiny`);
@@ -36,15 +39,23 @@ Phases, each fatal on failure:
      audio-input requests through the service layer from WAV files (cover
      from the source's codes, repaint, a reference audio, a 120 s cover
      encoded in chunks; `run_audio_requests`) and the profile of one 20 s
-     VAE encode chunk;
+     VAE encode chunk; then the base model's guided requests through the
+     service after an untimed warm-up (`run_base_requests`: 1 x 60 s and
+     1 x 600 s with 50 steps and APG at 7.0, 2 x 60 s with ADG, a turbo
+     1 x 60 s with SDE): wall, diffusion and decode times;
   6. requests with thinking on through `service.inference.generate_music` and
      the 4B planner (`LLMHandler(LM_CONFIGS["4B"])`), 1 x 60 s and 2 x 60 s
      after an untimed warm-up, and a profile of the planner's decode step;
+     then the planner's free-form APIs (`run_free_form`: create_sample,
+     format_sample, understand on a thinking request's codes, 128 new
+     tokens each; a `sample_mode` and an `analysis_only` request through the
+     service): seconds, tokens per second, parsed metadata;
   7. the probe's entry point (`acestep_tpu_torch.tools.probe_kernel_parts`);
   8. a `{"kernels": [...]}` JSON line, then the `{"ok": true, ...}` line last.
      In it a kernel's `ms`, `plain_ms`, `library_ms` and `bound_ms` are sums
      over its phase-3 shapes, `max_abs_err` their maximum, and `launches` the
-     sum over the paths of phases 4 (checkpoint_tiny), 5, 6 and 7 (the
+     sum over the paths of phases 4 (checkpoint_tiny), 5 (text2music, audio
+     inputs, base), 6 (thinking, free-form) and 7 (the
      Oobleck kernels' narrow-route calls also in `narrow_launches`). Each
      path is driven with every launch counter set to 0 just before it and
      read just after, and fails if one of its kernels was never launched or
@@ -524,6 +535,78 @@ def run_small_reference(dev):
         raise SystemExit(f"small end-to-end reference: latents {lat_err}, audio {wav_err} > {tol}")
 
 
+class _StepNoise:
+    """Per-step SDE noise made from a seed on the host, the same for the card
+    and the CPU: step i's (B, T, 64) fp32 normal draw."""
+
+    def __init__(self, shape, seed: int):
+        self.shape, self.seed = tuple(shape), seed
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        return torch.from_numpy(np.random.default_rng(self.seed + i).standard_normal(self.shape, dtype=np.float32))
+
+
+# Latents' relative L2, card (bf16) against CPU (fp32), of the guided base path.
+# bf16 rounds each op by up to 2^-8 (3.9e-3) relative; the turbo path's 8
+# steps give 5e-3 on the card. The guided cases run two forwards a step for 12
+# steps (APG, ADG, interval), SDE 8 turbo steps; 5e-2 bounds ten times the
+# turbo drift.
+BASE_REF_TOL = {"apg gs3": 5e-2, "adg gs3 batch2": 5e-2, "interval 0.3-0.8 gs3": 5e-2, "sde injected noise": 5e-2}
+
+
+def run_small_base_reference(dev):
+    """The base model's guided sampling at the narrow config of
+    `run_small_reference`: bf16 with the kernels on the card against fp32 with
+    the plain versions on the CPU, the same weights, initial noise and (SDE)
+    per-step noise: APG at guidance 3.0, ADG at batch 2, the CFG interval
+    0.3-0.8 (12 base steps each) and turbo SDE with injected per-step noise,
+    each at 2 x 30 s (375 DiT tokens). Latents only (the decode is the
+    turbo path's, checked above)."""
+    from acestep_tpu_torch.models import dit
+    from acestep_tpu_torch.pipeline.handler import AceStepHandler
+
+    gpu = AceStepHandler(*_small_cfgs(), device=dev)
+    gpu.initialize_service(random_init=True, seed=6)
+    cpu = AceStepHandler(*_small_cfgs(), dtype=torch.float32, device="cpu")
+    cpu.initialize_service(random_init=True, seed=6)
+    for name in ("params", "vae_params", "text_params"):
+        setattr(cpu, name, _tree_to(getattr(gpu, name), "cpu", torch.float32))
+    generate_audio = dit.generate_audio
+
+    def with_step_noise(*a, **kw):
+        return generate_audio(*a, sde_noise=_StepNoise(kw["src_latents"].shape, 500), **kw)
+
+    base = dict(inference_steps=12, guidance_scale=3.0, shift=3.0)
+    cases = [
+        ("apg gs3", base),
+        ("adg gs3 batch2", dict(base, use_adg=True)),
+        ("interval 0.3-0.8 gs3", dict(base, cfg_interval_start=0.3, cfg_interval_end=0.8)),
+        ("sde injected noise", dict(infer_method="sde")),
+    ]
+    rel = lambda a, b: float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12))
+    failed = []
+    for name, kw in cases:
+        if kw.get("infer_method") == "sde":
+            dit.generate_audio = with_step_noise
+        try:
+            args = dict(captions=CAPTION, lyrics=LYRICS, batch_size=2, audio_duration=30.0, seeds=[1, 2],
+                        use_random_seed=False, decode_audio=False, **kw)
+            t0 = time.time()
+            got = gpu.generate_music(**args)
+            card_s = time.time() - t0
+            want = cpu.generate_music(**args)
+        finally:
+            dit.generate_audio = generate_audio
+        err, tol = rel(got["latents"], want["latents"]), BASE_REF_TOL[name]
+        ok = err <= tol and bool(np.isfinite(got["latents"]).all()) and got["num_steps"] == want["num_steps"]
+        print(json.dumps(dict(phase=f"small base path {name} vs CPU fp32", ok=ok, latents_rel_l2=err, tol=tol,
+                              steps=got["num_steps"], card_s=card_s, shape=list(got["latents"].shape))), flush=True)
+        if not ok:
+            failed.append((name, err))
+    if failed:
+        raise SystemExit(f"small base path against the CPU: {failed}")
+
+
 def _counters():
     from acestep_tpu_torch.ops.attention_probe import attention_probe
     from acestep_tpu_torch.ops.flash_attention import flash_attention
@@ -886,6 +969,55 @@ def run_audio_requests(h):
     return launches
 
 
+def run_base_requests(h):
+    """The base model's guided sampling at full width through
+    `service.inference.generate_music` (the handler of `run_requests`), after
+    one untimed warm-up: 1 x 60 s and 1 x 600 s with 50 steps at the default
+    guidance 7.0 (APG), 2 x 60 s with ADG, and a turbo 1 x 60 s with SDE.
+    Each must give finite, non-silent int16 audio of exactly its length."""
+    from acestep_tpu_torch.service.inference import generate_music
+    from acestep_tpu_torch.service.params import GenerationConfig, GenerationParams
+
+    counters = _counters()
+
+    def request(b, dur, seed, **fields):
+        params = GenerationParams(caption=CAPTION, lyrics=LYRICS, duration=dur, seed=seed, thinking=False, **fields)
+        cfg = GenerationConfig(batch_size=b, use_random_seed=False, seeds=[seed + j for j in range(b)])
+        torch.cuda.synchronize()
+        t0 = time.time()
+        r = generate_music(h, None, params, cfg)
+        torch.cuda.synchronize()
+        if not r.success:
+            raise SystemExit(f"base request b{b}x{int(dur)}s {fields} failed: {r.error}")
+        return r, time.time() - t0
+
+    _, wall = request(1, 30.0, 60, inference_steps=12)
+    print(json.dumps(dict(phase="warm-up base request b1x30s 12 steps (untimed below)", seconds=wall)), flush=True)
+    _reset_counters()
+    cases = [
+        ("b1x60s 50 steps APG 7.0", 1, 60.0, dict(inference_steps=50)),
+        ("b1x600s 50 steps APG 7.0", 1, 600.0, dict(inference_steps=50)),
+        ("b2x60s 50 steps ADG 7.0", 2, 60.0, dict(inference_steps=50, use_adg=True)),
+        ("b1x60s turbo SDE", 1, 60.0, dict(infer_method="sde")),
+    ]
+    for i, (label, b, dur, fields) in enumerate(cases):
+        before = {k: fn.launches for k, fn in counters.items()}
+        r, wall = request(b, dur, 70 + 10 * i, **fields)
+        pcm = np.stack([a["audio"] for a in r.audios])
+        tc = r.extra_outputs["time_costs"]
+        peak = int(np.abs(pcm.astype(np.int32)).max())
+        ok = pcm.dtype == np.int16 and pcm.shape == (b, 2, int(dur * 48000)) and peak > 0
+        line = dict(phase=f"base request {label}", ok=ok, wall_s=wall, audio_s_per_s=b * dur / wall,
+                    diffusion_time_cost=tc.get("diffusion_time_cost"),
+                    diffusion_per_step_time_cost=tc.get("diffusion_per_step_time_cost"),
+                    vae_decode_time_cost=tc.get("vae_decode_time_cost"), shape=list(pcm.shape), peak=peak,
+                    time_costs=tc, launches={k: fn.launches - before[k] for k, fn in counters.items()})
+        print(json.dumps(line), flush=True)
+        if not ok:
+            raise SystemExit(f"base request {label}: bad output {pcm.dtype} {pcm.shape} peak {peak}")
+    return _path_launches("base path", ("flash_attention", "decoder_block", "res_units"))
+
+
 def _encode_kind(name: str) -> str:
     if any(t in name for t in ("conv", "cudnn", "gemm", "xmma", "nvjet", "cutlass", "sm90_", "implicit")):
         return "conv (cuDNN / GEMM)"
@@ -1137,12 +1269,14 @@ def run_thinking_requests(dev, dit):
                           seconds=wall)), flush=True)
 
     _reset_counters()
+    codes = None
     for b, seed in ((1, 200), (2, 300)):
         before = {k: fn.launches for k, fn in counters.items()}
         lm_before = lm_flash["n"]
         r, wall = request(CAPTION, b, seed)
         if not r.success:
             raise SystemExit(f"thinking request b{b}x60s failed: {r.error}")
+        codes = codes or r.extra_outputs["audio_codes"]
         pcm = np.stack([a["audio"] for a in r.audios])
         tc = r.extra_outputs["time_costs"]
         n_codes = [len(dit.parse_audio_codes(c or "")) for c in r.extra_outputs["batch_audio_codes"]]
@@ -1170,6 +1304,68 @@ def run_thinking_requests(dev, dit):
         print(json.dumps(dict(phase="4B decode step profile", **_decode_profile(llm, rows, 2048 + 308))),
               flush=True)
         _logits_route(llm, rows)
+    return launches, llm, codes
+
+
+def run_free_form(dit, llm, codes: str):
+    """The planner's free-form APIs on the 4B planner of
+    `run_thinking_requests`: create_sample, format_sample and understand (on
+    the codes of a thinking request) with max_new_tokens=128, then a
+    `sample_mode` request (drafted, then a 1 x 30 s turbo request) and an
+    `analysis_only` request through the service. The metadata must parse
+    (bpm and duration as integers) and the planner's prefill must reach the
+    flash kernel."""
+    from acestep_tpu_torch.service.inference import generate_music
+    from acestep_tpu_torch.service.params import GenerationConfig, GenerationParams
+
+    _reset_counters()
+    failed = []
+    calls = [
+        ("create_sample", lambda: llm.create_sample_from_query(
+            "a melancholic piano ballad about the sea", temperature=0.85, max_new_tokens=128, seed=11)),
+        ("format_sample", lambda: llm.format_sample_from_input(
+            CAPTION + "\n\n# Lyrics\n" + LYRICS, temperature=0.85, max_new_tokens=128, seed=12)),
+        ("understand", lambda: llm.understand_audio_from_codes(codes, temperature=0.3, max_new_tokens=128, seed=13)),
+    ]
+    for name, call in calls:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = call()
+        torch.cuda.synchronize()
+        sec = time.time() - t0
+        md, tokens = out["metadata"], out["tokens"]
+        ok = isinstance(md.get("bpm"), int) and isinstance(md.get("duration"), int)
+        print(json.dumps(dict(phase=f"free-form {name} (4B planner, max_new_tokens 128)", ok=ok, seconds=sec,
+                              tokens=tokens, tokens_per_s=tokens / sec, route=out["route"],
+                              metadata_keys=sorted(md), text=out["text"][:300])), flush=True)
+        if not ok:
+            failed.append(name)
+    requests = [
+        ("sample_mode b1x30s", dict(caption="", sample_mode=True, duration=30.0, thinking=False)),
+        ("analysis_only", dict(caption=CAPTION, lyrics=LYRICS, analysis_only=True)),
+    ]
+    for name, fields in requests:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        r = generate_music(dit, llm, GenerationParams(seed=21, **fields), GenerationConfig(batch_size=1))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        md = r.extra_outputs.get("lm_draft" if fields.get("sample_mode") else "lm_metadata") or {}
+        tc = r.extra_outputs.get("time_costs", {})
+        want_audio = 0 if fields.get("analysis_only") else 1
+        ok = r.success and len(r.audios) == want_audio and isinstance(md.get("bpm"), int)
+        if want_audio and ok:
+            pcm = r.audios[0]["audio"]
+            ok = pcm.shape == (2, 30 * 48000) and int(np.abs(pcm.astype(np.int32)).max()) > 0
+        print(json.dumps(dict(phase=f"free-form service request {name}", ok=ok, wall_s=wall, error=r.error,
+                              lm_draft_time_cost=tc.get("lm_draft_time_cost"),
+                              analysis_time_cost=tc.get("analysis_time_cost"),
+                              fields=sorted(md), time_costs=tc)), flush=True)
+        if not ok:
+            failed.append(name)
+    launches = _path_launches("free-form path", ("flash_attention",))
+    if failed:
+        raise SystemExit(f"free-form APIs failed: {failed}")
     return launches
 
 
@@ -1252,14 +1448,17 @@ def main() -> int:
     run_probe_phase(dev, gen, results)
     run_small_reference(dev)
     run_small_thinking_reference(dev)
+    run_small_base_reference(dev)
     checkpoint = run_checkpoint_tiny(dev)
     dit, text2music = run_requests(dev)
     audio = run_audio_requests(dit)
-    thinking = run_thinking_requests(dev, dit)
-    del dit
+    base = run_base_requests(dit)
+    thinking, llm, codes = run_thinking_requests(dev, dit)
+    free_form = run_free_form(dit, llm, codes)
+    del dit, llm
     torch.cuda.empty_cache()
     probe = run_probe_entry()
-    paths = (text2music, audio, thinking, probe, checkpoint)
+    paths = (text2music, audio, base, thinking, free_form, probe, checkpoint)
     launches = {k: sum(p[k] for p in paths) for k in text2music}
 
     narrow_src = "acestep_tpu_torch/csrc/oobleck_generic.cu"

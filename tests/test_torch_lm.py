@@ -7,6 +7,8 @@ same JAX init goes into both packages through `from_jax_params`; inputs are
 numpy arrays made from a seed.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -327,9 +329,21 @@ def test_service_generate_music_with_thinking(lm_pair, monkeypatch):
     assert seen["instructions"] == [TH.TASK_INSTRUCTIONS["cover"]] * 2
     assert [len(TH.AceStepHandler.parse_audio_codes(c)) for c in seen["audio_code_strings"]] == [50, 50]
     assert "lm_codes_time_cost" in r.extra_outputs["time_costs"]
-    for bad in (dict(sample_mode=True), dict(analysis_only=True), dict(auto_lrc=True)):
-        with pytest.raises(NotImplementedError):
-            generate_music(th, tlm, GenerationParams(caption="x", **bad), cfg)
+    # Ported since: a draft and an analysis request run (drafted caption in
+    # the entries; metadata without audio); auto LRC still raises. The draft
+    # runs at a small token budget (the API's default is 512).
+    monkeypatch.setattr(tlm, "create_sample_from_query",
+                        functools.partial(tlm.create_sample_from_query, max_new_tokens=32))
+    r = generate_music(th, tlm, GenerationParams(caption="", sample_mode=True, duration=10.0, thinking=False,
+                                                 lm_temperature=0.0, seed=3), cfg)
+    assert r.success, r.error
+    assert r.extra_outputs["lm_draft"]["mode"] == "create_sample"
+    assert [a["audio"].shape for a in r.audios] == [(2, 8000)] * 2
+    assert r.audios[0]["params"]["caption"] == r.extra_outputs["lm_draft"].get("caption", "")
+    r = generate_music(th, tlm, GenerationParams(caption="x", analysis_only=True, lm_temperature=0.0, seed=3), cfg)
+    assert r.success and r.audios == [] and "lm_metadata" in r.extra_outputs, r.error
+    with pytest.raises(NotImplementedError):
+        generate_music(th, tlm, GenerationParams(caption="x", auto_lrc=True), cfg)
     # Ported since: a source audio that cannot be read fails the request (the
     # service reports failures in its result), and a repaint runs.
     r = generate_music(th, tlm, GenerationParams(caption="x", src_audio="x.wav", thinking=False), cfg)
@@ -340,5 +354,5 @@ def test_service_generate_music_with_thinking(lm_pair, monkeypatch):
     assert [a["audio"].shape for a in r.audios] == [(2, 8000)] * 2
     with pytest.raises(NotImplementedError):
         generate_music(th, tlm, params, cfg, save_audio=True)
-    with pytest.raises(NotImplementedError):
-        tlm.create_sample_from_query("x")
+    out = tlm.create_sample_from_query("x", temperature=0.0, max_new_tokens=32)
+    assert out["route"] == "grammar" and out["text"].startswith("<think>")

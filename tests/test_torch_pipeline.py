@@ -88,15 +88,35 @@ def test_generate_music_text2music_matches_jax(handlers, duration):
 
 
 def test_unported_requests_raise(handlers):
-    """Guidance and SDE still raise; a cover request (the tokenizer chain on
-    the silence source) now runs, and a checkpoint directory that does not
-    exist raises FileNotFoundError."""
+    """Requests that once raised now run: a cover request (the tokenizer chain
+    on the silence source), guidance (APG, ADG) and SDE each give finite
+    latents of the request's shape. A checkpoint directory that does not
+    exist still raises FileNotFoundError."""
     _, th = handlers
     out = th.generate_music("x", "y", task_type="cover", audio_duration=2.0, seeds=[1], use_random_seed=False)
     assert out["latents"].shape == (1, 50, 64) and np.isfinite(out["latents"]).all()
-    with pytest.raises(NotImplementedError):
-        th.generate_music("x", "y", guidance_scale=3.0, audio_duration=2.0)
-    with pytest.raises(NotImplementedError):
-        th.generate_music("x", "y", infer_method="sde", audio_duration=2.0)
+    for kw in (dict(guidance_scale=3.0), dict(guidance_scale=3.0, use_adg=True, inference_steps=10),
+               dict(infer_method="sde")):
+        out = th.generate_music("x", "y", audio_duration=2.0, seeds=[1], use_random_seed=False, **kw)
+        assert out["latents"].shape == (1, 50, 64) and np.isfinite(out["latents"]).all(), kw
+        assert out["audios"].shape == (1, 2, 50 * 32) and np.isfinite(out["audios"]).all(), kw
     with pytest.raises(FileNotFoundError):
         th.initialize_service("/nonexistent", random_init=False)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(inference_steps=12, guidance_scale=7.0),
+    dict(inference_steps=10, guidance_scale=4.0, use_adg=True),
+    dict(inference_steps=10, guidance_scale=5.0, cfg_interval_start=0.3, cfg_interval_end=0.8),
+], ids=["apg", "adg", "interval"])
+def test_generate_music_base_guidance_matches_jax(handlers, kw):
+    """A base request (linspace schedule, CFG on the null condition) through
+    both handlers: the guidance parameters reach the DiT the same way."""
+    jh, th = handlers
+    args = dict(captions=["warm lofi beat", "slow piano ballad"], lyrics=["[Instrumental]", "[Verse]\nhello"],
+                batch_size=2, audio_duration=2.0, seeds=[3, 4], use_random_seed=False, shift=3.0,
+                normalize_db=-1.0, **kw)
+    want, got = jh.generate_music(**args), th.generate_music(**args)
+    assert got["num_steps"] == want["num_steps"] == kw["inference_steps"]
+    np.testing.assert_allclose(got["latents"], want["latents"], **LATENT_TOL)
+    np.testing.assert_allclose(got["audios"], want["audios"], rtol=0, atol=AUDIO_ATOL)
