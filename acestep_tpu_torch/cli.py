@@ -11,8 +11,8 @@ Port of those subcommands of `acestep_tpu/cli.py`, with their flags, plus
   deterministic key.
 - `generate-examples` drafts `--num` samples with the planner's
   create_sample and writes each as `example_NN.json` in the params-file
-  format. Draft i takes seed `--seed` + i (the JAX command draws every
-  example at seed 0, so its examples repeat).
+  format. Draft i takes seed i (the JAX command draws every example at
+  seed 0, so its examples repeat).
 
 Run as ``python -m acestep_tpu_torch.cli generate --random-init --thinking --caption "..."``
 or ``python -m acestep_tpu_torch.cli generate-examples --random-init --num 3``.
@@ -85,7 +85,7 @@ def cmd_generate(args) -> int:
 def cmd_generate_examples(args) -> int:
     """Draft `--num` samples with the planner (create_sample) and write each
     as `<output-dir>/example_NN.json`, the params-file format of the JAX
-    package's examples."""
+    package's examples. Draft i takes seed i."""
     from acestep_tpu_torch.lm.handler import LLMHandler
     from acestep_tpu_torch.service.inference import create_sample
 
@@ -95,7 +95,7 @@ def cmd_generate_examples(args) -> int:
     written = 0
     for i in range(args.num):
         try:
-            out = create_sample(llm, args.query, seed=args.seed + i)
+            out = create_sample(llm, args.query, seed=i)
         except Exception as e:  # noqa: BLE001 — keep drafting the rest
             print(f"example {i + 1} failed: {e}", file=sys.stderr)
             continue
@@ -145,7 +145,6 @@ def main(argv=None) -> int:
     ge.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ge.add_argument("--num", type=int, default=10)
     ge.add_argument("--query", default="", help="optional inspiration query")
-    ge.add_argument("--seed", type=int, default=0, help="the first draft's seed; draft i takes seed + i")
     ge.add_argument("--output-dir", default="examples/params")
     ge.add_argument("--start-index", type=int, default=1)
     ge.set_defaults(fn=cmd_generate_examples)

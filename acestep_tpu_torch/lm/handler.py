@@ -205,13 +205,7 @@ class LLMHandler:
             user = negative_prompt if _has_meaningful_negative_prompt(negative_prompt) else ""
         else:
             user = audio_codes
-        return self._apply_chat_template(
-            [
-                {"role": "system", "content": f"# Instruction\n{DEFAULT_LM_UNDERSTAND_INSTRUCTION}\n\n"},
-                {"role": "user", "content": user},
-            ],
-            add_generation_prompt=True,
-        )
+        return self._chat_prompt(DEFAULT_LM_UNDERSTAND_INSTRUCTION, user)
 
     # ------------------------------------------------------------------
     # Core decode machinery
@@ -667,7 +661,8 @@ class LLMHandler:
         if _device_fsm_enabled():
             try:
                 compiled = self._cot_dfa_for(None, max_new_tokens, phase="understand", skip_genres=False)
-            except Exception:  # noqa: BLE001 — a tokenizer the grammar cannot use
+            except (KeyError, IndexError, TypeError, ValueError, AttributeError):
+                # a tokenizer the grammar cannot use; device errors propagate
                 compiled = None
         if compiled is not None:
             dfa, tables = compiled

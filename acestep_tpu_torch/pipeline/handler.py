@@ -558,11 +558,13 @@ class AceStepHandler:
         normalize_db: Optional[float] = None,
         return_int16: bool = False,
         return_condition: bool = False,
+        sde_noise: Optional[Sequence[torch.Tensor]] = None,
     ) -> Dict[str, Any]:
         """Run the DiT side of any task: `task_type` picks the default
         instruction; source latents (`target_latents`), repaint spans, code
         hints and reference audio condition each row as in the JAX handler.
-        Returns latents, audio and stage timings."""
+        `sde_noise[i]`, when given, is SDE step i's noise in place of the
+        seeded draw, shaped like the padded latents (B, T_pad, 64). Returns latents, audio and stage timings."""
         if not self.initialized:
             raise RuntimeError("call initialize_service() first")
         time_costs: Dict[str, float] = {}
@@ -653,6 +655,7 @@ class AceStepHandler:
             infer_steps=inference_steps,
             max_refs=max_refs,
             return_condition=return_condition,
+            sde_noise=sde_noise,
         )
         pred = outputs["target_latents"]
         if latent_shift != 0.0 or latent_rescale != 1.0:

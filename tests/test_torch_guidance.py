@@ -10,6 +10,8 @@
   (`params.from_jax_params`) and numpy inputs: APG, ADG at batch 2, the
   interval, guidance over two cover-strength segments (the momentum starts
   from zero in each), and SDE fed the per-step noise that JAX's keys draw.
+- The denoise loop in bf16 against JAX's, with the DiT forward replaced in
+  both by the same one-op stand-in: the port rounds to bf16 where JAX does.
 """
 
 import os
@@ -245,3 +247,65 @@ def test_sde_is_deterministic_per_seed_and_differs_from_ode(dit_params):
     assert torch.isfinite(a).all()
     assert float((a - run([1, 2], "ode")).abs().max()) > 1e-2
     assert float((a - run([3, 2], "sde")).abs().max()) > 1e-2
+
+
+# ---------------------------------------------------------------------------
+# bf16 rounding points of the denoise loop
+# ---------------------------------------------------------------------------
+
+
+def _jax_stand_in(params, cfg, xt, t, t_r, context, kvs, encoder_mask=None, latent_mask=None):
+    return (kvs - xt.astype(jnp.float32)).astype(xt.dtype)
+
+
+def _torch_stand_in(params, cfg, xt, t, t_r, context, kvs, encoder_mask=None, latent_mask=None):
+    return (kvs - xt.float()).to(xt.dtype)
+
+
+BF16_CASES = [
+    ("ode", dict()),
+    ("sde", dict(infer_method="sde")),
+    ("apg", dict(guidance_scale=3.0)),
+    ("adg", dict(guidance_scale=3.0, use_adg=True)),
+    ("interval", dict(guidance_scale=3.0, cfg_interval_start=0.3, cfg_interval_end=0.8)),
+]
+
+
+@pytest.mark.parametrize("name,kw", BF16_CASES, ids=[c[0] for c in BF16_CASES])
+def test_bf16_rounding_points_match_jax(monkeypatch, name, kw):
+    """Twelve bf16 steps of `denoise` against JAX's `denoise_scan`, the DiT
+    forward replaced in both by v = condition - x (one fp32 subtraction, then
+    bf16; the cross K/V argument carries the condition, the null branch's
+    another). JAX is compiled with `xla_allow_excess_precision` off, so each
+    of its bf16 casts is kept: the APG update's cast before the add, the SDE
+    noise drawn in fp32 and mixed in bf16, the Euler step. The port must give
+    the same bits; ADG differs only where arccos / sin / cos differ in the
+    last fp32 bit (at most 0.1% of the elements)."""
+    monkeypatch.setattr(jdit, "dit_forward", _jax_stand_in)
+    monkeypatch.setattr(tdit, "dit_forward", _torch_stand_in)
+    rng = np.random.default_rng(3)
+    x0, cond, null = (rng.standard_normal((2, 40, 64)).astype(np.float32) for _ in range(3))
+    sched = np.asarray(tdit.build_linspace_schedule(12, shift=3.0), np.float32)
+    t_next = np.append(sched[1:], np.float32(0.0))
+    guided = "guidance_scale" in kw
+    static = {k: kw[k] for k in ("infer_method", "use_adg") if k in kw}
+    dynamic = {k: v for k, v in kw.items() if k not in static}
+    keys = jax.random.split(jax.random.PRNGKey(9), len(sched)) if name == "sde" else None
+    if guided:
+        dynamic["null_cross_kvs_tree"] = jnp.asarray(null)
+    args = (None, jnp.asarray(x0, jnp.bfloat16), jnp.asarray(sched), jnp.asarray(t_next), None, jnp.asarray(cond),
+            None, None, keys)
+    scan = jax.jit(jdit.denoise_scan.__wrapped__, static_argnames=("cfg", "infer_method", "use_adg"))
+    compiled = scan.lower(args[0], None, *args[1:], **static, **dynamic).compile(
+        compiler_options={"xla_allow_excess_precision": False})
+    want = np.asarray(compiled(*args, **dynamic).astype(jnp.float32))
+
+    noise = [np.asarray(jax.random.normal(k, x0.shape, dtype=jnp.float32)) for k in keys] if name == "sde" else None
+    got = tdit.denoise(
+        None, None, torch.tensor(x0).bfloat16(), [float(t) for t in sched], None, torch.tensor(cond), None, None,
+        null_cross_kvs=torch.tensor(null) if guided else None,
+        sde_noise=(lambda i: torch.tensor(noise[i])) if noise else None, **kw,
+    )
+    assert got.dtype == torch.bfloat16
+    differ = float((got.float().numpy() != want).mean())
+    assert differ <= (1e-3 if name == "adg" else 0.0), f"{differ:.2%} of the bf16 elements differ"

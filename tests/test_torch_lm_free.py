@@ -181,6 +181,20 @@ def test_free_form_apis_match_jax(lm_pair, monkeypatch, api, route):
         assert got["text"].startswith("<think>") and "bpm" in got["metadata"]
 
 
+def test_free_form_device_errors_propagate(lm_pair, monkeypatch):
+    """Only the errors of a tokenizer the grammar cannot use switch to free
+    decoding: a RuntimeError (what a CUDA fault raises) propagates."""
+    _, th = lm_pair
+
+    def device_fault(*a, **kw):
+        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+    monkeypatch.setattr(tdfa, "compile_cot_dfa", device_fault)
+    monkeypatch.setattr(th, "_dfa_cache", {})
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        th.create_sample_from_query("a warm lofi beat", temperature=0.0, max_new_tokens=8, seed=7)
+
+
 def test_grammar_cache_keeps_cot_and_understand_apart(lm_pair):
     """The CoT grammar (genres skipped, stops at </think>) and the understand
     grammar (genres emitted, free text after) are cached under different
@@ -320,17 +334,23 @@ def test_unseeded_draft_uses_a_fresh_lm_seed(services):
 def test_generate_examples_writes_json(tmp_path, monkeypatch):
     """`cli generate-examples --device cpu --random-init` (the 0.6B entry
     pointed at the tiny planner, drafts at `DRAFT_TOKENS`) writes one params
-    file per draft."""
+    file per draft, draft i at seed i."""
     from acestep_tpu_torch.cli import main
 
     monkeypatch.setitem(LM_CONFIGS, "0.6B", TQ(**_LM))
     draft = TLLM.create_sample_from_query
-    monkeypatch.setattr(TLLM, "create_sample_from_query",
-                        lambda self, query, **kw: draft(self, query, **{**kw, "max_new_tokens": DRAFT_TOKENS}))
+    seeds = []
+
+    def short_draft(self, query, **kw):
+        seeds.append(kw.get("seed"))
+        return draft(self, query, **{**kw, "max_new_tokens": DRAFT_TOKENS})
+
+    monkeypatch.setattr(TLLM, "create_sample_from_query", short_draft)
     out = tmp_path / "ex"
     rc = main(["generate-examples", "--device", "cpu", "--random-init", "--num", "2",
                "--output-dir", str(out), "--start-index", "3"])
     assert rc == 0
+    assert seeds == [0, 1]  # draft i at seed i
     files = sorted(p.name for p in out.iterdir())
     assert files == ["example_03.json", "example_04.json"]
     for name in files:

@@ -120,3 +120,21 @@ def test_generate_music_base_guidance_matches_jax(handlers, kw):
     assert got["num_steps"] == want["num_steps"] == kw["inference_steps"]
     np.testing.assert_allclose(got["latents"], want["latents"], **LATENT_TOL)
     np.testing.assert_allclose(got["audios"], want["audios"], rtol=0, atol=AUDIO_ATOL)
+
+
+def test_generate_music_sde_injected_noise_matches_jax(handlers):
+    """A turbo SDE request through both handlers, the port's handed the
+    per-step noise JAX's keys draw (`sde_noise`, at the padded length of
+    64 frames): the same latents."""
+    jh, th = handlers
+    args = dict(captions=["warm lofi beat", "slow piano ballad"], lyrics=["[Instrumental]", "[Verse]\nhello"],
+                batch_size=2, audio_duration=2.0, seeds=[3, 4], use_random_seed=False, infer_method="sde",
+                decode_audio=False)
+    want = jh.generate_music(**args)
+    keys = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(3), 0), want["num_steps"])
+    noise = [torch.tensor(np.asarray(jax.random.normal(k, (2, 64, 64), dtype=jnp.float32))) for k in keys]
+    got = th.generate_music(**args, sde_noise=noise)
+    assert got["num_steps"] == want["num_steps"] == 8
+    np.testing.assert_allclose(got["latents"], want["latents"], **LATENT_TOL)
+    seeded = th.generate_music(**args)["latents"]
+    assert float(np.abs(seeded - got["latents"]).max()) > 1e-2  # the hook replaced the seeded draw
