@@ -1,4 +1,4 @@
-"""Command-line interface of the port: `generate` and `generate-examples`.
+"""Command-line interface of the port: `generate`, `generate-examples` and `serve`.
 
 Port of those subcommands of `acestep_tpu/cli.py`, with their flags, plus
 `--device` (the card unless `cpu` is asked for).
@@ -6,16 +6,19 @@ Port of those subcommands of `acestep_tpu/cli.py`, with their flags, plus
 - `generate` runs the port's `service.inference.generate_music`;
   `--thinking` runs the 5 Hz LM planner (`LLMHandler()`, the 0.6B size)
   before the DiT, and `--steps` above 8 runs the base model's guided
-  sampling (APG at the service's default scale 7.0). Writes 16-bit stereo
-  WAV files with the stdlib `wave` module, named by the request's
-  deterministic key.
+  sampling (APG at the service's default scale 7.0). Saves each result in
+  `--format` (flac by default; wav, wav16, wav32, or any format ffmpeg
+  writes) with its params sidecar, named by the request's deterministic key.
 - `generate-examples` drafts `--num` samples with the planner's
   create_sample and writes each as `example_NN.json` in the params-file
   format. Draft i takes seed i (the JAX command draws every example at
   seed 0, so its examples repeat).
+- `serve` loads the DiT and the planner, runs `--warmup` requests, and
+  starts the REST server (`service.api_server`), printing the port it bound.
 
-Run as ``python -m acestep_tpu_torch.cli generate --random-init --thinking --caption "..."``
-or ``python -m acestep_tpu_torch.cli generate-examples --random-init --num 3``.
+Run as ``python -m acestep_tpu_torch.cli generate --random-init --thinking --caption "..."``,
+``python -m acestep_tpu_torch.cli generate-examples --random-init --num 3`` or
+``python -m acestep_tpu_torch.cli serve --random-init --port 8001 --warmup 1x30``.
 """
 
 from __future__ import annotations
@@ -24,18 +27,7 @@ import argparse
 import json
 import os
 import sys
-import wave
-
-import numpy as np
-
-
-def write_wav(path: str, pcm: np.ndarray, sample_rate: int) -> None:
-    """pcm: int16 (channels, samples)."""
-    with wave.open(path, "wb") as f:
-        f.setnchannels(pcm.shape[0])
-        f.setsampwidth(2)
-        f.setframerate(sample_rate)
-        f.writeframes(np.ascontiguousarray(pcm.T).astype("<i2").tobytes())
+import time
 
 
 def cmd_generate(args) -> int:
@@ -44,8 +36,6 @@ def cmd_generate(args) -> int:
     from acestep_tpu_torch.service.inference import generate_music
     from acestep_tpu_torch.service.params import GenerationConfig, GenerationParams
 
-    if args.format != "wav":
-        raise NotImplementedError(f"--format {args.format}: the port writes wav only")
     dit = AceStepHandler(device=args.device)
     print(dit.initialize_service(args.checkpoint_dir, random_init=args.random_init or None))
     llm = None
@@ -68,16 +58,13 @@ def cmd_generate(args) -> int:
         output_dir=args.output_dir,
         use_random_seed=args.seed < 0,
     )
-    result = generate_music(dit, llm, params, cfg, save_audio=False)
+    result = generate_music(dit, llm, params, cfg)
     print(result.status_message)
     if not result.success:
         print(result.error, file=sys.stderr)
         return 1
-    os.makedirs(args.output_dir, exist_ok=True)
     for a in result.audios:
-        path = os.path.join(args.output_dir, a["key"] + ".wav")
-        write_wav(path, a["audio"], dit.sample_rate)
-        print("  ", path)
+        print("  ", a["path"])
     print({k: round(v, 3) for k, v in result.extra_outputs["time_costs"].items()})
     return 0
 
@@ -118,7 +105,76 @@ def cmd_generate_examples(args) -> int:
     return 0 if written else 1
 
 
+def run_warmup(dit, warmup_spec: str, llm=None) -> None:
+    """Run one request of each expected shape before the server binds its
+    port, so the first requests do not pay the kernels' first calls and the
+    allocator's growth. Spec: 'BxD,BxD,...' (batch x duration-seconds), e.g.
+    '1x30,2x60'; the token 'lm' runs one planner draft (create_sample)."""
+    for spec in warmup_spec.split(","):
+        spec = spec.strip()
+        if spec.lower() == "lm":
+            if llm is None or not getattr(llm, "initialized", False):
+                print("[warmup] lm requested but no LM initialized — skipped")
+                continue
+            t0 = time.time()
+            llm.create_sample_from_query("warmup", seed=0)
+            print(f"[warmup] lm draft ran in {time.time() - t0:.1f}s")
+            continue
+        b, _, d = spec.partition("x")
+        b, d = int(b), float(d or 30)
+        t0 = time.time()
+        dit.generate_music(
+            captions=["warmup"] * b, lyrics=["[Instrumental]"] * b,
+            audio_duration=d, batch_size=b, seeds=list(range(b)),
+            use_random_seed=False, decode_audio=True,
+        )
+        print(f"[warmup] {b}x{d:g}s ran in {time.time() - t0:.1f}s", flush=True)
+
+
+def cmd_serve(args) -> int:
+    from acestep_tpu_torch.lm.handler import LLMHandler
+    from acestep_tpu_torch.pipeline.handler import AceStepHandler
+    from acestep_tpu_torch.service.api_server import serve
+
+    # A named checkpoint must be complete before the port binds: abort with
+    # the missing components named (the port has no downloader yet).
+    if args.checkpoint_dir and not args.random_init:
+        from acestep_tpu_torch.utils.downloader import DIT_CHECKPOINT_COMPONENTS, verify_checkpoint
+
+        status = verify_checkpoint(args.checkpoint_dir, DIT_CHECKPOINT_COMPONENTS)
+        missing = [c for c, good in status.items() if not good]
+        if missing:
+            print(f"checkpoint {args.checkpoint_dir} incomplete — missing: {', '.join(missing)}", file=sys.stderr)
+            return 1
+
+    dit = AceStepHandler(device=args.device)
+    print(dit.initialize_service(args.checkpoint_dir, random_init=args.random_init or None), flush=True)
+    llm = LLMHandler(device=args.device)
+    print(llm.initialize(args.lm_checkpoint_dir, random_init=args.random_init or None), flush=True)
+    # More DiT models (ACESTEP_CONFIG_PATH2/3), chosen by a request's "model".
+    extra = {}
+    for n in (2, 3):
+        path = os.environ.get(f"ACESTEP_CONFIG_PATH{n}")
+        if path and os.path.isdir(path):
+            h = AceStepHandler(device=args.device)
+            print(f"[model {n}] " + h.initialize_service(path))
+            extra[os.path.basename(os.path.normpath(path))] = h
+    if args.warmup:
+        run_warmup(dit, args.warmup, llm=llm)
+
+    server = serve(dit, llm, args.host, args.port, args.api_key, args.output_dir, extra_dit_handlers=extra or None)
+    print(f"listening on {args.host}:{server.server_address[1]}", flush=True)
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+    return 0
+
+
 def main(argv=None) -> int:
+    from acestep_tpu_torch.utils.env import load_dotenv
+
+    load_dotenv()  # .env -> environment variables (CLI arguments still win)
     ap = argparse.ArgumentParser(prog="acestep-tpu-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     g = sub.add_parser("generate", help="generate music from text")
@@ -135,7 +191,7 @@ def main(argv=None) -> int:
     g.add_argument("--steps", type=int, default=8)
     g.add_argument("--shift", type=float, default=3.0)
     g.add_argument("--batch-size", type=int, default=1)
-    g.add_argument("--format", default="wav")
+    g.add_argument("--format", default="flac", help="flac (default), wav, wav16, wav32, or any format ffmpeg writes")
     g.add_argument("--output-dir", default="./outputs")
     g.set_defaults(fn=cmd_generate)
 
@@ -148,6 +204,20 @@ def main(argv=None) -> int:
     ge.add_argument("--output-dir", default="examples/params")
     ge.add_argument("--start-index", type=int, default=1)
     ge.set_defaults(fn=cmd_generate_examples)
+
+    s = sub.add_parser("serve", help="start the REST job API server")
+    s.add_argument("--checkpoint-dir", default=os.environ.get("ACESTEP_CONFIG_PATH"))
+    s.add_argument("--lm-checkpoint-dir", default=os.environ.get("ACESTEP_LM_MODEL_PATH"))
+    s.add_argument("--random-init", action="store_true", help="dev mode: random weights")
+    s.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    s.add_argument("--host", default="0.0.0.0")
+    s.add_argument("--port", type=int, default=8001, help="0 binds a free port (printed)")
+    s.add_argument("--api-key", default=os.environ.get("ACESTEP_API_KEY"))
+    s.add_argument("--output-dir", default="./outputs")
+    s.add_argument("--warmup", default=os.environ.get("ACESTEP_WARMUP"),
+                   help="request shapes to run before binding the port, e.g. '1x30,2x60' "
+                        "(batch x duration-seconds); the token 'lm' runs one planner draft")
+    s.set_defaults(fn=cmd_serve)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Sequence, Tuple
@@ -32,6 +33,7 @@ NVCC_FLAGS = (
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_libs_lock = threading.Lock()  # the server's threads may be the first to load a library
 
 
 def _nvcc() -> str:
@@ -88,16 +90,17 @@ def load(name: str, signatures: Dict[str, Tuple[Sequence, object]]) -> ctypes.CD
     """Build (if needed) and load `lib<name>`, declaring each C function's
     argument and return types: ctypes would otherwise pass every pointer as a
     32-bit int."""
-    lib = _libs.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        for fn, (argtypes, restype) in signatures.items():
-            f = getattr(lib, fn)
-            f.argtypes = list(argtypes)
-            f.restype = restype
-        _libs[name] = lib
-    return lib
+    with _libs_lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, (argtypes, restype) in signatures.items():
+                f = getattr(lib, fn)
+                f.argtypes = list(argtypes)
+                f.restype = restype
+            _libs[name] = lib
+        return lib
 
 
 def check(rc: int, what: str) -> None:

@@ -16,8 +16,18 @@ hints runs as a cover of them; a cover without hints takes its hints from the
 source latents through the audio tokenizer chain. Reference audio becomes
 packed timbre latents.
 
-Not ported yet: LoRA, meshes, streaming sinks and pipelined finish (the
-handler has no parameters for them).
+The decode of a request (`decode_latents`, and `generate_music`'s) is
+dispatched whole on the compute stream: the chunked Oobleck decode, the
+per-sample peak and each chunk's scale, clip and round to int16 PCM. The
+PCM then crosses to pinned host buffers on a copy stream (at dispatch with
+`async_finish`, so the transfer rides under the next request's compute; at
+finish otherwise), and `finish` only waits on the copies in order, handing
+each chunk to a `chunk_sink` on an emitter thread (streaming; `StreamCursor`
+keeps the delivery exactly once). A CUDA out-of-memory at dispatch retries
+the decode with halved chunks down to 64 frames (the retry ladder), counted
+in `vae_decode_hbm_retries`.
+
+Not ported yet: LoRA and meshes (the handler has no parameters for them).
 """
 
 from __future__ import annotations
@@ -25,8 +35,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import queue
 import random
 import re
+import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -61,6 +73,94 @@ DECODE_OVERLAP = 16  # latent frames on each side of a decode chunk
 AUDIO_CODE_RE = re.compile(r"<\|audio_code_(\d+)\|>")
 
 
+class StreamCursor:
+    """Exactly-once, in-order PCM delivery for a chunked decode (a copy of
+    the JAX handler's).
+
+    Wraps a sink `sink(pos, pcm_i16, total_samples)` so the decode's retry
+    ladder can restart an attempt with other chunk sizes without emitting
+    audio twice: samples already forwarded are skipped and a partly new
+    chunk is cut to its unseen suffix. Positions are absolute sample offsets.
+
+    The port relies on emission starting after dispatch: a CUDA
+    out-of-memory is raised at allocation, in dispatch, and the sink is fed
+    only in finish, so a failed attempt has emitted nothing and the skip and
+    cut never run on the card (unlike the JAX handler's, whose attempts can
+    fail at readback after emitting). The tests drive them by hand."""
+
+    def __init__(self, sink):
+        self._sink = sink
+        self.emitted = 0  # absolute samples forwarded so far
+        self.chunks = 0
+
+    def __call__(self, pos: int, pcm: np.ndarray, total: int) -> None:
+        end = pos + pcm.shape[-1]
+        if end <= self.emitted:
+            return  # a retry re-covered an already delivered span
+        if pos < self.emitted:
+            pcm = pcm[..., self.emitted - pos :]
+            pos = self.emitted
+        self.emitted = end
+        self.chunks += 1
+        self._sink(pos, pcm, total)
+
+
+class _DecodeJob:
+    """One dispatched decode: its int16 PCM chunks (B, 2, Lc) on the device,
+    in order, and the event on the compute stream after which all of them
+    are written (None on the CPU).
+
+    `start_copies` enqueues each chunk's copy into its own contiguous part
+    of one pinned host buffer (one pinned allocation a job, not one a chunk:
+    pinning host memory is slow) on the handler's copy stream, behind
+    that event, and hands the device memory back to the allocator in the
+    copy stream's order (`record_stream`). `wait_compute` and `chunk(i)`
+    only wait: after dispatch the job launches no kernel."""
+
+    def __init__(self, pcm: List[torch.Tensor], done, copy_stream):
+        self.pcm = pcm
+        self.done = done
+        self.copy_stream = copy_stream
+        self.batch = pcm[0].shape[0]
+        self.takes = [c.shape[-1] for c in pcm]
+        self.total = sum(self.takes)
+        self.host: Optional[list] = None
+        self.copied: Optional[list] = None
+
+    def start_copies(self) -> None:
+        if self.host is not None:
+            return
+        if self.done is None:  # the CPU: the chunks are host memory already
+            self.host, self.copied = [c.numpy() for c in self.pcm], [None] * len(self.pcm)
+        else:
+            host, copied = [], []
+            flat = torch.empty(sum(c.numel() for c in self.pcm), dtype=self.pcm[0].dtype, pin_memory=True)
+            off = 0
+            with torch.cuda.stream(self.copy_stream):
+                self.copy_stream.wait_event(self.done)
+                for c in self.pcm:
+                    h = flat[off : off + c.numel()].view(c.shape)
+                    off += c.numel()
+                    h.copy_(c, non_blocking=True)
+                    c.record_stream(self.copy_stream)
+                    ev = torch.cuda.Event()
+                    ev.record(self.copy_stream)
+                    host.append(h)
+                    copied.append(ev)
+            self.host, self.copied = host, copied
+        self.pcm = None
+
+    def wait_compute(self) -> None:
+        if self.done is not None:
+            self.done.synchronize()
+
+    def chunk(self, i: int) -> np.ndarray:
+        if self.copied[i] is not None:
+            self.copied[i].synchronize()
+        h = self.host[i]
+        return h if isinstance(h, np.ndarray) else h.numpy()
+
+
 class AceStepHandler:
     """Holds the three models and runs the DiT-side text2music pipeline."""
 
@@ -85,6 +185,12 @@ class AceStepHandler:
         self.text_tokenizer = None
         self.silence_latent: Optional[np.ndarray] = None  # (1, T, 64)
         self.initialized = False
+        # Device-to-host copies of the decoded PCM run on their own stream, so
+        # a finished request's transfer overlaps the next request's compute.
+        self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        # Cumulative decode retries after a CUDA out-of-memory (each re-runs
+        # the decode at smaller chunks: a throughput cost to be seen).
+        self._decode_retries = 0
 
     def initialize_service(
         self, checkpoint_dir: Optional[str] = None, *, random_init: Optional[bool] = None, seed: int = 0
@@ -407,6 +513,7 @@ class AceStepHandler:
         core = max(192, min(512, -(-t // 4), 4096 // max(b, 1)))
         return core + (-core) % 8
 
+    @torch.inference_mode()
     def decode_latents(
         self,
         latents: torch.Tensor,  # (B, T, 64)
@@ -414,47 +521,190 @@ class AceStepHandler:
         chunk_frames: Optional[int] = None,
         normalize_db: Optional[float] = None,
         return_int16: bool = False,
+        timings: Optional[Dict[str, float]] = None,
+        chunk_sink: Optional[Any] = None,
     ) -> np.ndarray:
         """Latents -> audio (B, 2, L): int16 PCM, or float32 = PCM / 32767.
 
         Overlap-discard chunks of `core` frames with 16 edge-replicated
         frames each side; the last chunk's padding is trimmed before the
         global per-sample peak, which drives normalisation to `normalize_db`
-        (or only a clip guard when None).
+        (or only a clip guard when None). `chunk_sink(pos, pcm_i16, total)`
+        receives the PCM in order as each chunk reaches the host. A CUDA
+        out-of-memory halves the chunk core down to 64 frames and retries;
+        `timings` gets the successful attempt's `compute_wait_s` and
+        `transfer_s`, and `retries`.
         """
         z = latents.to(device=self.device, dtype=self.dtype)
         b, t, _ = z.shape
+        core = self._decode_chunk_core(t, b) if chunk_frames is None else max(8, chunk_frames - 2 * DECODE_OVERLAP)
+        if chunk_sink is not None and not isinstance(chunk_sink, StreamCursor):
+            chunk_sink = StreamCursor(chunk_sink)
+        while True:
+            # Fresh timings per attempt: a failed attempt's partial split must
+            # not pollute the published one.
+            attempt: Dict[str, float] = {}
+            try:
+                job = self._decode_latents_dispatch(z, core, normalize_db)
+                out = self._decode_latents_finish(job, return_int16=return_int16, timings=attempt,
+                                                  chunk_sink=chunk_sink)
+                if timings is not None:
+                    retries = timings.get("retries", 0)
+                    timings.update(attempt)
+                    if retries:
+                        timings["retries"] = retries
+                return out
+            except torch.OutOfMemoryError:
+                if core <= 64:
+                    raise
+            job = None  # the failed attempt's tensors go before empty_cache
+            core = max(64, core // 2)
+            self._after_oom(timings)
+
+    def _after_oom(self, timings: Optional[Dict[str, float]]) -> None:
+        """Count a decode retry after a CUDA out-of-memory and hand the failed
+        attempt's cached blocks back to the card."""
+        self._decode_retries += 1
+        if timings is not None:
+            timings["retries"] = timings.get("retries", 0) + 1
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def _decode_latents_dispatch(
+        self, z: torch.Tensor, core: int, normalize_db: Optional[float], start_copies: bool = False
+    ) -> _DecodeJob:
+        """Enqueue the whole decode of z (B, T, 64) on the current stream:
+        the chunked VAE decode, the peak and the int16 conversion of each
+        chunk; then an event. No host sync. `start_copies` also enqueues the
+        host copies now (pipelined serving); otherwise `finish` starts them
+        after the compute, so the compute / transfer split stays exact."""
+        b, t, _ = z.shape
         hop = self.vae_config.hop_length
         ov = DECODE_OVERLAP
-        core = self._decode_chunk_core(t, b) if chunk_frames is None else max(8, chunk_frames - 2 * ov)
         n = -(-t // core) if t > core else 1
+        wavs = []
         if n == 1:
-            wav = vae.decode(self.vae_params, self.vae_config, z)
+            wavs.append(vae.decode(self.vae_params, self.vae_config, z)[:, : t * hop])
         else:
             pad_t = n * core - t
             padded = F.pad(z.transpose(1, 2), (ov, pad_t + ov), mode="replicate").transpose(1, 2)
-            chunks = []
             for ci in range(n):
                 w = vae.decode(self.vae_params, self.vae_config, padded[:, ci * core : ci * core + core + 2 * ov])
                 valid = core if ci < n - 1 else t - (n - 1) * core
-                chunks.append(w[:, ov * hop : (ov + valid) * hop])
-            wav = torch.cat(chunks, dim=1)
-        pcm = self._to_pcm(wav[:, : t * hop], normalize_db).cpu().numpy()
+                wavs.append(w[:, ov * hop : (ov + valid) * hop])
+        pcm = self._to_pcm(wavs, normalize_db)
+        del wavs
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        job = _DecodeJob(pcm, done, self._copy_stream)
+        if start_copies:
+            job.start_copies()
+        return job
+
+    def _decode_latents_finish(
+        self,
+        job: _DecodeJob,
+        *,
+        return_int16: bool,
+        timings: Optional[Dict[str, float]] = None,
+        chunk_sink: Optional[Any] = None,
+    ) -> np.ndarray:
+        """Wait for a dispatched decode and gather its PCM on the host. The
+        wait on the compute marks `compute_wait_s`; the copies (started here
+        unless dispatch started them) and the gather are `transfer_s`. A sink
+        gets each chunk from an emitter thread while this one waits on the
+        next copy."""
+        t0 = time.time()
+        job.wait_compute()
+        t1 = time.time()
+        if timings is not None:
+            timings["compute_wait_s"] = timings.get("compute_wait_s", 0.0) + (t1 - t0)
+        job.start_copies()
+        out = np.empty((job.batch, 2, job.total), np.int16)
+        emit_q: Optional[queue.Queue] = None
+        emit_err: list = []
+        emitter = None
+        if chunk_sink is not None:
+            emit_q = queue.Queue()
+
+            def _emit():
+                while True:
+                    item = emit_q.get()
+                    if item is None:
+                        return
+                    p, tk = item
+                    try:
+                        chunk_sink(p, out[:, :, p : p + tk], job.total)
+                    except BaseException as e:  # noqa: BLE001 — re-raised on the caller's thread
+                        emit_err.append(e)
+                        return
+
+            emitter = threading.Thread(target=_emit, daemon=True)
+            emitter.start()
+        try:
+            pos = 0
+            for i, take in enumerate(job.takes):
+                out[:, :, pos : pos + take] = job.chunk(i)
+                if emit_q is not None:
+                    emit_q.put((pos, take))
+                pos += take
+        finally:
+            if emitter is not None:
+                emit_q.put(None)
+                emitter.join()
+        if emit_err:
+            raise emit_err[0]
+        if timings is not None:
+            timings["transfer_s"] = timings.get("transfer_s", 0.0) + (time.time() - t1)
         if return_int16:
-            return pcm
-        return pcm.astype(np.float32) / 32767.0
+            return out
+        t2 = time.time()
+        outf = out.astype(np.float32) / 32767.0
+        if timings is not None:
+            timings["f32_convert_s"] = timings.get("f32_convert_s", 0.0) + (time.time() - t2)
+        return outf
 
     @staticmethod
-    def _to_pcm(wav: torch.Tensor, normalize_db: Optional[float]) -> torch.Tensor:
-        """(B, L, 2) -> peak-normalised int16 (B, 2, L)."""
-        wavf = wav.float()
-        peak = wavf.abs().amax(dim=(1, 2), keepdim=True)
+    def _to_pcm(wavs: Sequence[torch.Tensor], normalize_db: Optional[float]) -> List[torch.Tensor]:
+        """Chunks (B, Lc, 2) of one waveform -> int16 chunks (B, 2, Lc),
+        scaled by the per-sample peak over all chunks: fp32 product, clip,
+        x 32767, round half to even."""
+        peak = torch.stack([w.float().abs().amax(dim=(1, 2)) for w in wavs]).amax(dim=0)[:, None, None]
         if normalize_db is not None:
             scale = (10.0 ** (normalize_db / 20.0)) / peak.clamp_min(1e-9)
         else:
             scale = 1.0 / peak.clamp_min(1.0)  # clip guard only
-        pcm = torch.clamp(wavf * scale, -1.0, 1.0)
-        return torch.round(pcm * 32767.0).to(torch.int16).transpose(1, 2).contiguous()
+        return [
+            torch.round(torch.clamp(w.float() * scale, -1.0, 1.0) * 32767.0).to(torch.int16).transpose(1, 2).contiguous()
+            for w in wavs
+        ]
+
+    def _mark(self) -> Optional[torch.cuda.Event]:
+        """A timing event recorded on the current stream (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _fetch(self, x: torch.Tensor):
+        """Start x's copy to the host as fp32 (pinned memory, on the current
+        stream, behind the work that produces x). Returns the wait, which
+        gives the numpy array, and the copy's timing event (None on the CPU)."""
+        x = x.float().contiguous()
+        if self.device.type != "cuda":
+            return x.numpy, None
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x, non_blocking=True)
+        ev = self._mark()
+
+        def wait() -> np.ndarray:
+            ev.synchronize()
+            return host.numpy()
+
+        return wait, ev
 
     def _code_hints(self, code_hints: List[Optional[str]], t_latent: int, silence: torch.Tensor) -> torch.Tensor:
         """(B, t_latent, 64) LM hints: each row's codes through FSQ and the
@@ -559,16 +809,26 @@ class AceStepHandler:
         return_int16: bool = False,
         return_condition: bool = False,
         sde_noise: Optional[Sequence[torch.Tensor]] = None,
+        async_finish: bool = False,
+        chunk_sink: Optional[Any] = None,
     ) -> Dict[str, Any]:
         """Run the DiT side of any task: `task_type` picks the default
         instruction; source latents (`target_latents`), repaint spans, code
         hints and reference audio condition each row as in the JAX handler.
         `sde_noise[i]`, when given, is SDE step i's noise in place of the
-        seeded draw, shaped like the padded latents (B, T_pad, 64). Returns latents, audio and stage timings."""
+        seeded draw, shaped like the padded latents (B, T_pad, 64). Returns latents, audio and stage timings.
+
+        `async_finish=True` returns once the denoise is done and the decode
+        and its host copies are enqueued: `result["finish"]()` gathers the
+        audio later (a serving loop calls it after dispatching the next
+        request). `chunk_sink(pos, pcm_i16, total)` streams the int16 PCM
+        chunk by chunk (see `decode_latents`)."""
         if not self.initialized:
             raise RuntimeError("call initialize_service() first")
         time_costs: Dict[str, float] = {}
         t_start = time.time()
+        if chunk_sink is not None and not isinstance(chunk_sink, StreamCursor):
+            chunk_sink = StreamCursor(chunk_sink)
 
         captions = [captions] if isinstance(captions, str) else list(captions)
         lyrics = [lyrics] if isinstance(lyrics, str) else list(lyrics)
@@ -616,6 +876,7 @@ class AceStepHandler:
         time_costs["encoder_time_cost"] = time.time() - t0
 
         t0 = time.time()
+        t0_mark = self._mark()
         silence_dev = self._tensor(silence_tiled[None], self.dtype)
         if not any(has_code_hints) and target_latents is None:
             src = silence_dev.expand(b, -1, -1)  # every row's source is the tiled silence
@@ -661,8 +922,25 @@ class AceStepHandler:
         if latent_shift != 0.0 or latent_rescale != 1.0:
             pred = pred * latent_rescale + latent_shift
         pred = pred[:, :t_exact, :]
-        pred_np = pred.float().cpu().numpy()
-        time_costs["diffusion_time_cost"] = time.time() - t0
+        # The latents' copy first, then the decode, then the wait on the
+        # latents: the copy is ordered before the decode on the compute
+        # stream, so the latents land when the denoise ends while the decode
+        # runs on under the host work below. diffusion_time_cost is the
+        # card's own span up to the copy: the host's wait would also hold
+        # the decode's dispatch, which the host enqueues first.
+        fetch, fetched = self._fetch(pred)
+        decode_job = None
+        dec_timings: Dict[str, float] = {}
+        if decode_audio:
+            try:
+                decode_job = self._decode_latents_dispatch(
+                    pred.to(self.dtype), self._decode_chunk_core(t_exact, b), normalize_db, start_copies=async_finish
+                )
+            except torch.OutOfMemoryError:
+                pass
+        pred_np = fetch()
+        time_costs["diffusion_time_cost"] = (time.time() - t0 if t0_mark is None
+                                             else t0_mark.elapsed_time(fetched) / 1000.0)
         time_costs["diffusion_per_step_time_cost"] = time_costs["diffusion_time_cost"] / max(outputs["num_steps"], 1)
         if not np.isfinite(pred_np).all():
             raise RuntimeError("Generation produced NaN or Inf latents.")
@@ -684,9 +962,44 @@ class AceStepHandler:
                 "context_latents": cond["context_latents"].float().cpu().numpy(),
             }
         if decode_audio:
-            t1 = time.time()
-            result["audios"] = self.decode_latents(pred, normalize_db=normalize_db, return_int16=return_int16)
-            time_costs["vae_decode_time_cost"] = time.time() - t1
-        time_costs["total_time_cost"] = time.time() - t_start
+            fallback = None
+            fallback_s = 0.0
+            if decode_job is None:
+                # A CUDA out-of-memory is raised at allocation, in dispatch:
+                # the JAX handler's finish-time fallback to 128-frame chunks
+                # (then the ladder) runs here, on the thread that owns the
+                # compute, before finish.
+                self._after_oom(dec_timings)
+                t1 = time.time()
+                fallback = self.decode_latents(pred, chunk_frames=128, normalize_db=normalize_db,
+                                               return_int16=return_int16, timings=dec_timings, chunk_sink=chunk_sink)
+                fallback_s = time.time() - t1
+
+            def _finish():
+                t1 = time.time()
+                if fallback is not None:
+                    wavs = fallback
+                else:
+                    wavs = self._decode_latents_finish(decode_job, return_int16=return_int16, timings=dec_timings,
+                                                       chunk_sink=chunk_sink)
+                time_costs["vae_decode_time_cost"] = fallback_s + time.time() - t1
+                # compute_wait: decode compute still outstanding when finish
+                # ran; transfer: the copies to the host and the gather.
+                time_costs["vae_decode_compute_wait_time_cost"] = dec_timings.get("compute_wait_s", 0.0)
+                time_costs["vae_decode_transfer_time_cost"] = dec_timings.get("transfer_s", 0.0)
+                if dec_timings.get("f32_convert_s"):
+                    time_costs["vae_decode_f32_convert_time_cost"] = dec_timings["f32_convert_s"]
+                if dec_timings.get("retries"):
+                    time_costs["vae_decode_hbm_retries"] = dec_timings["retries"]
+                time_costs["total_time_cost"] = time.time() - t_start
+                result["audios"] = wavs
+                return wavs
+
+            if async_finish:
+                result["finish"] = _finish
+            else:
+                _finish()
+        if "total_time_cost" not in time_costs:
+            time_costs["total_time_cost"] = time.time() - t_start
         result["time_costs"] = time_costs
         return result

@@ -22,21 +22,29 @@ every task, as in the JAX package (`acestep_tpu/service/inference.py:289`);
 the original system skips it for cover and repaint (ROADMAP C, followed
 here, not fixed).
 
-Raise `NotImplementedError` until their slices land: auto LRC/score,
-`save_audio=True` (the CLI writes WAV files itself), deferred finish and
-streaming sinks.
+Results are saved (`save_audio=True`, the default) in the request's
+`audio_format` (FLAC by default, WAV, WAV32, others through ffmpeg) with a
+`{key}.json` params sidecar, or returned as int16 PCM under "audio"
+(`save_audio=False`). `defer_finish=True` returns once the decode is queued
+on the card; `result.finish()` completes the transfer and the save later (the
+server's pipelined worker). `chunk_sink` streams the PCM as the decode's
+chunks reach the host. `merge_eligible`, `merge_group_key` and
+`generate_music_merged` fuse compatible single-sample requests into one
+batch (the server's dynamic batching).
+
+Raise `NotImplementedError` until its slice lands: auto LRC/score.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import json
 import os
+import random
+import threading
 import time
 import traceback
-import uuid
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -110,20 +118,45 @@ def _draft_updates(params: GenerationParams, md: Dict[str, Any], wants_sample: b
     return updates
 
 
-def deterministic_uuid(params: Dict[str, Any]) -> str:
-    """Stable UUID from generation params (a copy of `acestep_tpu/utils/audio.py`'s)."""
-    blob = json.dumps(params, sort_keys=True, default=str).encode()
-    return str(uuid.UUID(hashlib.md5(blob).hexdigest()))
-
-
-def _unported(params: GenerationParams, save_audio: bool, defer_finish: bool, chunk_sink) -> Optional[str]:
+def _unported(params: GenerationParams) -> Optional[str]:
     if params.auto_lrc or params.auto_score:
         return "auto LRC / lyric score"
-    if save_audio:
-        return "save_audio=True (write the returned int16 PCM, as the CLI does)"
-    if defer_finish or chunk_sink is not None:
-        return "deferred finish / streaming sinks"
     return None
+
+
+def _save_entry(
+    dit_handler,
+    params: GenerationParams,
+    config: GenerationConfig,
+    wav: np.ndarray,
+    seed: int,
+    metas_str: str,
+    audio_codes: str,
+    index: int,
+    save_audio: bool,
+) -> Dict[str, Any]:
+    """One result entry, shared by the solo and merged paths so their files
+    cannot differ: the deterministic key; with `save_audio` the audio file
+    in `config.audio_format` and its `{key}.json` params sidecar, else the
+    int16 PCM under "audio"."""
+    entry: Dict[str, Any] = {
+        "params": params.to_dict(),
+        "seed": seed,
+        "key": audio_utils.deterministic_uuid({**params.to_dict(), "seed": seed, "index": index}),
+        "metas": metas_str,
+    }
+    if save_audio:
+        os.makedirs(config.output_dir, exist_ok=True)
+        path = os.path.join(config.output_dir, entry["key"])
+        entry["path"] = audio_utils.save_audio(path, wav, fmt=config.audio_format,
+                                               sample_rate=dit_handler.vae_config.sampling_rate)
+        sidecar = {**entry["params"], "seed": seed, "metas": metas_str, "audio_codes": audio_codes}
+        entry["params_path"] = path + ".json"
+        with open(entry["params_path"], "w", encoding="utf-8") as f:
+            json.dump(sidecar, f, indent=2, ensure_ascii=False)
+    else:
+        entry["audio"] = wav
+    return entry
 
 
 def generate_music(
@@ -131,14 +164,20 @@ def generate_music(
     llm_handler,
     params: GenerationParams,
     config: Optional[GenerationConfig] = None,
-    save_audio: bool = False,
+    save_audio: bool = True,
     defer_finish: bool = False,
     chunk_sink=None,
 ) -> GenerationResult:
     """Any task, with or without the LM planner, source audio or reference
-    audio. Returns a GenerationResult whose `audios` entries hold int16
-    (2, L) PCM under "audio"."""
-    what = _unported(params, save_audio, defer_finish, chunk_sink)
+    audio. Returns a GenerationResult with one entry per row: saved files
+    (`save_audio`) or int16 (2, L) PCM under "audio".
+
+    `defer_finish=True` returns as soon as the denoise is done and the
+    decode is queued on the card: `result.audios` stays empty until
+    `result.finish()` completes the transfer and the save.
+    `chunk_sink(pos, pcm_i16, total_samples)` receives the PCM chunk by
+    chunk (`/v1/generate_stream`)."""
+    what = _unported(params)
     if what is not None:
         raise NotImplementedError(f"{what} is not ported yet")
     config = config or GenerationConfig()
@@ -331,26 +370,44 @@ def generate_music(
             latent_rescale=params.latent_rescale,
             normalize_db=params.normalization_db if params.enable_normalization else None,
             return_int16=True,
+            async_finish=defer_finish,
+            chunk_sink=chunk_sink,
         )
         time_costs.update(out["time_costs"])
-        if params.src_audio:
-            time_costs["vae_encode_time_cost"] = time_costs.get("vae_encode_time_cost", 0.0) + src_encode_s
 
-        audios = []
-        for i in range(out["audios"].shape[0]):
-            seed = out["seeds"][i]
-            audios.append({
-                "params": params.to_dict(),
-                "seed": seed,
-                "key": deterministic_uuid({**params.to_dict(), "seed": seed, "index": i}),
-                "metas": metas_str,
-                "audio": out["audios"][i],
-            })
-        time_costs["pipeline_total_time_cost"] = time.time() - t_start
+        def complete_save() -> List[Dict[str, Any]]:
+            wavs = out["finish"]() if "finish" in out else out["audios"]
+            time_costs.update(out["time_costs"])  # the decode's split lands here
+            if params.src_audio:
+                time_costs["vae_encode_time_cost"] = out["time_costs"].get("vae_encode_time_cost", 0.0) + src_encode_s
+            audios = [
+                _save_entry(dit_handler, params, config, wavs[i], out["seeds"][i], metas_str, audio_codes, i,
+                            save_audio)
+                for i in range(wavs.shape[0])
+            ]
+            time_costs["pipeline_total_time_cost"] = time.time() - t_start
+            return audios
+
         extra["time_costs"] = time_costs
         extra["latents_shape"] = list(out["latents"].shape)
         extra["audio_codes"] = audio_codes
         extra["batch_audio_codes"] = code_strings
+
+        if defer_finish and "finish" in out:
+            def _fin(result: GenerationResult) -> None:
+                try:
+                    result.audios = complete_save()
+                    result.status_message = (
+                        f"Generated {len(result.audios)} audio(s) in {time_costs['pipeline_total_time_cost']:.2f}s")
+                except Exception as fin_err:  # noqa: BLE001
+                    result.success = False
+                    result.status_message = "Generation failed"
+                    result.error = f"{fin_err}\n{traceback.format_exc()}"
+
+            return GenerationResult(audios=[], status_message="decode queued (call finish())", extra_outputs=extra,
+                                    success=True, _finish=_fin)
+
+        audios = complete_save()
         return GenerationResult(
             audios=audios,
             status_message=f"Generated {len(audios)} audio(s) in {time_costs['pipeline_total_time_cost']:.2f}s",
@@ -362,6 +419,168 @@ def generate_music(
             audios=[], status_message="Generation failed", extra_outputs=extra, success=False,
             error=f"{e}\n{traceback.format_exc()}",
         )
+
+
+def merge_eligible(params: GenerationParams) -> bool:
+    """Whether a request can join a dynamically batched generation: plain
+    text2music with no per-request device inputs beyond caption, lyrics and
+    seed (no LM phase, no audio or codes, no repaint, no LRC post-pass, the
+    default schedule surface). Everything else runs solo."""
+    return (
+        not params.thinking
+        and not params.sample_mode
+        and not (params.sample_query or "").strip()
+        and not params.use_format
+        and not params.analysis_only
+        and not params.full_analysis_only
+        and params.task_type == "text2music"
+        and not params.reference_audio
+        and not params.src_audio
+        and not params.audio_codes
+        and not params.auto_lrc
+        and not params.auto_score
+        and not params.timesteps
+    )
+
+
+def merge_group_key(params: GenerationParams, config: GenerationConfig):
+    """Requests with equal keys run as one batch: one denoise and one decode."""
+    if not merge_eligible(params) or config.batch_size != 1:
+        return None
+    return (
+        round(float(params.duration), 3),
+        params.inference_steps,
+        params.shift,
+        params.infer_method,
+        params.guidance_scale,
+        params.use_adg,
+        params.cfg_interval_start,
+        params.cfg_interval_end,
+        params.enable_normalization,
+        params.normalization_db,
+        params.latent_shift,
+        params.latent_rescale,
+        params.instruction,
+        config.audio_format,
+    )
+
+
+def generate_music_merged(
+    dit_handler,
+    items: List[tuple],  # [(GenerationParams, GenerationConfig), ...] with one merge key
+    save_audio: bool = True,
+    defer_finish: bool = False,
+) -> List[GenerationResult]:
+    """Run N merged single-sample requests as ONE batch-N generation; the
+    per-request captions, lyrics and seeds ride the handler's batch axis, and
+    the results split back into one GenerationResult per request, each with
+    its own key and sidecar. With `defer_finish`, the results share one
+    decode finish (lock-guarded): the first `finish()` pays the transfer."""
+    n = len(items)
+    if n < 1:
+        raise ValueError("generate_music_merged needs at least one request")
+    t_start = time.time()
+    p0, _ = items[0]
+
+    captions, lyricses, metas, langs, seeds = [], [], [], [], []
+    for params, config in items:
+        merged = _merge_metadata_from_lm(params, {})
+        captions.append(merged["caption"])
+        lyricses.append(_resolve_lyrics(params))
+        metas.append(_metas_string(merged))
+        langs.append(merged["language"])
+        # The draw of the handler's prepare_seeds, so merged and solo
+        # requests resolve random seeds from one range.
+        if config.seeds:
+            seeds.append(int(config.seeds[0]))
+        elif params.seed >= 0:
+            seeds.append(int(params.seed))
+        else:
+            seeds.append(random.randint(0, 2**32 - 1))
+
+    instruction = p0.instruction
+    if not instruction or instruction == TASK_INSTRUCTIONS["text2music"]:
+        instruction = dit_handler.generate_instruction("text2music", None, None)
+
+    duration = max(DURATION_MIN, min(float(p0.duration or 30.0), DURATION_MAX))
+    try:
+        out = dit_handler.generate_music(
+            captions=captions,
+            lyrics=lyricses,
+            batch_size=n,
+            metas=metas,
+            vocal_languages=langs,
+            audio_duration=duration,
+            task_type="text2music",
+            instructions=[instruction] * n,
+            seeds=seeds,
+            use_random_seed=False,
+            inference_steps=(None if p0.inference_steps == 8 else p0.inference_steps),
+            shift=p0.shift if p0.shift else 3.0,
+            infer_method=p0.infer_method,
+            guidance_scale=p0.guidance_scale if p0.inference_steps > 8 else 1.0,
+            use_adg=p0.use_adg,
+            cfg_interval_start=p0.cfg_interval_start,
+            cfg_interval_end=p0.cfg_interval_end,
+            latent_shift=p0.latent_shift,
+            latent_rescale=p0.latent_rescale,
+            normalize_db=p0.normalization_db if p0.enable_normalization else None,
+            return_int16=True,
+            async_finish=defer_finish,
+        )
+    except Exception as e:  # noqa: BLE001 — every job gets the failure payload
+        err = f"{e}\n{traceback.format_exc()}"
+        return [GenerationResult(audios=[], status_message="Generation failed", success=False, error=err)
+                for _ in items]
+
+    shared: Dict[str, Any] = {"wavs": None}
+    fin_lock = threading.Lock()
+
+    def shared_finish():
+        with fin_lock:
+            if shared["wavs"] is None:
+                shared["wavs"] = out["finish"]() if "finish" in out else out["audios"]
+        return shared["wavs"]
+
+    def save_one(i: int, params: GenerationParams, config: GenerationConfig) -> List[Dict[str, Any]]:
+        wavs = shared_finish()
+        # index 0: each merged request is batch 1 from its client's view.
+        return [_save_entry(dit_handler, params, config, wavs[i], out["seeds"][i], metas[i], "", 0, save_audio)]
+
+    results: List[GenerationResult] = []
+    for i, (params, config) in enumerate(items):
+        # Each job publishes the batch's costs; merged_share marks the
+        # fraction that is this job's.
+        extra = {
+            "time_costs": {**out["time_costs"], "merged_share": round(1.0 / n, 4)},
+            "latents_shape": list(out["latents"].shape),
+            "audio_codes": "",
+            "merged_batch": n,
+        }
+        if defer_finish and "finish" in out:
+            def _fin(result: GenerationResult, i=i, params=params, config=config, extra=extra) -> None:
+                try:
+                    result.audios = save_one(i, params, config)
+                    extra["time_costs"].update(out["time_costs"])
+                    extra["time_costs"]["pipeline_total_time_cost"] = time.time() - t_start
+                    result.status_message = "Generated 1 audio(s) (merged batch)"
+                except Exception as fin_err:  # noqa: BLE001
+                    result.success = False
+                    result.status_message = "Generation failed"
+                    result.error = f"{fin_err}\n{traceback.format_exc()}"
+
+            results.append(GenerationResult(audios=[], status_message="decode queued (call finish())",
+                                            extra_outputs=extra, success=True, _finish=_fin))
+        else:
+            try:
+                audios = save_one(i, params, config)
+                extra["time_costs"]["pipeline_total_time_cost"] = time.time() - t_start
+                results.append(GenerationResult(audios=audios, status_message="Generated 1 audio(s) (merged batch)",
+                                                extra_outputs=extra, success=True))
+            except Exception as e:  # noqa: BLE001
+                results.append(GenerationResult(audios=[], status_message="Generation failed", extra_outputs=extra,
+                                                success=False, error=f"{e}\n{traceback.format_exc()}"))
+    return results
 
 
 def understand_music(llm_handler, audio_codes: str, **kw) -> UnderstandResult:

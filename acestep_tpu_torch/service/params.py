@@ -4,7 +4,7 @@ GenerationResult :197-221).
 
 A copy of `acestep_tpu/service/params.py` (the port imports nothing of
 `acestep_tpu`); keep the two in step. The port's `service.inference` serves
-only the text2music +/- thinking fields so far and raises on the others.
+every field but `auto_lrc` and `auto_score`, which raise until their slice.
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ Each DIR holds `chip_smoke.py` and `acestep_tpu_torch/` (a `git archive` of a
 commit unpacked into a directory that `.gitignore` lists, or the working
 tree). Per checkout, its own `run_small_reference` (thinking off) and
 `run_small_thinking_reference` (thinking on) run as `chip_smoke.py` runs
-them, with `AceStepHandler._to_pcm` wrapped to keep the waveform it is given:
+them, with `AceStepHandler._to_pcm` wrapped to keep the waveform it is given (its
+decode chunks, joined):
 the card's decode (bf16, kernels), then the CPU's (fp32, plain versions).
 Reported per reference: the rel-L2 of the waveform before normalisation, the
 rel-L2 after each row is scaled to its own peak (what the reference reports),
@@ -39,9 +40,9 @@ seen = []
 real = AceStepHandler._to_pcm
 
 
-def spy(wav, normalize_db):
-    seen.append(wav.detach().float().cpu())
-    return real(wav, normalize_db)
+def spy(wavs, normalize_db):
+    seen.append(torch.cat([w.detach().float().cpu() for w in wavs], dim=1))
+    return real(wavs, normalize_db)
 
 
 AceStepHandler._to_pcm = staticmethod(spy)

@@ -1,21 +1,28 @@
-"""Host-side audio input: read, resample and write WAV (numpy and scipy).
+"""Host-side audio I/O: read, resample and save (numpy, scipy, the native codec).
 
-A copy of the reading half of `acestep_tpu/utils/audio.py` (`load_audio`,
-`to_stereo`, `resample`, `save_wav`): WAV through `scipy.io.wavfile`, FLAC
-through the pure-Python decoder (`utils/flac.py`) when ffmpeg is missing,
-every other format through ffmpeg, which raises when there is none. The JAX
-package's native C++ resampler and FLAC codec (`native/`) are not copied yet:
-resampling runs through scipy's polyphase filter, as the JAX package does
-when its native library is not built.
+A copy of `acestep_tpu/utils/audio.py`. Reading: WAV through
+`scipy.io.wavfile`, FLAC through the pure-Python decoder (`utils/flac.py`)
+when ffmpeg is missing, every other format through ffmpeg, which raises when
+there is none; resampling through scipy's polyphase filter. Saving
+(`save_audio`): WAV (16-bit, or 32-bit float as "wav32"), FLAC through the
+native encoder (`utils/native_audio.py`, which raises rather than fall back),
+every other format through ffmpeg, or WAV when there is no ffmpeg, as the JAX
+package does. `wav_header` heads the streamed WAV of `/v1/generate_stream`;
+`deterministic_uuid` names saved results.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
+import os
 import shutil
+import struct
 import subprocess
+import uuid
 import wave
 from math import gcd
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -53,8 +60,71 @@ def save_wav(path: str, audio: np.ndarray, sample_rate: int = 48_000) -> str:
     return path
 
 
+def wav_header(n_frames: int, channels: int = 2, sample_rate: int = 48_000, sampwidth: int = 2) -> bytes:
+    """44-byte RIFF/PCM header of a WAV stream of known length, byte for
+    byte the stdlib `wave` module's: a streamed response knows its sample
+    count before the first chunk exists, so it sends a complete header and
+    Content-Length up front."""
+    data_bytes = n_frames * channels * sampwidth
+    byte_rate = sample_rate * channels * sampwidth
+    return b"".join([
+        b"RIFF", struct.pack("<I", 36 + data_bytes), b"WAVE",
+        b"fmt ", struct.pack("<IHHIIHH", 16, 1, channels, sample_rate, byte_rate, channels * sampwidth,
+                             sampwidth * 8),
+        b"data", struct.pack("<I", data_bytes),
+    ])
+
+
 def _ffmpeg() -> Optional[str]:
     return shutil.which("ffmpeg")
+
+
+def save_audio(path_base: str, audio: np.ndarray, sample_rate: int = 48_000, fmt: str = "flac") -> str:
+    """Save (C, L) audio (int16 PCM, or float in [-1, 1]) as `path_base` plus
+    the format's extension; returns the path written. "wav"/"wav16": 16-bit
+    WAV; "wav32": 32-bit float WAV; "flac": the native encoder; any other
+    format through ffmpeg, or WAV when ffmpeg is missing."""
+    fmt = fmt.lower()
+    if fmt in ("wav", "wav16"):
+        return save_wav(path_base + ".wav", audio, sample_rate)
+    if fmt == "wav32":
+        from scipy.io import wavfile
+
+        f32 = audio.T.astype(np.float32)
+        if audio.dtype == np.int16:
+            f32 = f32 / 32767.0
+        wavfile.write(path_base + ".wav", sample_rate, f32)
+        return path_base + ".wav"
+    if fmt == "flac":
+        from acestep_tpu_torch.utils import native_audio
+
+        if audio.dtype == np.int16:
+            pcm = np.ascontiguousarray(audio.T)
+        else:
+            pcm = np.round(np.clip(audio, -1.0, 1.0).T * 32767.0).astype(np.int16)
+        with open(path_base + ".flac", "wb") as f:
+            f.write(native_audio.flac_encode(pcm, sample_rate))
+        return path_base + ".flac"
+    ff = _ffmpeg()
+    if ff is None:
+        return save_wav(path_base + ".wav", audio, sample_rate)
+    tmp = path_base + ".tmp.wav"
+    save_wav(tmp, audio, sample_rate)
+    codec = {"mp3": ["-b:a", "320k"], "opus": ["-b:a", "128k"], "aac": ["-b:a", "256k"]}
+    out = f"{path_base}.{fmt}"
+    try:
+        subprocess.run([ff, "-y", "-loglevel", "error", "-i", tmp, *codec.get(fmt, []), out], check=True)
+        os.remove(tmp)
+        return out
+    except Exception:  # noqa: BLE001 — an encoder ffmpeg lacks: keep the WAV
+        os.replace(tmp, path_base + ".wav")
+        return path_base + ".wav"
+
+
+def deterministic_uuid(params: Dict[str, Any]) -> str:
+    """Stable UUID from generation params (the key of a saved result)."""
+    blob = json.dumps(params, sort_keys=True, default=str).encode()
+    return str(uuid.UUID(hashlib.md5(blob).hexdigest()))
 
 
 def load_audio(path: str, target_sr: int = 48_000) -> np.ndarray:

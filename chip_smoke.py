@@ -44,7 +44,15 @@ Phases, each fatal on failure:
      VAE encode chunk; then the base model's guided requests through the
      service after an untimed warm-up (`run_base_requests`: 1 x 60 s and
      1 x 600 s with 50 steps and APG at 7.0, 2 x 60 s with ADG, a turbo
-     1 x 60 s with SDE): wall, diffusion and decode times;
+     1 x 60 s with SDE): wall, diffusion and decode times; then the serving
+     phase (`run_serving`): the REST server in this process on that handler
+     (a merged batch of four 1 x 60 s FLAC jobs, `/v1/generate_stream` of a
+     1 x 240 s request against its released FLAC and its time to the first
+     byte, six 1 x 30 s jobs pipelined and serial, a chat completion, the
+     decode ladder under an injected CUDA out-of-memory, the phase's peak
+     allocated memory), then the same four 60 s requests merged by a direct
+     call and run solo (held against the server's rows), then `cli serve
+     --random-init --warmup 1x10` in a subprocess;
   6. requests with thinking on through `service.inference.generate_music` and
      the 4B planner (`LLMHandler(LM_CONFIGS["4B"])`), 1 x 60 s and 2 x 60 s
      after an untimed warm-up, and a profile of the planner's decode step;
@@ -57,7 +65,7 @@ Phases, each fatal on failure:
      In it a kernel's `ms`, `plain_ms`, `library_ms` and `bound_ms` are sums
      over its phase-3 shapes, `max_abs_err` their maximum, and `launches` the
      sum over the paths of phases 4 (checkpoint_tiny), 5 (text2music, audio
-     inputs, base), 6 (thinking, free-form) and 7 (the
+     inputs, base, serving, the serving phase's direct calls), 6 (thinking, free-form) and 7 (the
      Oobleck kernels' narrow-route calls also in `narrow_launches`). Each
      path is driven with every launch counter set to 0 just before it and
      read just after, and fails if one of its kernels was never launched or
@@ -112,7 +120,15 @@ def _window(fn, reps: int) -> tuple:
     host. One call of `fn` runs first as the profiler's warm-up step, traced
     and discarded, so that the window's kernels run with tracing under way:
     without it, windows of short kernels lost their first kernels, or all.
-    The step's own range on the device ("ProfilerStep#") is no kernel."""
+    A pause of WINDOW_GUARD_S on each side of the window keeps its first and
+    last kernels inside the step's range on the host clock (windows without
+    the pauses lost kernels at an edge, up to all of a short window's). The
+    pauses add no kernel time. The step's own range on the
+    device ("ProfilerStep#") is no kernel. The third value is the least time
+    from a kept kernel's launch call to its start on the device, in us,
+    matched by correlation id (None when none matches): a negative value
+    means the trace put a kernel before its own launch, so the device clock
+    stands ahead of the host clock by at least that much."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -120,15 +136,25 @@ def _window(fn, reps: int) -> tuple:
         fn()
         torch.cuda.synchronize()
         prof.step()
+        time.sleep(WINDOW_GUARD_S)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        time.sleep(WINDOW_GUARD_S)
         prof.step()
     events = prof.events()
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.name.startswith(("Memcpy", "Memset", "ProfilerStep"))]
-    launches = sum(e.device_type == torch.autograd.DeviceType.CPU and e.name in _LAUNCH_CALLS for e in events)
-    return kernels, launches
+    calls = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU and e.name in _LAUNCH_CALLS]
+    launched_at = {e.id: e.time_range.start for e in calls}
+    leads = [e.time_range.start - launched_at[e.id] for e in kernels if e.id in launched_at]
+    return kernels, len(calls), (min(leads) if leads else None)
+
+
+WINDOW_GUARD_S = 0.01
+# Every window `kernel_events` took: (accepted, least launch-to-start lead in
+# us); summarised before the kernels line.
+WINDOWS: list = []
 
 
 def kernel_events(fn, reps: int, ours: Optional[dict] = None, tries: int = 3) -> list:
@@ -145,13 +171,15 @@ def kernel_events(fn, reps: int, ours: Optional[dict] = None, tries: int = 3) ->
     a decode chunk)."""
     ours = ours or {}
     for _ in range(tries):
-        kernels, launches = _window(fn, reps)
+        kernels, launches, lead_us = _window(fn, reps)
         got = {part: sum(part in e.name for e in kernels) for part in ours}
-        if len(kernels) <= launches and all(got[part] == reps * n for part, n in ours.items()):
+        ok = len(kernels) <= launches and all(got[part] == reps * n for part, n in ours.items())
+        WINDOWS.append((ok, lead_us))
+        if ok:
             return kernels
         print(json.dumps(dict(phase="profiler window rejected", kernels=len(kernels), launches=launches,
-                              ours=got, ours_launched={part: reps * n for part, n in ours.items()})),
-              flush=True)
+                              ours=got, ours_launched={part: reps * n for part, n in ours.items()},
+                              least_launch_to_start_us=lead_us)), flush=True)
     raise SystemExit(f"torch.profiler delivered no whole window in {tries} tries")
 
 
@@ -929,7 +957,7 @@ def run_audio_requests(h):
 
         def request(fields, seed):
             params = GenerationParams(caption=CAPTION, lyrics=LYRICS, seed=seed, thinking=False, **fields)
-            r = generate_music(h, None, params, GenerationConfig(batch_size=1, use_random_seed=False))
+            r = generate_music(h, None, params, GenerationConfig(batch_size=1, use_random_seed=False), save_audio=False)
             if not r.success:
                 raise SystemExit(f"audio-input request {fields.get('task_type')} failed: {r.error}")
             return r
@@ -995,7 +1023,7 @@ def run_base_requests(h):
         cfg = GenerationConfig(batch_size=b, use_random_seed=False, seeds=[seed + j for j in range(b)])
         torch.cuda.synchronize()
         t0 = time.time()
-        r = generate_music(h, None, params, cfg)
+        r = generate_music(h, None, params, cfg, save_audio=False)
         torch.cuda.synchronize()
         if not r.success:
             raise SystemExit(f"base request b{b}x{int(dur)}s {fields} failed: {r.error}")
@@ -1026,6 +1054,345 @@ def run_base_requests(h):
         if not ok:
             raise SystemExit(f"base request {label}: bad output {pcm.dtype} {pcm.shape} peak {peak}")
     return _path_launches("base path", ("flash_attention", "decoder_block", "res_units"))
+
+
+def _http(port: int, method: str, path: str, body=None, timeout: float = 600.0):
+    """One request to a server on this host: (status, response body bytes, response)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    data = None if body is None else json.dumps(body).encode()
+    conn.request(method, path, body=data, headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    out = resp.read()
+    conn.close()
+    return resp.status, out, resp
+
+
+def _wait_jobs(port: int, ids, deadline_s: float = 600.0) -> dict:
+    """Poll /query_result until every job is terminal; fails on a failed job."""
+    t_end = time.time() + deadline_s
+    while True:
+        res = json.loads(_http(port, "POST", "/query_result", {"task_ids": list(ids)})[1])["results"]
+        if all(r["status"] in (1, 2) for r in res):
+            bad = [r for r in res if r["status"] != 1]
+            if bad:
+                raise SystemExit(f"serving: jobs failed: {bad}")
+            return {r["task_id"]: r for r in res}
+        if time.time() > t_end:
+            raise SystemExit(f"serving: jobs not done after {deadline_s} s: {res}")
+        time.sleep(0.02)
+
+
+def _release(port: int, **fields) -> str:
+    status, out, _ = _http(port, "POST", "/release_task", dict(caption=CAPTION, lyrics=LYRICS, thinking=False,
+                                                               batch_size=1, **fields))
+    if status != 200:
+        raise SystemExit(f"serving: /release_task answered {status}: {out[:300]}")
+    return json.loads(out)["task_id"]
+
+
+_WORKER_KNOBS = ("ACESTEP_PIPELINE_JOBS", "ACESTEP_MERGE_JOBS")
+
+
+def _start_server(h, out_dir: str, pipeline: str = "1", merge: str = "1"):
+    """serve(h, None, "127.0.0.1", 0, ...) in this process, its worker's
+    knobs set in the environment, which the worker reads when it starts (so
+    they stay set until `run_serving` ends)."""
+    import threading
+
+    from acestep_tpu_torch.service.api_server import serve
+
+    os.environ.update(dict(zip(_WORKER_KNOBS, (pipeline, merge))))
+    server = serve(h, None, "127.0.0.1", 0, output_dir=out_dir)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server
+
+
+def _pcm_of_wav_bytes(body: bytes) -> np.ndarray:
+    import io
+    import wave
+
+    with wave.open(io.BytesIO(body)) as w:
+        return np.frombuffer(w.readframes(w.getnframes()), "<i2").reshape(-1, w.getnchannels()).T
+
+
+# The serving phase's merged rows against solo runs of the same seeds: every
+# other seed's audio must lie at least this many times farther (relative L2)
+# than the row's own seed.
+MERGE_SEPARATION = 3.0
+# The serving phase's request lengths (seconds): the long and the streamed
+# request, the merged and the ladder's, the pipelined and the chat's.
+SERVE_LONG_S, SERVE_SHORT_S, SERVE_PIPE_S = 240.0, 60.0, 30.0
+
+
+def run_serving(h, smi: str):
+    """The REST server (`service.api_server.serve`) in this process on the
+    full-width bf16 handler of phase 5, no planner; every job thinking off.
+
+      merging: a 1 x 240 s FLAC job (seed 100) is taken by the worker, which
+        is held at its lock while four 1 x 60 s jobs (seeds 1-4) queue behind
+        it; they must run as one merged batch of 4. Each 60 s FLAC decodes
+        with `utils/flac.py` (four processes) to 2 x 2 880 000 int16;
+      streaming: `/v1/generate_stream` of the 240 s seed-100 request: >= 2
+        chunks, time to the first byte, PCM bit for bit the released FLAC's;
+      pipelining: six 1 x 30 s jobs, merging off, pipelining on and off:
+        equal files, both walls;
+      chat: one non-streaming `/v1/chat/completions` text2music request;
+      the ladder: `vae.decode` raises torch.OutOfMemoryError once inside a
+        streamed 1 x 60 s request: `vae_decode_hbm_retries` 1, every sample
+        streamed once (the stream is the saved file's PCM);
+    then the serve path's launch counters (set to 0 just before the first
+    job is released: the server's jobs alone) and the peak of
+    `torch.cuda.max_memory_allocated` over it beside what
+    `utils/memory_config` derives from the card's memory. Then, as a path of
+    its own, a direct `generate_music_merged` call of the four 60 s requests
+    (rows equal to the server's; its wall against four solo `generate_music`
+    runs) and the relative L2 of merged row i against the solo run of seed j:
+    every i != j at least MERGE_SEPARATION times the largest i = i. Last,
+    `cli serve --random-init --warmup 1x10` in a subprocess: startup,
+    /health, one 1 x 10 s job. Returns both paths' launch counts."""
+    import base64
+    import dataclasses
+    import http.client
+    import shutil
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    from acestep_tpu_torch.models import vae as vae_module
+    from acestep_tpu_torch.service.inference import generate_music, generate_music_merged
+    from acestep_tpu_torch.service.params import GenerationConfig, GenerationParams
+    from acestep_tpu_torch.utils import flac, native_audio
+    from acestep_tpu_torch.utils.memory_config import get_runtime_memory_config
+
+    readings: dict = dict(card=smi)
+    sr = h.vae_config.sampling_rate
+    tmp = tempfile.mkdtemp(prefix="acestep_serve_")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- merging ----
+    server = _start_server(h, os.path.join(tmp, "merge"))
+    port, svc = server.server_address[1], server.service
+    if not svc.model_lock.acquire(timeout=60):
+        raise SystemExit("serving: the worker holds its lock")
+    try:
+        _reset_counters()  # the serve path: the server's jobs alone, up to the ladder's
+        long_id = _release(port, duration=SERVE_LONG_S, seed=100, audio_format="flac")
+        t_end = time.time() + 60
+        while svc.queue.qsize():  # the worker took the 240 s job and waits at the lock
+            if time.time() > t_end:
+                raise SystemExit("serving: the worker did not take the 240 s job")
+            time.sleep(0.005)
+        short_ids = [_release(port, duration=SERVE_SHORT_S, seed=j, audio_format="flac") for j in (1, 2, 3, 4)]
+    finally:
+        svc.model_lock.release()
+    t0 = time.time()
+    res = _wait_jobs(port, [long_id] + short_ids)
+    merged_wall = time.time() - t0
+    sizes = [res[t]["result"]["extra"].get("merged_batch") for t in short_ids]
+    if sizes != [4, 4, 4, 4] or "merged_batch" in res[long_id]["result"]["extra"]:
+        raise SystemExit(f"serving: merged batch sizes {sizes}, expected 4 x 4 behind a solo 240 s job")
+    merged_tc = res[short_ids[0]]["result"]["extra"]["time_costs"]
+    paths = [res[t]["result"]["audio_paths"][0] for t in short_ids]
+    if not all(p.endswith(".flac") for p in paths + res[long_id]["result"]["audio_paths"]):
+        raise SystemExit(f"serving: FLAC asked for, got {paths}")
+    blobs = [open(p, "rb").read() for p in paths]
+    t0 = time.time()
+    with ProcessPoolExecutor(max_workers=4, mp_context=get_context("spawn")) as pool:
+        decoded = list(pool.map(flac.decode, blobs))
+    flac_decode_s = time.time() - t0
+    merged_pcm = []
+    for pcm, rate, bps in decoded:
+        if (rate, bps, pcm.shape) != (sr, 16, (2, int(SERVE_SHORT_S * sr))):
+            raise SystemExit(f"serving: a merged FLAC decodes to {pcm.shape} at {rate} Hz, {bps} bits")
+        merged_pcm.append(pcm.astype(np.float64))
+
+    # ---- streaming ----
+    released = native_audio.flac_decode(open(res[long_id]["result"]["audio_paths"][0], "rb").read())
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.time()
+    conn.request("POST", "/v1/generate_stream", body=json.dumps(dict(
+        caption=CAPTION, lyrics=LYRICS, thinking=False, batch_size=1, duration=SERVE_LONG_S, seed=100,
+        audio_format="flac")), headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    head = resp.read(48)
+    first_byte_s = time.time() - t0
+    body = head + resp.read()
+    stream_s = time.time() - t0
+    conn.close()
+    tid = resp.getheader("X-Task-Id")
+    st = _wait_jobs(port, [tid])[tid]
+    chunks = st["result"].get("streamed_chunks", 0)
+    pcm = _pcm_of_wav_bytes(body)
+    diff = np.abs(pcm.astype(np.int32) - released[0]) if pcm.shape == released[0].shape else None
+    ok = (resp.status == 200 and chunks >= 2 and len(body) == int(resp.getheader("Content-Length"))
+          and diff is not None and int(diff.max()) == 0)
+    print(json.dumps(dict(phase="serving /v1/generate_stream 1 x 240 s", ok=ok, status=resp.status,
+                          time_to_first_byte_s=first_byte_s, stream_s=stream_s, streamed_chunks=chunks,
+                          bytes=len(body), shape=list(pcm.shape),
+                          max_abs_diff_vs_released=None if diff is None else int(diff.max()),
+                          samples_differing=None if diff is None else int((diff > 0).sum()),
+                          time_costs=st["result"]["extra"]["time_costs"])), flush=True)
+    if not ok:
+        raise SystemExit("serving: the streamed 240 s request differs from the released one")
+    readings.update(time_to_first_byte_240s_s=first_byte_s, stream_240s_s=stream_s)
+
+    # ---- pipelining ----
+    files, walls = {}, {}
+    for pipeline in ("1", "0"):
+        srv = _start_server(h, os.path.join(tmp, f"pipe{pipeline}"), pipeline=pipeline, merge="0")
+        p = srv.server_address[1]
+        t0 = time.time()
+        ids = [_release(p, duration=SERVE_PIPE_S, seed=200 + i, audio_format="flac") for i in range(6)]
+        out = _wait_jobs(p, ids)
+        walls[pipeline] = time.time() - t0
+        files[pipeline] = [open(out[t]["result"]["audio_paths"][0], "rb").read() for t in ids]
+        if any("merged_batch" in out[t]["result"]["extra"] for t in ids):
+            raise SystemExit("serving: a job merged with merging off")
+        srv.shutdown()
+        srv.server_close()
+    ok = files["1"] == files["0"]
+    print(json.dumps(dict(phase="serving six 1 x 30 s jobs, merging off", ok=ok, pipelined_wall_s=walls["1"],
+                          serial_wall_s=walls["0"])), flush=True)
+    if not ok:
+        raise SystemExit("serving: the pipelined worker's files differ from the serial worker's")
+    readings.update(six_30s_pipelined_s=walls["1"], six_30s_serial_s=walls["0"])
+
+    # ---- chat ----
+    t0 = time.time()
+    status, out, _ = _http(port, "POST", "/v1/chat/completions", dict(
+        messages=[{"role": "user", "content": f"a driving synthwave track, {int(SERVE_PIPE_S)} seconds"}], seed=5))
+    chat_s = time.time() - t0
+    out = json.loads(out)
+    audio = [c for c in out.get("choices", [{}])[0].get("message", {}).get("content", []) if c["type"] == "audio"]
+    frames = _pcm_of_wav_bytes(base64.b64decode(audio[0]["audio"]["data"])).shape if audio else None
+    ok = status == 200 and len(audio) == 1 and frames == (2, int(SERVE_PIPE_S * sr))
+    print(json.dumps(dict(phase="serving /v1/chat/completions 1 x 30 s", ok=ok, status=status, seconds=chat_s,
+                          audio_shape=frames)), flush=True)
+    if not ok:
+        raise SystemExit(f"serving: chat completion {status}: {str(out)[:300]}")
+
+    # ---- the ladder ----
+    real_decode, calls = vae_module.decode, []
+
+    def decode_once_oom(*a, **kw):
+        calls.append(1)
+        if len(calls) == 1:
+            raise torch.OutOfMemoryError("injected by chip_smoke")
+        return real_decode(*a, **kw)
+
+    vae_module.decode = decode_once_oom
+    try:
+        status, body, resp = _http(port, "POST", "/v1/generate_stream", dict(
+            caption=CAPTION, lyrics=LYRICS, thinking=False, batch_size=1, duration=SERVE_SHORT_S, seed=7,
+            audio_format="wav"))
+    finally:
+        vae_module.decode = real_decode
+    tid = resp.getheader("X-Task-Id")
+    st = _wait_jobs(port, [tid])[tid]
+    tc = st["result"]["extra"]["time_costs"]
+    saved = open(st["result"]["audio_paths"][0], "rb").read()
+    ok = (status == 200 and tc.get("vae_decode_hbm_retries") == 1 and body == saved
+          and len(body) == 44 + 4 * int(SERVE_SHORT_S * sr))
+    print(json.dumps(dict(phase="serving the decode ladder: one injected OOM in a streamed 1 x 60 s", ok=ok,
+                          status=status, vae_decode_hbm_retries=tc.get("vae_decode_hbm_retries"),
+                          streamed_chunks=st["result"].get("streamed_chunks"), bytes=len(body),
+                          stream_equals_saved=body == saved, time_costs=tc)), flush=True)
+    if not ok:
+        raise SystemExit("serving: the ladder's retry or exactly-once delivery failed")
+    server.shutdown()
+    server.server_close()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = _path_launches("serve path", ("flash_attention", "decoder_block", "res_units"))
+    readings.update(peak_max_memory_allocated_gib=peak / 2**30,
+                    memory_policy=dataclasses.asdict(get_runtime_memory_config()))
+
+    # ---- the merged batch against direct calls (a path of its own) ----
+    _reset_counters()
+    # The same four requests merged by a direct call (no saves): the batch's
+    # own wall, and rows equal to the server's; then four solo runs.
+    torch.cuda.synchronize()
+    t0 = time.time()
+    direct = generate_music_merged(h, [(GenerationParams(caption=CAPTION, lyrics=LYRICS, duration=SERVE_SHORT_S,
+                                                         seed=j, thinking=False), GenerationConfig(batch_size=1))
+                                       for j in (1, 2, 3, 4)], save_audio=False)
+    torch.cuda.synchronize()
+    merged_direct_s = time.time() - t0
+    same_as_server = all(r.success and np.array_equal(r.audios[0]["audio"], m) for r, m in zip(direct, merged_pcm))
+    solo_pcm, solo_walls = [], []
+    for j in (1, 2, 3, 4):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        r = generate_music(h, None, GenerationParams(caption=CAPTION, lyrics=LYRICS, duration=SERVE_SHORT_S, seed=j,
+                                                     thinking=False), GenerationConfig(batch_size=1),
+                           save_audio=False)
+        solo_walls.append(time.time() - t0)
+        if not r.success:
+            raise SystemExit(f"serving: solo 60 s seed {j} failed: {r.error}")
+        solo_pcm.append(r.audios[0]["audio"].astype(np.float64))
+    dist = [[float(np.linalg.norm(m - s) / np.linalg.norm(s)) for s in solo_pcm] for m in merged_pcm]
+    same = max(dist[i][i] for i in range(4))
+    other = min(dist[i][j] for i in range(4) for j in range(4) if i != j)
+    ok = other >= MERGE_SEPARATION * same and same_as_server
+    print(json.dumps(dict(phase="serving merged batch of 4 x 60 s vs solo runs", ok=ok, rel_l2=dist,
+                          largest_same_seed=same, smallest_other_seed=other, separation=MERGE_SEPARATION,
+                          direct_merged_equals_server=same_as_server, direct_merged_s=merged_direct_s,
+                          solo_walls_s=solo_walls, solo_sum_s=sum(solo_walls), server_time_costs=merged_tc,
+                          server_queue_to_done_s=merged_wall, flac_decode_s_4_processes=flac_decode_s)), flush=True)
+    if not ok:
+        raise SystemExit(f"serving: merged rows against solo seeds {dist}, direct = server {same_as_server}")
+    readings.update(merged_4x60_direct_s=merged_direct_s, solo_4x60_sum_s=sum(solo_walls))
+    direct_launches = _path_launches("serving's direct merged and solo calls",
+                                     ("flash_attention", "decoder_block", "res_units"))
+
+    # ---- cli serve ----
+    log_path = os.path.join(tmp, "cli_serve.log")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "acestep_tpu_torch.cli", "serve", "--random-init", "--warmup", "1x10",
+             "--host", "127.0.0.1", "--port", "0", "--output-dir", os.path.join(tmp, "cli")],
+            cwd=here, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        cli_port = None
+        while cli_port is None:
+            for ln in open(log_path).read().splitlines():
+                if ln.startswith("listening on 127.0.0.1:"):
+                    cli_port = int(ln.rsplit(":", 1)[1])
+            if cli_port is None:
+                if proc.poll() is not None or time.time() - t0 > 400:
+                    raise SystemExit(f"cli serve did not start:\n{open(log_path).read()[-3000:]}")
+                time.sleep(0.2)
+        startup_s = time.time() - t0
+        health = json.loads(_http(cli_port, "GET", "/health")[1])
+        t1 = time.time()
+        job = _wait_jobs(cli_port, [_release(cli_port, duration=10.0, seed=1, audio_format="flac")])
+        job_s = time.time() - t1
+        path = list(job.values())[0]["result"]["audio_paths"][0]
+        got = native_audio.flac_decode(open(path, "rb").read())
+        ok = health == {"status": "ok", "initialized": True} and got[0].shape == (2, 10 * 48000)  # full width
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    tail = [ln for ln in open(log_path).read().splitlines() if ln.startswith(("initialized", "[warmup]", "listening"))]
+    print(json.dumps(dict(phase="cli serve --random-init --warmup 1x10 (subprocess)", ok=ok, startup_s=startup_s,
+                          job_1x10s_s=job_s, health=health, log=tail, exit_code=proc.returncode)), flush=True)
+    if not ok:
+        raise SystemExit("cli serve: bad health or job")
+    readings.update(cli_serve_warmup_startup_s=startup_s)
+    print(json.dumps(dict(phase="serving readings", **readings)), flush=True)
+    for k in _WORKER_KNOBS:
+        os.environ.pop(k, None)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return launches, direct_launches
 
 
 def _encode_kind(name: str) -> str:
@@ -1176,7 +1543,7 @@ def _vae_decode_profile(h, frames: int = 544, reps: int = 3) -> dict:
             mark()
         x = conv1d(vae.snake(d["snake1"], x), d["conv2"]["kernel"], d["conv2"].get("bias"), padding=3)
         mark()
-        h._to_pcm(x, -1.0)
+        h._to_pcm([x], -1.0)
         mark()
 
     with torch.inference_mode():
@@ -1268,7 +1635,7 @@ def run_thinking_requests(dev, dit):
                                seeds=[seed + j for j in range(b)])
         torch.cuda.synchronize()
         t = time.time()
-        r = generate_music(dit, llm, params, cfg)
+        r = generate_music(dit, llm, params, cfg, save_audio=False)
         torch.cuda.synchronize()
         return r, time.time() - t
 
@@ -1358,7 +1725,8 @@ def run_free_form(dit, llm, codes: str):
     for name, fields in requests:
         torch.cuda.synchronize()
         t0 = time.time()
-        r = generate_music(dit, llm, GenerationParams(seed=21, **fields), GenerationConfig(batch_size=1))
+        r = generate_music(dit, llm, GenerationParams(seed=21, **fields), GenerationConfig(batch_size=1),
+                           save_audio=False)
         torch.cuda.synchronize()
         wall = time.time() - t0
         md = r.extra_outputs.get("lm_draft" if fields.get("sample_mode") else "lm_metadata") or {}
@@ -1464,12 +1832,13 @@ def main() -> int:
     dit, text2music = run_requests(dev)
     audio = run_audio_requests(dit)
     base = run_base_requests(dit)
+    serving, serving_direct = run_serving(dit, smi)
     thinking, llm, codes = run_thinking_requests(dev, dit)
     free_form = run_free_form(dit, llm, codes)
     del dit, llm
     torch.cuda.empty_cache()
     probe = run_probe_entry()
-    paths = (text2music, audio, base, thinking, free_form, probe, checkpoint)
+    paths = (text2music, audio, base, serving, serving_direct, thinking, free_form, probe, checkpoint)
     launches = {k: sum(p[k] for p in paths) for k in text2music}
 
     narrow_src = "acestep_tpu_torch/csrc/oobleck_generic.cu"
@@ -1496,6 +1865,10 @@ def main() -> int:
             library_ms=sum(lib) if lib else None,
             shapes=[l["phase"].split()[-1] for l in lines],
         ))
+    leads = [lead for _, lead in WINDOWS if lead is not None]
+    print(json.dumps(dict(phase="profiler windows", taken=len(WINDOWS), rejected=sum(not ok for ok, _ in WINDOWS),
+                          guard_s=WINDOW_GUARD_S, least_launch_to_start_us=min(leads) if leads else None,
+                          rejected_leads_us=[lead for ok, lead in WINDOWS if not ok])), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

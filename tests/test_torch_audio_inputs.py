@@ -239,7 +239,7 @@ def test_service_generate_music_with_audio_files(handlers, tmp_path, monkeypatch
     if fields.get("reference_audio") == "ref":
         fields["reference_audio"] = ref
     want = JS.generate_music(jh, None, JGP(**fields), JGC(batch_size=1, use_random_seed=False), save_audio=False)
-    got = TS.generate_music(th, None, TGP(**fields), TGC(batch_size=1, use_random_seed=False))
+    got = TS.generate_music(th, None, TGP(**fields), TGC(batch_size=1, use_random_seed=False), save_audio=False)
     assert want.success, want.error
     assert got.success, got.error
     g, w = got.audios[0]["audio"], want.audios[0]["audio"]

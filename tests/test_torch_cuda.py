@@ -513,3 +513,65 @@ def test_narrow_route_repeats_bit_identical(dev):
     first, again = decoder_block_kernel(x, bp, s), decoder_block_kernel(x, bp, s)
     torch.cuda.synchronize()
     assert torch.equal(first, again)
+
+
+# The serving path's decode on the card: the tiny VAE (narrow route) behind
+# an AceStepHandler, 400 latent frames in three 192-frame chunks.
+
+
+def _card_handler(dev):
+    from acestep_tpu_torch.pipeline.handler import AceStepHandler
+
+    cfg, p, gen = _tiny_vae(dev)
+    h = AceStepHandler(vae_config=cfg, dtype=torch.bfloat16, device=dev)
+    h.vae_params = _to_dev(p, dev)
+    z = torch.randn((2, 400, cfg.decoder_input_channels), generator=gen)
+    return h, z
+
+
+def test_async_decode_on_the_card_equals_sync(dev):
+    """A decode dispatched with its copies started (the pipelined finish),
+    finished after another decode was dispatched, equals the synchronous
+    decode bit for bit; its chunks land in pinned host memory."""
+    import numpy as np
+
+    h, z = _card_handler(dev)
+    want = h.decode_latents(z, normalize_db=-1.0, return_int16=True)
+    job = h._decode_latents_dispatch(z.to(dev, torch.bfloat16), 192, -1.0, start_copies=True)
+    assert len(job.host) == 3 and all(t.is_pinned() for t in job.host) and job.pcm is None
+    other = h._decode_latents_dispatch((z * 0.5).to(dev, torch.bfloat16), 192, None, start_copies=True)
+    got = h._decode_latents_finish(job, return_int16=True)
+    h._decode_latents_finish(other, return_int16=True)
+    assert got.dtype == np.int16 and got.shape == (2, 2, 400 * h.vae_config.hop_length)
+    np.testing.assert_array_equal(got, want)
+    sync = h._decode_latents_dispatch(z.to(dev, torch.bfloat16), 192, -1.0)
+    assert sync.host is None  # the synchronous path copies in finish
+    np.testing.assert_array_equal(h._decode_latents_finish(sync, return_int16=True), want)
+
+
+def test_decode_ladder_on_the_card(dev, monkeypatch):
+    """An injected CUDA out-of-memory in the second chunk's decode: one retry
+    at the halved core (96 frames), every sample streamed once, and the
+    audio of a direct decode at that core."""
+    import numpy as np
+
+    from acestep_tpu_torch.pipeline import handler as TH
+
+    h, z = _card_handler(dev)
+    want = h.decode_latents(z, chunk_frames=96 + 32, return_int16=True)
+    real, calls = TH.vae.decode, []
+
+    def decode(*a, **kw):
+        calls.append(1)
+        if len(calls) == 2:
+            raise torch.OutOfMemoryError("injected")
+        return real(*a, **kw)
+
+    monkeypatch.setattr(TH.vae, "decode", decode)
+    got_chunks, timings = [], {}
+    got = h.decode_latents(z, return_int16=True, timings=timings,
+                           chunk_sink=lambda pos, pcm, total: got_chunks.append((pos, pcm.copy())))
+    assert timings["retries"] == 1 and len(calls) == 2 + 5  # 2 chunks tried, then 5 of 96
+    assert [p for p, _ in got_chunks] == [i * 96 * h.vae_config.hop_length for i in range(5)]
+    np.testing.assert_array_equal(np.concatenate([c for _, c in got_chunks], axis=-1), got)
+    np.testing.assert_array_equal(got, want)

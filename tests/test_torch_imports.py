@@ -22,7 +22,12 @@ print(len(names), bad)
 need = {"acestep_tpu_torch.lm.handler", "acestep_tpu_torch.lm.sampling", "acestep_tpu_torch.lm.prefix_cache",
         "acestep_tpu_torch.lm.dfa", "acestep_tpu_torch.lm.constrained", "acestep_tpu_torch.service.inference",
         "acestep_tpu_torch.service.params", "acestep_tpu_torch.tools.probe_kernel_parts",
-        "acestep_tpu_torch.ops.attention_probe", "acestep_tpu_torch.ops.fsq"}
+        "acestep_tpu_torch.ops.attention_probe", "acestep_tpu_torch.ops.fsq",
+        "acestep_tpu_torch.service.api_server", "acestep_tpu_torch.service.openrouter",
+        "acestep_tpu_torch.service.webui", "acestep_tpu_torch.utils.native_audio",
+        "acestep_tpu_torch.utils.memory_config", "acestep_tpu_torch.utils.progress",
+        "acestep_tpu_torch.utils.logbuffer", "acestep_tpu_torch.utils.local_cache",
+        "acestep_tpu_torch.utils.env", "acestep_tpu_torch.utils.downloader"}
 missing = sorted(need - set(names))
 print(missing)
 sys.exit(1 if bad or missing or len(names) < 25 else 0)
@@ -51,15 +56,18 @@ def test_entry_points_refuse_a_silent_cpu_run(monkeypatch):
         cli_main(["generate", "--random-init", "--thinking", "--caption", "x"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         probe_main(["--seq", "128"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_main(["serve", "--random-init", "--port", "0"])
     assert resolve_device("cpu").type == "cpu"
 
 
 def test_cli_writes_stereo_int16_wav(tmp_path):
-    from acestep_tpu_torch.cli import write_wav
+    """`generate --format wav` saves through `save_audio`: 16-bit stereo."""
+    from acestep_tpu_torch.utils.audio import save_audio
 
     pcm = (np.arange(2 * 480, dtype=np.int64).reshape(2, 480) % 200 - 100).astype(np.int16)
-    path = str(tmp_path / "a.wav")
-    write_wav(path, pcm, 48000)
+    path = save_audio(str(tmp_path / "a"), pcm, 48000, fmt="wav")
+    assert path == str(tmp_path / "a.wav")
     with wave.open(path, "rb") as f:
         assert (f.getnchannels(), f.getsampwidth(), f.getframerate(), f.getnframes()) == (2, 2, 48000, 480)
         back = np.frombuffer(f.readframes(480), "<i2").reshape(480, 2).T

@@ -7,7 +7,9 @@ same JAX init goes into both packages through `from_jax_params`; inputs are
 numpy arrays made from a seed.
 """
 
+import dataclasses
 import functools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +39,7 @@ from acestep_tpu_torch.lm.prefix_cache import PrefillCache
 from acestep_tpu_torch.models import qwen3 as tqwen3
 from acestep_tpu_torch.ops import fsq as tfsq
 from acestep_tpu_torch.params import LM_CONFIGS, from_jax_params
+from acestep_tpu_torch.utils import flac
 from acestep_tpu_torch.utils.tokenizer import ByteFallbackTokenizer as TTok
 
 LEVELS = (8, 8, 8, 5, 5, 5)
@@ -301,9 +304,10 @@ def test_lm_codes_through_both_dit_handlers(lm_pair, monkeypatch):
     assert np.abs(got["audios"]).max() > 0
 
 
-def test_service_generate_music_with_thinking(lm_pair, monkeypatch):
+def test_service_generate_music_with_thinking(lm_pair, monkeypatch, tmp_path):
     """The service entry with thinking on: the LM's codes reach the DiT as
-    cover hints (instruction switched), one WAV-ready int16 entry per row."""
+    cover hints (instruction switched), one WAV-ready int16 entry per row;
+    saved (`save_audio=True`), the same rows as FLAC files with sidecars."""
     from acestep_tpu_torch.service.inference import generate_music
     from acestep_tpu_torch.service.params import GenerationConfig, GenerationParams
 
@@ -322,7 +326,7 @@ def test_service_generate_music_with_thinking(lm_pair, monkeypatch):
     monkeypatch.setattr(th, "generate_music", spy)
     params = GenerationParams(caption="synth", lyrics="hi", duration=10.0, seed=3, lm_temperature=0.0)
     cfg = GenerationConfig(batch_size=2, allow_lm_batch=True, use_random_seed=False, seeds=[1, 2])
-    r = generate_music(th, tlm, params, cfg)
+    r = first = generate_music(th, tlm, params, cfg, save_audio=False)
     assert r.success, r.error
     assert [a["audio"].shape for a in r.audios] == [(2, 8000)] * 2
     assert all(a["audio"].dtype == np.int16 for a in r.audios)
@@ -335,24 +339,38 @@ def test_service_generate_music_with_thinking(lm_pair, monkeypatch):
     monkeypatch.setattr(tlm, "create_sample_from_query",
                         functools.partial(tlm.create_sample_from_query, max_new_tokens=32))
     r = generate_music(th, tlm, GenerationParams(caption="", sample_mode=True, duration=10.0, thinking=False,
-                                                 lm_temperature=0.0, seed=3), cfg)
+                                                 lm_temperature=0.0, seed=3), cfg, save_audio=False)
     assert r.success, r.error
     assert r.extra_outputs["lm_draft"]["mode"] == "create_sample"
     assert [a["audio"].shape for a in r.audios] == [(2, 8000)] * 2
     assert r.audios[0]["params"]["caption"] == r.extra_outputs["lm_draft"].get("caption", "")
-    r = generate_music(th, tlm, GenerationParams(caption="x", analysis_only=True, lm_temperature=0.0, seed=3), cfg)
+    r = generate_music(th, tlm, GenerationParams(caption="x", analysis_only=True, lm_temperature=0.0, seed=3), cfg,
+                       save_audio=False)
     assert r.success and r.audios == [] and "lm_metadata" in r.extra_outputs, r.error
     with pytest.raises(NotImplementedError):
         generate_music(th, tlm, GenerationParams(caption="x", auto_lrc=True), cfg)
     # Ported since: a source audio that cannot be read fails the request (the
     # service reports failures in its result), and a repaint runs.
-    r = generate_music(th, tlm, GenerationParams(caption="x", src_audio="x.wav", thinking=False), cfg)
+    r = generate_music(th, tlm, GenerationParams(caption="x", src_audio="x.wav", thinking=False), cfg,
+                       save_audio=False)
     assert not r.success and "x.wav" in r.error
     r = generate_music(th, tlm, GenerationParams(caption="x", task_type="repaint", repainting_start=1.0,
-                                                 repainting_end=3.0, duration=10.0, thinking=False), cfg)
+                                                 repainting_end=3.0, duration=10.0, thinking=False), cfg,
+                       save_audio=False)
     assert r.success, r.error
     assert [a["audio"].shape for a in r.audios] == [(2, 8000)] * 2
-    with pytest.raises(NotImplementedError):
-        generate_music(th, tlm, params, cfg, save_audio=True)
+    # Ported since: save_audio=True writes each row as FLAC (the config's
+    # default format) beside its params sidecar; the files hold the rows of
+    # the same request returned as PCM.
+    saved = generate_music(th, tlm, params, dataclasses.replace(cfg, output_dir=str(tmp_path)), save_audio=True)
+    assert saved.success, saved.error
+    for entry, row in zip(saved.audios, first.audios):
+        assert entry["path"].endswith(".flac") and "audio" not in entry
+        with open(entry["path"], "rb") as f:
+            pcm, sr, bps = flac.decode(f.read())
+        assert (sr, bps) == (800, 16)
+        np.testing.assert_array_equal(pcm, row["audio"])
+        with open(entry["params_path"]) as f:
+            assert json.load(f)["seed"] == entry["seed"] == row["seed"]
     out = tlm.create_sample_from_query("x", temperature=0.0, max_new_tokens=32)
     assert out["route"] == "grammar" and out["text"].startswith("<think>")

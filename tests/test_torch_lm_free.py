@@ -234,7 +234,7 @@ def test_service_wrappers_match_jax(lm_pair):
 def _both_services(services, params: dict, config: dict, lm=True):
     (jd, jl), (td, tl) = services
     want = jservice.generate_music(jd, jl if lm else None, JParams(**params), JConfig(**config), save_audio=False)
-    got = tservice.generate_music(td, tl if lm else None, TParams(**params), TConfig(**config))
+    got = tservice.generate_music(td, tl if lm else None, TParams(**params), TConfig(**config), save_audio=False)
     return got, want
 
 
@@ -322,12 +322,14 @@ def test_unseeded_draft_uses_a_fresh_lm_seed(services):
             return {"metadata": {"caption": f"drafted {seed}"}}
 
     for _ in range(2):
-        r = tservice.generate_music(td, FakeLM(), TParams(sample_mode=True, duration=2.0, thinking=False))
+        r = tservice.generate_music(td, FakeLM(), TParams(sample_mode=True, duration=2.0, thinking=False),
+                                    save_audio=False)
         assert r.success, r.error
         assert r.extra_outputs["lm_draft"]["seed"] == seen[-1]
         assert r.audios[0]["params"]["caption"] == f"drafted {seen[-1]}"
     assert all(0 <= s < 2**31 for s in seen) and seen[0] != seen[1]
-    r = tservice.generate_music(td, FakeLM(), TParams(sample_mode=True, duration=2.0, thinking=False, seed=91))
+    r = tservice.generate_music(td, FakeLM(), TParams(sample_mode=True, duration=2.0, thinking=False, seed=91),
+                                save_audio=False)
     assert r.success and seen[-1] == 91
 
 

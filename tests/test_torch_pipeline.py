@@ -90,8 +90,9 @@ def test_generate_music_text2music_matches_jax(handlers, duration):
 def test_unported_requests_raise(handlers):
     """Requests that once raised now run: a cover request (the tokenizer chain
     on the silence source), guidance (APG, ADG) and SDE each give finite
-    latents of the request's shape. A checkpoint directory that does not
-    exist still raises FileNotFoundError."""
+    latents of the request's shape; so do a deferred finish and a streaming
+    sink, equal to the synchronous request. A checkpoint directory that does
+    not exist still raises FileNotFoundError."""
     _, th = handlers
     out = th.generate_music("x", "y", task_type="cover", audio_duration=2.0, seeds=[1], use_random_seed=False)
     assert out["latents"].shape == (1, 50, 64) and np.isfinite(out["latents"]).all()
@@ -100,6 +101,14 @@ def test_unported_requests_raise(handlers):
         out = th.generate_music("x", "y", audio_duration=2.0, seeds=[1], use_random_seed=False, **kw)
         assert out["latents"].shape == (1, 50, 64) and np.isfinite(out["latents"]).all(), kw
         assert out["audios"].shape == (1, 2, 50 * 32) and np.isfinite(out["audios"]).all(), kw
+    kw = dict(audio_duration=2.0, seeds=[1], use_random_seed=False, return_int16=True)
+    ref = th.generate_music("x", "y", **kw)["audios"]
+    chunks = []
+    out = th.generate_music("x", "y", async_finish=True, chunk_sink=lambda pos, pcm, total: chunks.append(pcm.copy()),
+                            **kw)
+    assert "audios" not in out
+    np.testing.assert_array_equal(out["finish"](), ref)
+    np.testing.assert_array_equal(np.concatenate(chunks, axis=-1), ref)
     with pytest.raises(FileNotFoundError):
         th.initialize_service("/nonexistent", random_init=False)
 
