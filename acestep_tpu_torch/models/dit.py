@@ -10,6 +10,8 @@ parameter tree (tensors; layers as per-layer lists, see `params.py`):
   audio codes -> FSQ -> 25 Hz hints), and `prepare_condition` with
   precomputed hints, audio codes, or the source latents through the chain;
 - `timestep_embedding`, `dit_layer`, `precompute_cross_kv`, `dit_forward`;
+- `dit_cross_attention_capture`: the cross-attention maps of chosen layers
+  for the LRC alignment;
 - `build_t_schedule`, `build_linspace_schedule`, `prepare_noise`;
 - guidance: `cfg_forward`, `apg_forward` (momentum carried by the caller)
   and `adg_forward`, plain tensor functions as in the JAX package;
@@ -378,6 +380,70 @@ def dit_forward(
     h = rms_norm(p["norm_out"]["weight"], h, cfg.rms_norm_eps) * (1 + scale) + shift
     h = conv_transpose1d(h, p["proj_out"]["kernel"], p["proj_out"].get("bias"), stride=cfg.patch_size)
     return h[:, :orig_len, :]
+
+
+def _layer_params_at(layers, idx: int) -> Params:
+    """One layer's parameters (the port's layers are a per-layer list)."""
+    return layers[idx]
+
+
+def dit_cross_attention_capture(
+    p: Params,  # decoder params
+    cfg: AceStepConfig,
+    xt: torch.Tensor,  # (B, T, 64)
+    timestep: torch.Tensor,  # (B,)
+    context_latents: torch.Tensor,  # (B, T, 128)
+    encoder_hidden_states: torch.Tensor,  # (B, L_enc, D), the condition encoder's output
+    encoder_mask: Optional[torch.Tensor],
+    capture_layers: Sequence[int],
+) -> Dict[int, torch.Tensor]:
+    """Run the decoder up to max(capture_layers) and return the cross-attention
+    probabilities {layer: (B, heads, L_enc, L_patched)} for the LRC alignment,
+    in (text, audio) orientation.
+
+    At a captured layer the pre-cross hidden state is recomputed: AdaLN
+    modulation, the self-attention through `attention_block` (the flash
+    kernel on the card at >= 256 patched frames), the gated residual and the
+    cross-attention norm. The scores are an fp32 einsum of the cross q and k
+    with a masked fp32 softmax, as in the JAX package; no kernel computes
+    them there either. The layers then run as in `dit_forward`, without a
+    latent mask.
+    """
+    _, proj_t = timestep_embedding(p["time_embed"], timestep)
+    _, proj_r = timestep_embedding(p["time_embed_r"], timestep - timestep)
+    tproj = proj_t + proj_r
+    enc = linear(p["condition_embedder"], encoder_hidden_states)
+
+    h = torch.cat([context_latents, xt], dim=-1)
+    pad = (-h.shape[1]) % cfg.patch_size
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+    h = conv1d(h, p["proj_in"]["kernel"], p["proj_in"].get("bias"), stride=cfg.patch_size)
+    cos, sin = rope_cos_sin(h.shape[1], cfg.head_dim, cfg.rope_theta, device=h.device)
+
+    captured: Dict[int, torch.Tensor] = {}
+    for i in range(max(capture_layers) + 1):
+        lp = _layer_params_at(p["layers"], i)
+        if i in capture_layers:
+            mod = lp["scale_shift_table"].float() + tproj.float()
+            shift_msa, scale_msa, gate_msa = [m.to(h.dtype) for m in torch.chunk(mod, 6, dim=1)[:3]]
+            hn = rms_norm(lp["self_attn_norm"]["weight"], h, cfg.rms_norm_eps)
+            hn = hn * (1 + scale_msa) + shift_msa
+            attn_out = attention_block(lp["self_attn"], cfg, hn, cos=cos, sin=sin, window=_window(cfg, i))
+            hq = rms_norm(lp["cross_attn_norm"]["weight"], h + attn_out * gate_msa, cfg.rms_norm_eps)
+            ca = lp["cross_attn"]
+            q = _split_heads(linear(ca["q_proj"], hq), cfg.num_attention_heads, cfg.head_dim)
+            q = rms_norm(ca["q_norm"]["weight"], q, cfg.rms_norm_eps)
+            k, _ = cross_attention_kv(ca, cfg, enc)
+            kq = k.repeat_interleave(cfg.num_attention_heads // cfg.num_key_value_heads, dim=2)
+            scores = torch.einsum("bqnh,bsnh->bnqs", q.float(), kq.float()) * (cfg.head_dim**-0.5)
+            if encoder_mask is not None:
+                keep = encoder_mask.to(torch.bool)[:, None, None, :]
+                scores = scores.masked_fill(~keep, torch.finfo(torch.float32).min)
+            captured[i] = torch.softmax(scores, dim=-1).transpose(2, 3)  # (B, heads, L_enc, L_audio)
+        kv = cross_attention_kv(lp["cross_attn"], cfg, enc)
+        h = dit_layer(lp, cfg, h, cos, sin, tproj, None, _window(cfg, i), encoder_mask, kv)
+    return captured
 
 
 # ---------------------------------------------------------------------------

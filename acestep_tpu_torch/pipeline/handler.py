@@ -27,7 +27,14 @@ keeps the delivery exactly once). A CUDA out-of-memory at dispatch retries
 the decode with halved chunks down to 64 frames (the retry ladder), counted
 in `vae_decode_hbm_retries`.
 
-Not ported yet: LoRA and meshes (the handler has no parameters for them).
+LoRA adapters (`load_lora`, `unload_lora`, `toggle_lora`, `set_lora_scale`,
+`lora_status`) live in a `LoRARegistry`; every denoise runs the decoder
+with the enabled adapters applied (`_effective_params`). The lyric
+post-pass (`get_lyric_timestamps`) re-runs one decoder step with the
+cross-attention captured and aligns it to the lyric tokens: LRC text, token
+and sentence stamps and a lyric-quality score.
+
+Not ported yet: meshes (the handler has no parameters for them).
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from acestep_tpu_torch.config import (
 )
 from acestep_tpu_torch.device import resolve_device
 from acestep_tpu_torch.models import dit, qwen3, vae
+from acestep_tpu_torch.lm.constrained import _encode
 from acestep_tpu_torch.params import (
     convert_torch_state_dict,
     init_acestep_params,
@@ -63,6 +71,9 @@ from acestep_tpu_torch.params import (
     init_qwen3_params,
     load_safetensors_state,
 )
+from acestep_tpu_torch.pipeline.lora_manager import LoRARegistry
+from acestep_tpu_torch.scoring.alignment import MusicStampsAligner, format_lrc
+from acestep_tpu_torch.scoring.lyric_score import MusicLyricScorer
 from acestep_tpu_torch.utils.constants import MAX_AUDIO_CODE, SFT_GEN_PROMPT, TASK_INSTRUCTIONS
 from acestep_tpu_torch.utils.tokenizer import load_tokenizer, pick_bucket, tokenize_padded
 
@@ -191,6 +202,33 @@ class AceStepHandler:
         # Cumulative decode retries after a CUDA out-of-memory (each re-runs
         # the decode at smaller chunks: a throughput cost to be seen).
         self._decode_retries = 0
+        self.lora = LoRARegistry(self.device)
+
+    # ------------------------------------------------------------------
+    # LoRA lifecycle
+    # ------------------------------------------------------------------
+
+    def load_lora(self, name: str, path: str) -> Dict[str, Any]:
+        return self.lora.load(name, path)
+
+    def unload_lora(self, name: str) -> bool:
+        return self.lora.unload(name)
+
+    def toggle_lora(self, name: str, enabled: Optional[bool] = None) -> bool:
+        return self.lora.toggle(name, enabled)
+
+    def set_lora_scale(self, name: str, scale: float) -> None:
+        self.lora.set_scale(name, scale)
+
+    def lora_status(self) -> Dict[str, Any]:
+        return self.lora.status()
+
+    def _effective_params(self) -> Dict[str, Any]:
+        """The model's parameters with the enabled adapters applied to the
+        decoder; the base tree itself while no adapter is loaded."""
+        if not self.lora.status():
+            return self.params
+        return {**self.params, "decoder": self.lora.effective_decoder(self.params["decoder"])}
 
     def initialize_service(
         self, checkpoint_dir: Optional[str] = None, *, random_init: Optional[bool] = None, seed: int = 0
@@ -212,6 +250,8 @@ class AceStepHandler:
             self.text_tokenizer = load_tokenizer(None)
         else:
             self._load_from_checkpoint(checkpoint_dir)
+        # The merged decoder was built on the old weights; drop it with its pin.
+        self.lora.invalidate_cache()
         self.initialized = True
         self._sync()
         return f"initialized in {time.time() - t0:.1f}s (random_init={random_init}, device={self.device})"
@@ -770,6 +810,140 @@ class AceStepHandler:
         return np.stack(packed), np.asarray(order, np.int32), max_count
 
     # ------------------------------------------------------------------
+    # LRC lyric timestamps and the lyric score
+    # ------------------------------------------------------------------
+
+    # The attention layer -> heads map the alignment reads (ref handler.py:129).
+    custom_layers_config = {2: [6], 3: [10, 11], 4: [3], 5: [8, 9], 6: [8]}
+
+    def get_lyric_timestamps(
+        self,
+        pred_latents: np.ndarray,  # (B, T, 64)
+        condition: Dict[str, Any],  # from generate_music(return_condition=True)
+        lyric_token_ids: np.ndarray,  # (B, L) tokens of the formatted lyric prompts
+        lyrics_text: str,
+        total_duration_seconds: float,
+        *,
+        vocal_language: str = "en",
+        inference_steps: int = 8,
+        seed: int = 42,
+        custom_layers_config: Optional[Dict[int, List[int]]] = None,
+        sample_idx: int = 0,
+        lyric_mask: Optional[np.ndarray] = None,  # (B, L): each row's valid length
+    ) -> Dict[str, Any]:
+        """Re-run one decoder step at t = 1/steps with the cross-attention
+        captured, DTW-align it to the lyric tokens, and return the LRC text,
+        the token and sentence stamps and the composite lyric score of batch
+        row `sample_idx`: the capture on the device
+        (`capture_lyric_attention`), then the alignment on the host
+        (`align_lyrics`)."""
+        captured = self.capture_lyric_attention(
+            pred_latents, condition, lyric_token_ids, vocal_language=vocal_language,
+            inference_steps=inference_steps, seed=seed, custom_layers_config=custom_layers_config,
+            sample_idx=sample_idx, lyric_mask=lyric_mask,
+        )
+        return self.align_lyrics(captured, lyrics_text, total_duration_seconds)
+
+    @torch.inference_mode()
+    def capture_lyric_attention(
+        self,
+        pred_latents: np.ndarray,
+        condition: Dict[str, Any],
+        lyric_token_ids: np.ndarray,
+        *,
+        vocal_language: str = "en",
+        inference_steps: int = 8,
+        seed: int = 42,
+        custom_layers_config: Optional[Dict[int, List[int]]] = None,
+        sample_idx: int = 0,
+        lyric_mask: Optional[np.ndarray] = None,
+    ) -> Dict[str, Any]:
+        """The device half of `get_lyric_timestamps`: row `sample_idx`'s
+        latents renoised to t = 1/steps (`dit.prepare_noise(seed)`), the
+        capture forward on the base decoder (as in the JAX handler, not the
+        LoRA-adapted one), and the configured heads' maps cut to the lyric
+        rows. Returns {"attn": (n_maps, n_lyric, L_audio) float32, "ids":
+        the lyric token ids} or, with no map, {"attn": None}."""
+        cfgmap = custom_layers_config or self.custom_layers_config
+        t_last = 1.0 / max(inference_steps, 1)
+        i = sample_idx
+        pred_latents = pred_latents[i : i + 1]
+        condition = {
+            k: (v[i : i + 1] if hasattr(v, "ndim") and v.ndim >= 2 and v.shape[0] > i else v)
+            for k, v in condition.items()
+        }
+        if hasattr(lyric_token_ids, "ndim") and lyric_token_ids.ndim == 2 and lyric_token_ids.shape[0] > i:
+            lyric_token_ids = lyric_token_ids[i : i + 1]
+            if lyric_mask is not None and np.asarray(lyric_mask).shape[0] > i:
+                # Each row keeps its own lyric length: pad ids at the tail
+                # would shift the attention rows cut below.
+                lyric_token_ids = lyric_token_ids[:, : int(np.asarray(lyric_mask[i]).sum())]
+        xt_np = pred_latents[:1]
+        # The latents were cropped to the duration; pad back to the bucketed
+        # context length for the capture forward.
+        t_ctx = condition["context_latents"].shape[1]
+        if xt_np.shape[1] < t_ctx:
+            xt_np = np.pad(xt_np, ((0, 0), (0, t_ctx - xt_np.shape[1]), (0, 0)))
+        b, t, d = xt_np.shape
+        noise = dit.prepare_noise((b, t, d), [seed], self.dtype, device=self.device)
+        xt = t_last * noise + (1.0 - t_last) * self._tensor(xt_np, self.dtype)
+        captured = dit.dit_cross_attention_capture(
+            self.params["decoder"],
+            self.config,
+            xt,
+            torch.full((b,), t_last, dtype=torch.float32, device=self.device),
+            self._tensor(condition["context_latents"][:1], self.dtype),
+            self._tensor(condition["encoder_hidden_states"][:1], self.dtype),
+            self._tensor(condition["encoder_attention_mask"][:1]),
+            sorted(cfgmap.keys()),
+        )
+        maps = []
+        for layer, heads in cfgmap.items():
+            probs = captured[layer][0]  # (heads, L_enc, L_audio), still on the device
+            keep = [h for h in heads if h < probs.shape[0]]
+            if keep:  # only the configured heads cross to the host
+                maps.append(probs[keep].float().cpu().numpy())
+        if not maps:
+            return {"attn": None}
+        attn = np.concatenate(maps)
+        # The lyric tokens lead the packed condition sequence (lyric, timbre,
+        # text); the lyric prompt's header comes first among them.
+        header = self.format_lyrics("", vocal_language).split("<|endoftext|>")[0]
+        header_len = len(_encode(self.text_tokenizer, header))
+        ids = [int(x) for x in np.asarray(lyric_token_ids).reshape(-1)]
+        start = min(header_len, len(ids))
+        pure_ids = ids[start:]
+        return {"attn": attn[:, start : start + len(pure_ids), :], "ids": pure_ids}
+
+    def align_lyrics(self, captured: Dict[str, Any], lyrics_text: str,
+                     total_duration_seconds: float) -> Dict[str, Any]:
+        """The host half of `get_lyric_timestamps` (numpy): token and
+        sentence stamps at the patched frame rate, clamped to the duration,
+        the LRC text and the lyric score."""
+        if captured["attn"] is None:
+            return {"success": False, "error": "no attention maps captured"}
+        attn_lyric, pure_ids = captured["attn"], captured["ids"]
+        # Patched latent frames at a fixed rate (LATENT_FPS / patch_size), not
+        # frames over duration: the capture ran at the bucketed length.
+        aligner = MusicStampsAligner(self.text_tokenizer, frames_per_second=LATENT_FPS / self.config.patch_size)
+        token_stamps = aligner.token_timestamps(attn_lyric, pure_ids)
+        sentences = [l for l in lyrics_text.split("\n") if l.strip()]
+        sent_stamps = aligner.sentence_timestamps(attn_lyric, pure_ids, sentences)
+        # Attention on the bucket's pad frames would stamp past the audio's end.
+        for st in token_stamps + sent_stamps:
+            st.start = min(st.start, total_duration_seconds)
+            st.end = min(st.end, total_duration_seconds)
+        quality = MusicLyricScorer(self.text_tokenizer).score(attn_lyric, pure_ids, {})
+        return {
+            "success": True,
+            "lrc_text": format_lrc(sent_stamps),
+            "token_timestamps": [st.__dict__ for st in token_stamps],
+            "sentence_timestamps": [st.__dict__ for st in sent_stamps],
+            "lyrics_score": quality.get("lyrics_score", 0.0),
+            "lyrics_score_detail": quality,
+        }
+
+    # ------------------------------------------------------------------
     # generate_music
     # ------------------------------------------------------------------
 
@@ -889,7 +1063,7 @@ class AceStepHandler:
         else:
             hints = None  # cover rows without codes: hints from the source latents
         outputs = dit.generate_audio(
-            self.params,
+            self._effective_params(),
             self.config,
             text_hidden_states=text_hidden.to(self.dtype),
             text_attention_mask=self._tensor(text_mask),
@@ -961,6 +1135,10 @@ class AceStepHandler:
                 "encoder_attention_mask": cond["encoder_attention_mask"].cpu().numpy(),
                 "context_latents": cond["context_latents"].float().cpu().numpy(),
             }
+            # The whole (B, L) ids and mask: the LRC pass crops each row to
+            # its own lyric length.
+            result["lyric_token_ids"] = lyric_ids
+            result["lyric_mask"] = np.asarray(lyric_mask)
         if decode_audio:
             fallback = None
             fallback_s = 0.0

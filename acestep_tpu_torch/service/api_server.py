@@ -11,9 +11,10 @@ save) on a finisher thread while job N+1's compute runs on the card
 chunk by chunk; `/v1/chat/completions` is the OpenAI-style chat API
 (`service/openrouter.py`).
 
-Routes whose slices have not landed answer 501 with the slice's name:
-`/v1/train/*` and `/v1/dataset/*` (training, ROADMAP A.9) and `/v1/lora/*`
-(LoRA, A.7); no training or dataset service is constructed.
+`/v1/lora/{load,unload,toggle,scale,status}` (POST) drive the handler's
+adapter registry. Routes whose slices have not landed answer 501 with the
+slice's name: `/v1/train/*` and `/v1/dataset/*` (training, ROADMAP A.9); no
+training or dataset service is constructed.
 """
 
 from __future__ import annotations
@@ -57,7 +58,6 @@ MAX_QUEUE = 200
 UNPORTED_ROUTES = (
     ("/v1/train/", "training and its REST API (ROADMAP A.9)"),
     ("/v1/dataset/", "the training dataset explorer (ROADMAP A.9)"),
-    ("/v1/lora/", "LoRA adapters (ROADMAP A.7)"),
 )
 
 
@@ -1174,6 +1174,28 @@ def make_handler(service: ApiService, api_key: Optional[str] = None):
                     return self._json(
                         500, {"error": {"code": 500, "message": str(e)}})
                 return self._json(200, out)
+            # LoRA lifecycle (ref api_server.py:3014-3104)
+            if url.path.startswith("/v1/lora/"):
+                op = url.path.rsplit("/", 1)[-1]
+                h = service.dit_handler
+                try:
+                    if op == "load":
+                        meta = h.load_lora(body["name"], body["path"])
+                        return self._json(200, {"success": True, "meta": meta})
+                    if op == "unload":
+                        return self._json(200, {"success": h.unload_lora(body["name"])})
+                    if op == "toggle":
+                        en = h.toggle_lora(body["name"], body.get("enabled"))
+                        return self._json(200, {"success": True, "enabled": en})
+                    if op == "scale":
+                        h.set_lora_scale(body["name"], float(body["scale"]))
+                        return self._json(200, {"success": True})
+                    if op == "status":
+                        return self._json(200, {"success": True, "adapters": h.lora_status()})
+                except KeyError as e:
+                    return self._json(400, {"success": False, "error": f"missing/unknown: {e}"})
+                except Exception as e:  # noqa: BLE001
+                    return self._json(500, {"success": False, "error": str(e)})
             return self._json(404, {"error": "unknown endpoint"})
 
         # The reference updates dataset samples with PUT; both verbs answer.

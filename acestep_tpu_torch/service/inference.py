@@ -32,7 +32,14 @@ chunks reach the host. `merge_eligible`, `merge_group_key` and
 `generate_music_merged` fuse compatible single-sample requests into one
 batch (the server's dynamic batching).
 
-Raise `NotImplementedError` until its slice lands: auto LRC/score.
+`auto_lrc` and `auto_score` add the lyric post-pass: one capture forward per
+row on the card (`AceStepHandler.capture_lyric_attention`), then the host's
+alignment (`align_lyrics`), whose `lrc`, `sentence_timestamps` and
+`lyrics_score` join that row's entry (at finish when it is deferred). An
+error of the alignment becomes that row's `{"success": False, "error"}` and
+the entry goes without them, as in the JAX package. An error of the capture
+forward (the card's out-of-memory or a failed launch) fails the request,
+where the JAX package records it on the row as well (ROADMAP C).
 """
 
 from __future__ import annotations
@@ -118,12 +125,6 @@ def _draft_updates(params: GenerationParams, md: Dict[str, Any], wants_sample: b
     return updates
 
 
-def _unported(params: GenerationParams) -> Optional[str]:
-    if params.auto_lrc or params.auto_score:
-        return "auto LRC / lyric score"
-    return None
-
-
 def _save_entry(
     dit_handler,
     params: GenerationParams,
@@ -177,9 +178,6 @@ def generate_music(
     `result.finish()` completes the transfer and the save.
     `chunk_sink(pos, pcm_i16, total_samples)` receives the PCM chunk by
     chunk (`/v1/generate_stream`)."""
-    what = _unported(params)
-    if what is not None:
-        raise NotImplementedError(f"{what} is not ported yet")
     config = config or GenerationConfig()
     t_start = time.time()
     time_costs: Dict[str, float] = {}
@@ -370,21 +368,45 @@ def generate_music(
             latent_rescale=params.latent_rescale,
             normalize_db=params.normalization_db if params.enable_normalization else None,
             return_int16=True,
+            return_condition=params.auto_lrc or params.auto_score,
             async_finish=defer_finish,
             chunk_sink=chunk_sink,
         )
         time_costs.update(out["time_costs"])
+
+        # ------------------ auto LRC / lyric score ------------------
+        lrc_per_sample: List[Optional[Dict[str, Any]]] = [None] * b
+        if (params.auto_lrc or params.auto_score) and "condition" in out:
+            for i in range(out["latents"].shape[0]):
+                captured = dit_handler.capture_lyric_attention(
+                    out["latents"], out["condition"], out["lyric_token_ids"],
+                    vocal_language=merged.get("language") or "en",
+                    inference_steps=params.inference_steps,
+                    sample_idx=i,
+                    lyric_mask=out.get("lyric_mask"),
+                )
+                try:
+                    lrc_per_sample[i] = dit_handler.align_lyrics(captured, lyrics, float(merged["duration"]))
+                except Exception as lrc_err:  # noqa: BLE001 — the score is best-effort
+                    lrc_per_sample[i] = {"success": False, "error": str(lrc_err)}
 
         def complete_save() -> List[Dict[str, Any]]:
             wavs = out["finish"]() if "finish" in out else out["audios"]
             time_costs.update(out["time_costs"])  # the decode's split lands here
             if params.src_audio:
                 time_costs["vae_encode_time_cost"] = out["time_costs"].get("vae_encode_time_cost", 0.0) + src_encode_s
-            audios = [
-                _save_entry(dit_handler, params, config, wavs[i], out["seeds"][i], metas_str, audio_codes, i,
-                            save_audio)
-                for i in range(wavs.shape[0])
-            ]
+            audios = []
+            for i in range(wavs.shape[0]):
+                entry = _save_entry(dit_handler, params, config, wavs[i], out["seeds"][i], metas_str, audio_codes,
+                                    i, save_audio)
+                lrc = lrc_per_sample[i] if i < len(lrc_per_sample) else None
+                if lrc and lrc.get("success"):
+                    if params.auto_lrc:
+                        entry["lrc"] = lrc["lrc_text"]
+                        entry["sentence_timestamps"] = lrc["sentence_timestamps"]
+                    if params.auto_score:
+                        entry["lyrics_score"] = lrc.get("lyrics_score")
+                audios.append(entry)
             time_costs["pipeline_total_time_cost"] = time.time() - t_start
             return audios
 

@@ -52,20 +52,30 @@ Phases, each fatal on failure:
      decode ladder under an injected CUDA out-of-memory, the phase's peak
      allocated memory), then the same four 60 s requests merged by a direct
      call and run solo (held against the server's rows), then `cli serve
-     --random-init --warmup 1x10` in a subprocess;
+     --random-init --warmup 1x10` in a subprocess; then LoRA through the
+     server's `/v1/lora/*` (`run_lora`: a seeded rank-32 adapter over every
+     target of the 24 layers; 1 x 30 s jobs with it on, at scale 0.5 and
+     off, on equal bit for bit to the merged decoder's request, off to the
+     base's), and auto LRC with the lyric score (`run_lrc`: 1 x 60 s and
+     1 x 240 s requests with 8 and 24 lyric lines; the capture forward's
+     and the host alignment's times; the 60 s capture against the CPU in
+     fp32 within `LRC_CAPTURE_TOL`);
   6. requests with thinking on through `service.inference.generate_music` and
      the 4B planner (`LLMHandler(LM_CONFIGS["4B"])`), 1 x 60 s and 2 x 60 s
      after an untimed warm-up, and a profile of the planner's decode step;
      then the planner's free-form APIs (`run_free_form`: create_sample,
      format_sample, understand on a thinking request's codes, 128 new
      tokens each; a `sample_mode` and an `analysis_only` request through the
-     service): seconds, tokens per second, parsed metadata;
+     service): seconds, tokens per second, parsed metadata; then the LM
+     reward score on a thinking request's codes (`run_scoring`), and the
+     narrow planner's `sequence_log_prob` on the card against the CPU;
   7. the probe's entry point (`acestep_tpu_torch.tools.probe_kernel_parts`);
   8. a `{"kernels": [...]}` JSON line, then the `{"ok": true, ...}` line last.
      In it a kernel's `ms`, `plain_ms`, `library_ms` and `bound_ms` are sums
      over its phase-3 shapes, `max_abs_err` their maximum, and `launches` the
      sum over the paths of phases 4 (checkpoint_tiny), 5 (text2music, audio
-     inputs, base, serving, the serving phase's direct calls), 6 (thinking, free-form) and 7 (the
+     inputs, base, serving, the serving phase's direct calls, lora, lrc), 6
+     (thinking, free-form, scoring) and 7 (the
      Oobleck kernels' narrow-route calls also in `narrow_launches`). Each
      path is driven with every launch counter set to 0 just before it and
      read just after, and fails if one of its kernels was never launched or
@@ -1395,6 +1405,300 @@ def run_serving(h, smi: str):
     return launches, direct_launches
 
 
+# The LoRA phase's adapter: A gaussian / rank (the trainer's init), alpha =
+# rank, B gaussian with LORA_B_STD, so a delta element has a standard
+# deviation of about LORA_B_STD / sqrt(rank) = 0.018, near the random
+# kernels' 0.02. The adapted 1 x 30 s latents must lie at least
+# LORA_MIN_REL_L2 (relative L2) from the base ones.
+LORA_RANK, LORA_B_STD, LORA_SEED = 32, 0.1, 41
+LORA_MIN_REL_L2 = 1e-2
+
+
+def run_lora(h):
+    """LoRA through the REST server on the full-width bf16 handler of phase 5.
+
+    A seeded rank-32 adapter over all 11 targets x 24 layers, written in the
+    trainer's `adapter.npz` layout, goes through `/v1/lora/load`, `status`,
+    `scale` and `toggle`. Four 1 x 30 s jobs (seed LORA_SEED): no adapter
+    (the base), the adapter on, at scale 0.5, toggled off. Checks: on, the
+    latents equal bit for bit a direct service request on the base decoder
+    `merge_lora`'d; off, the base job's bit for bit; 0.5 differs from both;
+    on lies at least LORA_MIN_REL_L2 from the base. Prints the first adapted
+    request's merge (`effective_decoder`, 264 products, timed between
+    synchronises) and the adapter's bytes. The `lora` path's launches are
+    the server's four jobs."""
+    import shutil
+    import tempfile
+
+    from acestep_tpu_torch.service.inference import generate_music
+    from acestep_tpu_torch.service.params import GenerationConfig, GenerationParams
+    from acestep_tpu_torch.training.lora import init_lora_params, merge_lora
+
+    tmp = tempfile.mkdtemp(prefix="acestep_lora_")
+    base_params = h.params
+    lora = init_lora_params(LORA_SEED, base_params["decoder"], rank=LORA_RANK)
+    gen = torch.Generator().manual_seed(LORA_SEED)
+    for ab in lora.values():
+        ab["b"] = (torch.randn(ab["b"].shape, generator=gen) * LORA_B_STD).to(ab["b"].device)
+    path = os.path.join(tmp, "adapter.npz")
+    meta = {"rank": LORA_RANK, "alpha": float(LORA_RANK), "adapter_type": "lora", "step": 0}
+    np.savez(path, **{f"{p}|{k}": v.cpu().numpy() for p, ab in lora.items() for k, v in ab.items()},
+             __meta__=np.asarray(json.dumps(meta)))
+    file_bytes = os.path.getsize(path)
+
+    latents, merges = [], []
+    real_generate, real_effective = h.generate_music, h.lora.effective_decoder
+
+    def generate_spy(*a, **kw):
+        out = real_generate(*a, **kw)
+        latents.append(out["latents"])
+        return out
+
+    def effective_spy(base):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = real_effective(base)
+        torch.cuda.synchronize()
+        merges.append(time.time() - t0)
+        return out
+
+    h.generate_music, h.lora.effective_decoder = generate_spy, effective_spy
+    server = _start_server(h, os.path.join(tmp, "out"))
+    port = server.server_address[1]
+
+    def job():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        _wait_jobs(port, [_release(port, duration=30.0, seed=LORA_SEED, audio_format="wav")])
+        return latents[-1], time.time() - t0
+
+    def route(op: str, body: dict) -> dict:
+        status, out, _ = _http(port, "POST", f"/v1/lora/{op}", body)
+        if status != 200:
+            raise SystemExit(f"lora: /v1/lora/{op} answered {status}: {out[:300]}")
+        return json.loads(out)
+
+    try:
+        _reset_counters()
+        base, base_s = job()
+        loaded = route("load", {"name": "style", "path": path})
+        status = route("status", {})["adapters"]
+        on, on_s = job()
+        first_merge_s = merges[0] if merges else None
+        route("scale", {"name": "style", "scale": 0.5})
+        half, half_s = job()
+        toggled = route("toggle", {"name": "style", "enabled": False})
+        off, off_s = job()
+        server.shutdown()
+        server.server_close()
+        launches = _path_launches("lora path", ("flash_attention", "decoder_block", "res_units"))
+        unloaded = h.unload_lora("style")
+        h.lora.invalidate_cache()
+        # The same request on the base decoder with the adapter merged into it.
+        h.params = {**base_params, "decoder": merge_lora(base_params["decoder"], lora, alpha=float(LORA_RANK),
+                                                          rank=LORA_RANK)}
+        r = generate_music(h, None, GenerationParams(caption=CAPTION, lyrics=LYRICS, duration=30.0, seed=LORA_SEED,
+                                                     thinking=False), GenerationConfig(batch_size=1),
+                           save_audio=False)
+        if not r.success:
+            raise SystemExit(f"lora: the request on the merged decoder failed: {r.error}")
+        merged = latents[-1]
+    finally:
+        h.params = base_params
+        h.generate_music, h.lora.effective_decoder = real_generate, real_effective
+        for k in _WORKER_KNOBS:
+            os.environ.pop(k, None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    rel = lambda x, y: float(np.linalg.norm(x - y) / max(np.linalg.norm(y), 1e-12))
+    ok = (np.array_equal(on, merged) and np.array_equal(off, base) and not np.array_equal(half, on)
+          and not np.array_equal(half, base) and rel(on, base) >= LORA_MIN_REL_L2
+          and loaded.get("meta") == meta and status["style"]["enabled"] and toggled["enabled"] is False
+          and unloaded and h.lora_status() == {})
+    print(json.dumps(dict(
+        phase="lora b1x30s through /v1/lora/* (rank 32, 11 targets x 24 layers)", ok=ok,
+        adapter_file_bytes=file_bytes,
+        adapter_factor_bytes=sum(v.numel() * v.element_size() for ab in lora.values() for v in ab.values()),
+        products=len(lora), first_merge_s=first_merge_s, effective_decoder_calls_s=merges,
+        on_equals_merged=bool(np.array_equal(on, merged)), off_equals_base=bool(np.array_equal(off, base)),
+        rel_l2_on_base=rel(on, base), rel_l2_half_base=rel(half, base), rel_l2_half_on=rel(half, on),
+        min_rel_l2=LORA_MIN_REL_L2, job_walls_s=dict(base=base_s, on=on_s, half=half_s, off=off_s))), flush=True)
+    if not ok:
+        raise SystemExit("lora: adapter checks failed")
+    return launches
+
+
+# The LRC phase's capture on the card (bf16, kernel 1) against the same
+# capture on the CPU in fp32: relative L2 of each captured map at most this,
+# twice the largest reading (6.2e-3, layer 6) of the first run on an H100 80GB
+# HBM3; the inputs are seeded, so a run repeats it.
+LRC_CAPTURE_TOL = 1.3e-2
+
+
+def _lyric_lines(n: int) -> str:
+    """n lyric lines: section tags and sung lines."""
+    words = ("neon rain on the boulevard", "we drive until the morning light", "hold the wheel and feel the night",
+             "echoes in the empty street", "hearts that race beyond the beat", "city lights are calling out")
+    lines = []
+    for i in range(n):
+        lines.append("[Verse]" if i % 6 == 0 else ("[Chorus]" if i % 6 == 3 else words[i % len(words)]))
+    return "\n".join(lines)
+
+
+def run_lrc(h):
+    """Auto LRC and the lyric score at full width on the handler of phase 5:
+    a 1 x 60 s and a 1 x 240 s text2music request with 8 and 24 lyric lines
+    and `auto_lrc`, `auto_score` through `service.inference.generate_music`.
+    Checks: success; one LRC line per non-empty lyric line; sentence starts
+    non-decreasing, every stamp in [0, duration]; `lyrics_score` in [0, 1].
+    Prints the capture forward's time (between synchronises) and, apart, the
+    host's alignment time with its DTW share (`dtw_align`, a Python double
+    loop). The 60 s capture is held against the same capture on the CPU in
+    fp32 from the same inputs, layers 0-6 and the embedders copied there
+    (`LRC_CAPTURE_TOL`). The `lrc` path's launches are the two requests."""
+    from acestep_tpu_torch.models import dit
+    from acestep_tpu_torch.scoring import alignment, lyric_score
+    from acestep_tpu_torch.service.inference import generate_music
+    from acestep_tpu_torch.service.params import GenerationConfig, GenerationParams
+
+    real_capture, real_align, real_dtw = dit.dit_cross_attention_capture, h.align_lyrics, alignment.dtw_align
+    timings: dict = {"capture_s": [], "align_s": [], "dtw_s": []}
+    kept: dict = {}
+
+    def capture_spy(*a):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = real_capture(*a)
+        torch.cuda.synchronize()
+        timings["capture_s"].append(time.time() - t0)
+        kept.setdefault("args", a)
+        kept.setdefault("maps", {k: v.float().cpu() for k, v in out.items()})
+        return out
+
+    def align_spy(*a, **kw):
+        t0 = time.time()
+        out = real_align(*a, **kw)
+        timings["align_s"].append(time.time() - t0)
+        return out
+
+    def dtw_spy(cost):
+        t0 = time.time()
+        out = real_dtw(cost)
+        timings["dtw_s"][-1] += time.time() - t0
+        return out
+
+    dit.dit_cross_attention_capture, h.align_lyrics = capture_spy, align_spy
+    alignment.dtw_align = lyric_score.dtw_align = dtw_spy
+    readings = []
+    try:
+        _reset_counters()
+        for dur, n_lines, seed in ((60.0, 8, 61), (240.0, 24, 62)):
+            lyrics = _lyric_lines(n_lines)
+            timings["dtw_s"].append(0.0)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            r = generate_music(h, None, GenerationParams(caption=CAPTION, lyrics=lyrics, duration=dur, seed=seed,
+                                                         thinking=False, vocal_language="en", auto_lrc=True,
+                                                         auto_score=True),
+                               GenerationConfig(batch_size=1), save_audio=False)
+            wall = time.time() - t0
+            if not r.success:
+                raise SystemExit(f"lrc b1x{int(dur)}s failed: {r.error}")
+            a = r.audios[0]
+            stamps = a.get("sentence_timestamps") or []
+            starts = [s["start"] for s in stamps]
+            lines = [ln for ln in lyrics.split("\n") if ln.strip()]
+            score = a.get("lyrics_score")
+            ok = (len((a.get("lrc") or "").split("\n")) == len(lines) == len(stamps)
+                  and starts == sorted(starts)
+                  and all(0.0 <= s["start"] <= dur and 0.0 <= s["end"] <= dur for s in stamps)
+                  and score is not None and 0.0 <= score <= 1.0)
+            line = dict(phase=f"lrc b1x{int(dur)}s, {n_lines} lyric lines, auto_lrc + auto_score", ok=ok, wall_s=wall,
+                        capture_s=timings["capture_s"][-1], align_s=timings["align_s"][-1],
+                        dtw_s=timings["dtw_s"][-1], lrc_lines=len(stamps), lyric_lines=len(lines),
+                        lyrics_score=score, lrc_head=(a.get("lrc") or "")[:200], time_costs=r.extra_outputs["time_costs"])
+            readings.append(line)
+            print(json.dumps(line), flush=True)
+            if not ok:
+                raise SystemExit(f"lrc b1x{int(dur)}s: bad LRC or score: {line}")
+        launches = _path_launches("lrc path", ("flash_attention", "decoder_block", "res_units"))
+    finally:
+        dit.dit_cross_attention_capture, h.align_lyrics = real_capture, real_align
+        alignment.dtw_align = lyric_score.dtw_align = real_dtw
+
+    # The 60 s capture again on the CPU in fp32 from the same inputs.
+    p, cfg, *rest = kept["args"]
+    sub = {k: p[k] for k in ("time_embed", "time_embed_r", "condition_embedder", "proj_in")}
+    sub["layers"] = p["layers"][: max(rest[-1]) + 1]
+    sub = _tree_to(sub, "cpu", torch.float32)
+    cpu_args = [x.cpu().float() if torch.is_tensor(x) and x.is_floating_point() else
+                (x.cpu() if torch.is_tensor(x) else x) for x in rest]
+    t0 = time.time()
+    with torch.inference_mode():
+        want = real_capture(sub, cfg, *cpu_args)
+    cpu_s = time.time() - t0
+    errs = {int(k): float((kept["maps"][k] - want[k]).norm() / want[k].norm()) for k in want}
+    ok = max(errs.values()) <= LRC_CAPTURE_TOL
+    print(json.dumps(dict(phase="lrc capture b1x60s, card bf16 vs CPU fp32", ok=ok, rel_l2_per_layer=errs,
+                          tol=LRC_CAPTURE_TOL, shape=list(kept["maps"][min(kept["maps"])].shape),
+                          cpu_capture_s=cpu_s)), flush=True)
+    if not ok:
+        raise SystemExit(f"lrc capture against the CPU: {errs} > {LRC_CAPTURE_TOL}")
+    return launches
+
+
+# The narrow planner's sequence log-prob on the card (bf16) against the CPU
+# (fp32): relative difference of the total at most this, twice the reading
+# (2.3e-6) of the first run on an H100 80GB HBM3 (seeded inputs).
+SCORE_REF_TOL = 5e-6
+
+
+def run_scoring(dev, llm, codes: str):
+    """The LM reward score: `calculate_reward_score` with the 4B planner of
+    phase 6 on a thinking request's own codes (finite outputs;
+    `pmi_normalized`, `topk_recall` and `reward` in [0, 1]; its wall), its
+    launches the `scoring` path; then, outside that path, the narrow
+    planner of `run_small_thinking_reference` (head_dim 128) on the card in
+    bf16 against the CPU in fp32: `sequence_log_prob` of 600 tokens after the
+    codes prompt, within SCORE_REF_TOL."""
+    import math
+
+    from acestep_tpu_torch.config import Qwen3Config
+    from acestep_tpu_torch.lm.handler import LLMHandler
+    from acestep_tpu_torch.scoring.lm_score import calculate_reward_score, sequence_log_prob
+
+    _reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got = calculate_reward_score(llm, CAPTION, LYRICS, codes)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _path_launches("scoring path", ("flash_attention",))
+    ok = (all(math.isfinite(v) for v in got.values())
+          and all(0.0 <= got[k] <= 1.0 for k in ("pmi_normalized", "topk_recall", "reward")))
+    print(json.dumps(dict(phase="LM reward score, 4B planner, a thinking request's codes", ok=ok, wall_s=wall,
+                          **got)), flush=True)
+    if not ok:
+        raise SystemExit(f"LM reward score out of range: {got}")
+
+    cfg = Qwen3Config(vocab_size=1024, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                      num_attention_heads=2, num_key_value_heads=1, head_dim=128)
+    card = LLMHandler(cfg, device=dev)
+    card.initialize(random_init=True, seed=9)
+    cpu = LLMHandler(cfg, dtype=torch.float32, device="cpu")
+    cpu.initialize(random_init=True, seed=9)
+    cpu.params = _tree_to(card.params, "cpu", torch.float32)
+    prompt = card.build_formatted_prompt(CAPTION, LYRICS, generation_phase="codes")
+    cont = [int(x) for x in np.random.default_rng(3).integers(0, 256, 600)]
+    a, b = sequence_log_prob(card, prompt, cont), sequence_log_prob(cpu, prompt, cont)
+    err = abs(a[0] - b[0]) / abs(b[0])
+    ok = err <= SCORE_REF_TOL
+    print(json.dumps(dict(phase="narrow sequence_log_prob, card bf16 vs CPU fp32", ok=ok, card=a, cpu=b,
+                          rel_err=err, tol=SCORE_REF_TOL)), flush=True)
+    if not ok:
+        raise SystemExit(f"narrow sequence_log_prob: {a} against {b}")
+    return launches
+
+
 def _encode_kind(name: str) -> str:
     if any(t in name for t in ("conv", "cudnn", "gemm", "xmma", "nvjet", "cutlass", "sm90_", "implicit")):
         return "conv (cuDNN / GEMM)"
@@ -1833,12 +2137,16 @@ def main() -> int:
     audio = run_audio_requests(dit)
     base = run_base_requests(dit)
     serving, serving_direct = run_serving(dit, smi)
+    lora = run_lora(dit)
+    lrc = run_lrc(dit)
     thinking, llm, codes = run_thinking_requests(dev, dit)
     free_form = run_free_form(dit, llm, codes)
+    scoring = run_scoring(dev, llm, codes)
     del dit, llm
     torch.cuda.empty_cache()
     probe = run_probe_entry()
-    paths = (text2music, audio, base, serving, serving_direct, thinking, free_form, probe, checkpoint)
+    paths = (text2music, audio, base, serving, serving_direct, lora, lrc, thinking, free_form, scoring, probe,
+             checkpoint)
     launches = {k: sum(p[k] for p in paths) for k in text2music}
 
     narrow_src = "acestep_tpu_torch/csrc/oobleck_generic.cu"

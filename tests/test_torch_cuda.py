@@ -575,3 +575,83 @@ def test_decode_ladder_on_the_card(dev, monkeypatch):
     assert [p for p, _ in got_chunks] == [i * 96 * h.vae_config.hop_length for i in range(5)]
     np.testing.assert_array_equal(np.concatenate([c for _, c in got_chunks], axis=-1), got)
     np.testing.assert_array_equal(got, want)
+
+
+def _full_width_dit(dev, layers: int, dtype):
+    """The DiT at its shipped widths (2048 hidden, 16/8 × 128 heads), cut to
+    `layers` decoder layers, random weights on the card."""
+    from acestep_tpu_torch.config import AceStepConfig
+    from acestep_tpu_torch.params import init_acestep_params
+
+    cfg = AceStepConfig(num_hidden_layers=layers)
+    return cfg, init_acestep_params(cfg, seed=3, device=dev, dtype=dtype)
+
+
+def test_lora_effective_decoder_on_the_card_matches_cpu(dev, tmp_path):
+    """The registry's effective decoder on the card equals the CPU's at fp32
+    within the products' summation-order drift: two adapters of rank 32
+    over every target of 2 full-width layers, one scaled by 0.5."""
+    import json
+
+    import numpy as np
+
+    from acestep_tpu_torch.pipeline.lora_manager import LoRARegistry
+    from acestep_tpu_torch.training.lora import get_path, init_lora_params
+
+    cfg, params = _full_width_dit(dev, 2, torch.float32)
+    dec = params["decoder"]
+    cpu_dec = _to_dev(dec, "cpu")
+    reg_card, reg_cpu = LoRARegistry(dev), LoRARegistry("cpu")
+    paths = []
+    for i, scale in enumerate((1.0, 0.5)):
+        lora = init_lora_params(10 + i, cpu_dec, rank=32)
+        gen = torch.Generator().manual_seed(20 + i)
+        for ab in lora.values():
+            ab["b"] = torch.randn(ab["b"].shape, generator=gen) * 0.02
+        path = str(tmp_path / f"adapter{i}.npz")
+        np.savez(path, **{f"{p}|{k}": v.numpy() for p, ab in lora.items() for k, v in ab.items()},
+                 __meta__=np.asarray(json.dumps({"rank": 32, "alpha": 32.0})))
+        for reg in (reg_card, reg_cpu):
+            reg.load(f"a{i}", path)
+            reg.set_scale(f"a{i}", scale)
+        paths = list(lora)
+    assert len(paths) == 2 * 11
+    got, want = reg_card.effective_decoder(dec), reg_cpu.effective_decoder(cpu_dec)
+    for p in paths:
+        g, w = get_path(got, p.split("/")), get_path(want, p.split("/"))
+        assert g.device.type == "cuda" and g.dtype == torch.float32
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-7)
+        assert not torch.equal(w, get_path(cpu_dec, p.split("/")))
+
+
+def test_capture_full_width_flash_matches_plain(dev, monkeypatch):
+    """`dit_cross_attention_capture` at full width in bf16 over 4 layers of a
+    60 s request (750 patched frames: the self-attention takes kernel 1)
+    against the same capture with the plain attention on the card: the maps
+    agree to 3e-2 relative L2 (bf16 both; only the self-attention's route
+    differs)."""
+    from acestep_tpu_torch.models import dit
+    from acestep_tpu_torch.ops import attention as attn_mod
+
+    capture_tol = 3e-2
+    cfg, params = _full_width_dit(dev, 4, torch.bfloat16)
+    t, l_enc = 1500, 300
+    xt, ctx = _randn((1, t, 64), 1, dev), _randn((1, t, 128), 2, dev)
+    enc = _randn((1, l_enc, cfg.hidden_size), 3, dev)
+    mask = torch.ones((1, l_enc), dtype=torch.int32, device=dev)
+    mask[:, 260:] = 0
+    ts = torch.full((1,), 0.125, device=dev)
+    args = (params["decoder"], cfg, xt, ts, ctx, enc, mask, [1, 2, 3])
+    before = flash_attention.launches
+    got = dit.dit_cross_attention_capture(*args)
+    assert flash_attention.launches - before >= 3  # layers 0-3's self-attention, the captured ones twice
+    monkeypatch.setattr(attn_mod, "flash_wanted", lambda *a: False)
+    before = flash_attention.launches
+    want = dit.dit_cross_attention_capture(*args)
+    assert flash_attention.launches == before
+    for layer in (1, 2, 3):
+        g, w = got[layer].float(), want[layer].float()
+        assert g.shape == (1, cfg.num_attention_heads, l_enc, t // cfg.patch_size)
+        rel = float((g - w).norm() / w.norm())
+        assert torch.isfinite(g).all() and rel <= capture_tol, (layer, rel)
+        assert float(g[:, :, 260:].abs().max()) == 0.0

@@ -27,7 +27,11 @@ need = {"acestep_tpu_torch.lm.handler", "acestep_tpu_torch.lm.sampling", "aceste
         "acestep_tpu_torch.service.webui", "acestep_tpu_torch.utils.native_audio",
         "acestep_tpu_torch.utils.memory_config", "acestep_tpu_torch.utils.progress",
         "acestep_tpu_torch.utils.logbuffer", "acestep_tpu_torch.utils.local_cache",
-        "acestep_tpu_torch.utils.env", "acestep_tpu_torch.utils.downloader"}
+        "acestep_tpu_torch.utils.env", "acestep_tpu_torch.utils.downloader",
+        "acestep_tpu_torch.training", "acestep_tpu_torch.training.lora", "acestep_tpu_torch.training.trainer",
+        "acestep_tpu_torch.pipeline.lora_manager", "acestep_tpu_torch.scoring",
+        "acestep_tpu_torch.scoring.alignment", "acestep_tpu_torch.scoring.lyric_score",
+        "acestep_tpu_torch.scoring.lm_score"}
 missing = sorted(need - set(names))
 print(missing)
 sys.exit(1 if bad or missing or len(names) < 25 else 0)

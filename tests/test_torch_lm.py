@@ -334,8 +334,9 @@ def test_service_generate_music_with_thinking(lm_pair, monkeypatch, tmp_path):
     assert [len(TH.AceStepHandler.parse_audio_codes(c)) for c in seen["audio_code_strings"]] == [50, 50]
     assert "lm_codes_time_cost" in r.extra_outputs["time_costs"]
     # Ported since: a draft and an analysis request run (drafted caption in
-    # the entries; metadata without audio); auto LRC still raises. The draft
-    # runs at a small token budget (the API's default is 512).
+    # the entries; metadata without audio), and so does auto LRC (an LRC line
+    # per lyric line, on a head map the 2-layer DiT has). The draft runs at a
+    # small token budget (the API's default is 512).
     monkeypatch.setattr(tlm, "create_sample_from_query",
                         functools.partial(tlm.create_sample_from_query, max_new_tokens=32))
     r = generate_music(th, tlm, GenerationParams(caption="", sample_mode=True, duration=10.0, thinking=False,
@@ -347,8 +348,12 @@ def test_service_generate_music_with_thinking(lm_pair, monkeypatch, tmp_path):
     r = generate_music(th, tlm, GenerationParams(caption="x", analysis_only=True, lm_temperature=0.0, seed=3), cfg,
                        save_audio=False)
     assert r.success and r.audios == [] and "lm_metadata" in r.extra_outputs, r.error
-    with pytest.raises(NotImplementedError):
-        generate_music(th, tlm, GenerationParams(caption="x", auto_lrc=True), cfg)
+    th.custom_layers_config = {0: [1], 1: [2, 3]}
+    r = generate_music(th, tlm, GenerationParams(caption="x", lyrics="[Verse]\nhello\nworld", auto_lrc=True,
+                                                 duration=10.0, thinking=False, seed=3), cfg, save_audio=False)
+    assert r.success, r.error
+    assert [a["lrc"].count("\n") for a in r.audios] == [2, 2]
+    assert all(len(a["sentence_timestamps"]) == 3 and "lyrics_score" not in a for a in r.audios)
     # Ported since: a source audio that cannot be read fails the request (the
     # service reports failures in its result), and a repaint runs.
     r = generate_music(th, tlm, GenerationParams(caption="x", src_audio="x.wav", thinking=False), cfg,

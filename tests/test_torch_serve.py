@@ -419,10 +419,83 @@ def test_chat_completions(server):
     ("POST", "/v1/dataset/scan", "A.9"),
     ("GET", "/v1/dataset/samples", "A.9"),
     ("PUT", "/v1/dataset/sample/0", "A.9"),
-    ("POST", "/v1/lora/load", "A.7"),
-    ("POST", "/v1/lora/status", "A.7"),
 ])
 def test_unported_routes_name_their_slice(server, method, path, slice_name):
     status, out, _ = server.request(method, path, {} if method != "GET" else None)
     assert status == 501 and not out["success"]
     assert "not ported yet" in out["error"] and slice_name in out["error"] and path in out["error"]
+
+
+def test_lora_routes_lifecycle(server, dit, tmp_path, monkeypatch):
+    """`/v1/lora/*` over HTTP with JAX's bodies: load, status, scale, toggle,
+    unload; 400 on a missing field or an unknown name, 500 on an unreadable
+    file. The served latents under each state: on, they are a direct request
+    on the merged decoder bit for bit; at scale 0.5 they differ from on and
+    off; toggled off and unloaded, they are the base request bit for bit."""
+    from acestep_tpu_torch.training.lora import init_lora_params, merge_lora
+
+    lora = init_lora_params(0, dit.params["decoder"], rank=4)
+    gen = torch.Generator().manual_seed(1)
+    for ab in lora.values():
+        ab["b"] = torch.randn(ab["b"].shape, generator=gen) * 0.05
+    path = str(tmp_path / "adapter.npz")
+    meta = {"rank": 4, "alpha": 4.0, "adapter_type": "lora", "step": 3}
+    np.savez(path, **{f"{p}|{k}": v.numpy() for p, ab in lora.items() for k, v in ab.items()},
+             __meta__=np.asarray(json.dumps(meta)))
+    seen = []
+    orig = dit.generate_music
+
+    def spy(*a, **kw):
+        out = orig(*a, **kw)
+        seen.append(out["latents"])
+        return out
+
+    monkeypatch.setattr(dit, "generate_music", spy)
+
+    def served():
+        tid = server.release()
+        assert server.wait([tid])[tid]["status"] == 1
+        return seen[-1]
+
+    try:
+        base = served()
+        assert server.post("/v1/lora/load", {"name": "style", "path": path}) == (200, {"success": True,
+                                                                                       "meta": meta})
+        status, out = server.post("/v1/lora/status", {})
+        assert status == 200 and out["adapters"] == {"style": {"enabled": True, "scale": 1.0, "meta": meta,
+                                                               "path": path}}
+        on = served()
+        with monkeypatch.context() as mp:
+            mp.setattr(dit, "params", {**dit.params, "decoder": merge_lora(dit.params["decoder"], lora, alpha=4.0,
+                                                                           rank=4)})
+            mp.setattr(dit, "lora", TH.LoRARegistry())
+            from acestep_tpu_torch.service.inference import generate_music
+            from acestep_tpu_torch.service.params import GenerationConfig, GenerationParams
+
+            r = generate_music(dit, None, GenerationParams(**{k: v for k, v in JOB.items() if k != "batch_size"}),
+                               GenerationConfig(batch_size=1), save_audio=False)
+            assert r.success, r.error
+            np.testing.assert_array_equal(seen[-1], on)
+        assert server.post("/v1/lora/scale", {"name": "style", "scale": 0.5}) == (200, {"success": True})
+        half = served()
+        assert server.post("/v1/lora/toggle", {"name": "style", "enabled": False}) == (200, {"success": True,
+                                                                                             "enabled": False})
+        off = served()
+        np.testing.assert_array_equal(off, base)
+        for a, b in ((on, base), (half, base), (half, on)):
+            assert np.linalg.norm(a - b) / np.linalg.norm(b) > 1e-3
+        assert server.post("/v1/lora/toggle", {"name": "style"})[1]["enabled"] is True
+        for body, route in (({"name": "nope"}, "toggle"), ({"name": "nope", "scale": 2}, "scale"),
+                            ({"name": "style"}, "scale"), ({"path": path}, "load")):
+            status, out = server.post(f"/v1/lora/{route}", body)
+            assert status == 400 and not out["success"] and "missing/unknown" in out["error"], (route, out)
+        status, out = server.post("/v1/lora/load", {"name": "x", "path": str(tmp_path / "none.npz")})
+        assert status == 500 and not out["success"]
+        assert server.post("/v1/lora/unload", {"name": "style"}) == (200, {"success": True})
+        assert server.post("/v1/lora/unload", {"name": "style"}) == (200, {"success": False})
+        assert server.post("/v1/lora/status", {})[1]["adapters"] == {}
+        np.testing.assert_array_equal(served(), base)
+        assert server.get("/v1/lora/status")[0] == 404  # the routes are POST, as in JAX
+    finally:
+        for name in list(dit.lora_status()):
+            dit.unload_lora(name)
