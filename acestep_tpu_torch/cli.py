@@ -1,7 +1,9 @@
-"""Command-line interface of the port: `generate`, `generate-examples` and `serve`.
+"""Command-line interface of the port: `generate`, `generate-examples`, `serve`,
+`train` and `estimate`.
 
 Port of those subcommands of `acestep_tpu/cli.py`, with their flags, plus
-`--device` (the card unless `cpu` is asked for).
+`--device` (the card unless `cpu` is asked for); the mesh flags (`--dp`,
+`--sp`, `--tp`) come with multi-GPU (ROADMAP A.11).
 
 - `generate` runs the port's `service.inference.generate_music`;
   `--thinking` runs the 5 Hz LM planner (`LLMHandler()`, the 0.6B size)
@@ -15,10 +17,19 @@ Port of those subcommands of `acestep_tpu/cli.py`, with their flags, plus
   seed 0, so its examples repeat).
 - `serve` loads the DiT and the planner, runs `--warmup` requests, and
   starts the REST server (`service.api_server`), printing the port it bound.
+- `train` fine-tunes a LoRA adapter on a preprocessed dataset
+  (`training.dataset.PreprocessedDataset`) against the handler's own
+  weights, `handler.params` as they are (the port's decoder layers are
+  already the per-layer list the trainer takes); it writes `metrics.jsonl`,
+  `checkpoints/step_N.pt` and `adapter.npz` under `--output-dir`.
+- `estimate` ranks the decoder's attention projections by gradient
+  sensitivity over `--num-batches` batches (`training.estimate`).
 
 Run as ``python -m acestep_tpu_torch.cli generate --random-init --thinking --caption "..."``,
 ``python -m acestep_tpu_torch.cli generate-examples --random-init --num 3`` or
-``python -m acestep_tpu_torch.cli serve --random-init --port 8001 --warmup 1x30``.
+``python -m acestep_tpu_torch.cli serve --random-init --port 8001 --warmup 1x30``,
+``python -m acestep_tpu_torch.cli train --random-init --dataset-dir data --max-steps 100`` or
+``python -m acestep_tpu_torch.cli estimate --random-init --dataset-dir data --json-out ranks.json``.
 """
 
 from __future__ import annotations
@@ -171,6 +182,63 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    from acestep_tpu_torch.pipeline.handler import AceStepHandler
+    from acestep_tpu_torch.training.dataset import PreprocessedDataset
+    from acestep_tpu_torch.training.trainer import LoRAConfig, LoRATrainer, TrainingConfig
+
+    handler = AceStepHandler(device=args.device)
+    print(handler.initialize_service(args.checkpoint_dir, random_init=args.random_init or None), flush=True)
+    ds = PreprocessedDataset(args.dataset_dir)
+    # Training starts from the weights the handler serves; no second copy.
+    trainer = LoRATrainer(
+        handler.params,
+        handler.config,
+        LoRAConfig(rank=args.rank, alpha=args.alpha),
+        TrainingConfig(
+            learning_rate=args.lr,
+            max_steps=args.max_steps,
+            batch_size=args.batch_size,
+            output_dir=args.output_dir,
+            resume_from=args.resume_from,
+        ),
+    )
+    for step, _, msg in trainer.train(ds.batches(args.batch_size)):
+        if step % 10 == 0 or "[checkpoint]" in msg:
+            print(msg, flush=True)
+    print(f"done: adapter at {os.path.join(args.output_dir, 'adapter.npz')}")
+    return 0
+
+
+def cmd_estimate(args) -> int:
+    """Gradient-sensitivity ranking of the decoder's attention projections."""
+    from acestep_tpu_torch.pipeline.handler import AceStepHandler
+    from acestep_tpu_torch.training.dataset import PreprocessedDataset
+    from acestep_tpu_torch.training.estimate import run_estimation
+
+    handler = AceStepHandler(device=args.device)
+    print(handler.initialize_service(args.checkpoint_dir, random_init=args.random_init or None), flush=True)
+    ds = PreprocessedDataset(args.dataset_dir)
+    results = run_estimation(
+        handler.params, handler.config, ds.batches(args.batch_size, shuffle=False),
+        num_batches=args.num_batches, top_k=args.top_k, granularity=args.granularity, cfg_ratio=args.cfg_ratio,
+    )
+    print(f"{'rank':>4} {'sensitivity':>14}  module")
+    for i, r in enumerate(results):
+        print(f"{i + 1:>4} {r['sensitivity']:>14.5f}  {r['module']}")
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(results, f, indent=2)
+    return 0
+
+
+def _model_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--checkpoint-dir", default=os.environ.get("ACESTEP_CONFIG_PATH"))
+    p.add_argument("--lm-checkpoint-dir", default=os.environ.get("ACESTEP_LM_MODEL_PATH"))
+    p.add_argument("--random-init", action="store_true", help="dev mode: random weights")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+
 def main(argv=None) -> int:
     from acestep_tpu_torch.utils.env import load_dotenv
 
@@ -218,6 +286,29 @@ def main(argv=None) -> int:
                    help="request shapes to run before binding the port, e.g. '1x30,2x60' "
                         "(batch x duration-seconds); the token 'lm' runs one planner draft")
     s.set_defaults(fn=cmd_serve)
+
+    t = sub.add_parser("train", help="LoRA fine-tune from preprocessed tensors")
+    _model_args(t)
+    t.add_argument("--dataset-dir", required=True)
+    t.add_argument("--output-dir", default="./lora_output")
+    t.add_argument("--rank", type=int, default=32)
+    t.add_argument("--alpha", type=float, default=32.0)
+    t.add_argument("--lr", type=float, default=1e-4)
+    t.add_argument("--max-steps", type=int, default=1000)
+    t.add_argument("--batch-size", type=int, default=1)
+    t.add_argument("--resume-from", default=None, help="a checkpoints/step_N.pt file of an earlier run")
+    t.set_defaults(fn=cmd_train)
+
+    e = sub.add_parser("estimate", help="rank attention modules by gradient sensitivity")
+    _model_args(e)
+    e.add_argument("--dataset-dir", required=True)
+    e.add_argument("--num-batches", type=int, default=10)
+    e.add_argument("--batch-size", type=int, default=1)
+    e.add_argument("--top-k", type=int, default=16)
+    e.add_argument("--granularity", choices=["module", "layer"], default="module")
+    e.add_argument("--cfg-ratio", type=float, default=0.0)
+    e.add_argument("--json-out", default=None)
+    e.set_defaults(fn=cmd_estimate)
     args = ap.parse_args(argv)
     return args.fn(args)
 

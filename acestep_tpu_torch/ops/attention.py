@@ -1,10 +1,13 @@
 """Grouped-query attention with causal / sliding-window and padding masks.
 
 Port of `acestep_tpu/ops/attention.py`. Two paths behind one interface, with
-the JAX package's gate (`_flash_wanted`): head_dim % 128 == 0 and
-min(Lq, Lk) >= 256 goes to the banded flash kernel (`ops/flash_attention`,
-a CUDA kernel on the card); anything else runs the einsum with an fp32
-softmax, as the JAX package does outside Pallas.
+the JAX package's gate (`_flash_wanted`: `set_flash_enabled` first, then
+`ACESTEP_TPU_NO_FLASH=1` off, then head_dim % 128 == 0 and min(Lq, Lk) >= 256)
+on every device: the banded flash kernel (`ops/flash_attention`, a CUDA kernel
+on the card, its plain version for a CPU tensor) through `FlashAttention`,
+whose backward recomputes the einsum path as JAX's `_flash_diff` does;
+anything else runs the einsum with an fp32 softmax, as the JAX package does
+outside Pallas.
 
 Mask semantics follow the reference's `create_4d_mask`: a boolean "allowed"
 geometry (causal and/or |i-j| <= window) AND-ed with a key-padding mask.
@@ -12,14 +15,26 @@ geometry (causal and/or |i-j| <= window) AND-ed with a key-padding mask.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 
 FLASH_MIN_LEN = 256
+_flash_override: Optional[bool] = None
+
+
+def set_flash_enabled(value: Optional[bool]) -> None:
+    """Force the flash path on or off (None: the shape gate decides)."""
+    global _flash_override
+    _flash_override = value
 
 
 def flash_wanted(lq: int, lk: int, head_dim: int) -> bool:
+    if _flash_override is not None:
+        return _flash_override
+    if os.environ.get("ACESTEP_TPU_NO_FLASH", "0") == "1":
+        return False
     return head_dim % 128 == 0 and min(lq, lk) >= FLASH_MIN_LEN
 
 
@@ -82,6 +97,40 @@ def attention_xla(
     return out.reshape(b, lq, nq, h).to(q.dtype)
 
 
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention, the counterpart of JAX's `_flash_diff`.
+
+    Forward: `flash_attention` on whichever route the dtype takes (the bf16 or
+    fp32 kernel on the card, the plain version on the CPU). The kernels are
+    ctypes calls on raw pointers, so autograd cannot see through them; the
+    backward recomputes `make_attention_bias` + `attention_xla` on detached
+    copies of q, k, v and differentiates that, as `_flash_diff_bwd` does: no
+    probabilities are stored, the O(L^2) recompute is in the backward only.
+    The mask and the static arguments get no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, window, causal, scale):
+        from acestep_tpu_torch.ops.flash_attention import flash_attention
+
+        ctx.save_for_backward(q, k, v, kv_mask)
+        ctx.statics = (window, causal, scale)
+        return flash_attention(q, k, v, kv_mask, scale=scale, window=window, causal=causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_mask = ctx.saved_tensors
+        window, causal, scale = ctx.statics
+        with torch.enable_grad():
+            qd, kd, vd = (x.detach().requires_grad_(True) for x in (q, k, v))
+            mask = make_attention_bias(
+                q.shape[1], k.shape[1], kv_mask=kv_mask, window=window, causal=causal, device=q.device
+            )
+            out = attention_xla(qd, kd, vd, mask=mask, scale=scale)
+            dq, dk, dv = torch.autograd.grad(out, (qd, kd, vd), g)
+        return dq, dk, dv, None, None, None, None
+
+
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -95,9 +144,8 @@ def attention(
     """Structured-mask attention; dispatches to the flash kernel or the einsum."""
     lq, lk = q.shape[1], k.shape[1]
     if flash_wanted(lq, lk, q.shape[-1]):
-        from acestep_tpu_torch.ops.flash_attention import flash_attention
-
-        return flash_attention(q, k, v, kv_mask, scale=scale, window=window, causal=causal)
+        scale = q.shape[-1] ** -0.5 if scale is None else scale
+        return FlashAttention.apply(q, k, v, kv_mask, window, causal, scale)
     mask = None
     if kv_mask is not None or window is not None or causal:
         mask = make_attention_bias(

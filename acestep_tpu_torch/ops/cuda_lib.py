@@ -25,7 +25,9 @@ from typing import Dict, Iterable, Sequence, Tuple
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("flash_attention", "oobleck", "oobleck_sm90", "oobleck_generic", "attention_probe")
+SOURCES = (
+    "flash_attention", "flash_attention_f32", "oobleck", "oobleck_sm90", "oobleck_generic", "attention_probe",
+)
 _HEADERS = ("common.cuh", "sm90.cuh", "attention_sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

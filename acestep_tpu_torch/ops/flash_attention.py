@@ -1,16 +1,24 @@
-"""Banded flash attention: CUDA kernel wrapper and its plain PyTorch version.
+"""Banded flash attention: CUDA kernel wrappers and their plain PyTorch version.
 
 Port of `acestep_tpu/ops/pallas_attention.py::flash_attention` (Pallas kernel
-`_band_kernel`). The kernel is `csrc/flash_attention.cu` on the Hopper
-mainloop of `csrc/attention_sm90.cuh`: one CTA per (128-row q tile, q head,
-batch), TMA loads of 128-key K/V tiles into a ring fed by a producer thread,
-wgmma products and an online softmax over only the key tiles inside the
-band; its source note gives what bounds it on an H100.
+`_band_kernel`), which keeps the storage dtype and accumulates in fp32. Two
+routes by dtype:
 
-`flash_attention` launches the kernel for a CUDA tensor (bf16, head_dim 128,
-rows that TMA can read: see `_rows_ok`) and raises on anything it does not
-take, without copying; a CPU tensor takes `flash_attention_plain`, the einsum
-with an fp32 softmax. `.launches` counts the kernel launches.
+- bf16 (serving): `csrc/flash_attention.cu` on the Hopper mainloop of
+  `csrc/attention_sm90.cuh`: one CTA per (128-row q tile, q head, batch), TMA
+  loads of 128-key K/V tiles into a ring fed by a producer thread, wgmma
+  products and an online softmax over only the key tiles inside the band;
+- fp32 (training, where the JAX package runs the DiT in fp32):
+  `csrc/flash_attention_f32.cu`, SIMT fp32 FMAs (no TF32): one CTA per
+  (64-row q tile, q head, batch), 64-key K/V tiles through a two-stage
+  cp.async ring, the same band, mask and online softmax.
+
+Each source note gives what bounds it on an H100. `flash_attention` launches
+a kernel for a CUDA tensor (head_dim 128, rows with 16-byte strides and base:
+see `_rows_ok`) and raises on anything it does not take, any other dtype
+included, without copying; a CPU tensor takes `flash_attention_plain`, the
+einsum with an fp32 softmax. `.launches` counts the bf16 route's launches,
+`.f32_launches` the fp32 route's.
 """
 
 from __future__ import annotations
@@ -26,11 +34,10 @@ from acestep_tpu_torch.ops.attention import attention_xla, make_attention_bias
 HEAD_DIM = 128
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
-_SIGNATURES = {
-    "acestep_flash_attention": (
-        [_P] * 5 + [ctypes.c_int] * 5 + [_LL] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
-        ctypes.c_int,
-    ),
+_ARGS = [_P] * 5 + [ctypes.c_int] * 5 + [_LL] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, _P]
+_ROUTES = {  # dtype -> (library, C entry point, launch counter)
+    torch.bfloat16: ("flash_attention", "acestep_flash_attention", "launches"),
+    torch.float32: ("flash_attention_f32", "acestep_flash_attention_f32", "f32_launches"),
 }
 
 
@@ -51,13 +58,15 @@ def flash_attention_plain(
 
 
 def _rows_ok(x: torch.Tensor) -> bool:
-    """(B, L, N, 128) readable by a TMA tensor map through its batch and row
-    strides: heads packed, strides and base address multiples of 16 bytes."""
+    """(B, L, N, 128) readable in 16-byte pieces (a TMA tensor map, or
+    cp.async) through its batch and row strides: heads packed, strides and
+    base address multiples of 16 bytes."""
+    per16 = 16 // x.element_size()
     return (
         x.stride(3) == 1
         and x.stride(2) == HEAD_DIM
-        and x.stride(1) % 8 == 0
-        and x.stride(0) % 8 == 0
+        and x.stride(1) % per16 == 0
+        and x.stride(0) % per16 == 0
         and x.data_ptr() % 16 == 0
     )
 
@@ -80,8 +89,8 @@ def flash_attention(
         raise ValueError(f"flash_attention: unsupported shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
     if nq % nkv:
         raise ValueError("flash_attention: q heads must be a multiple of kv heads")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise ValueError(f"flash_attention: the kernel takes bf16, got {q.dtype}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _ROUTES:
+        raise ValueError(f"flash_attention: the kernels take bf16 or fp32, got {q.dtype}, {k.dtype}, {v.dtype}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not _rows_ok(x):
             raise ValueError(
@@ -93,8 +102,9 @@ def flash_attention(
         mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((b, lq, nq, h), dtype=q.dtype, device=q.device)
     scale = h**-0.5 if scale is None else scale
-    lib = cuda_lib.load("flash_attention", _SIGNATURES)
-    rc = lib.acestep_flash_attention(
+    lib_name, entry, counter = _ROUTES[q.dtype]
+    lib = cuda_lib.load(lib_name, {entry: (_ARGS, ctypes.c_int)})
+    rc = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
         out.data_ptr(), b, lq, lk, nq, nkv,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
@@ -102,9 +112,10 @@ def flash_attention(
         float(scale), -1 if window is None else int(window), int(bool(causal)),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    cuda_lib.check(rc, "flash_attention")
-    flash_attention.launches += 1
+    cuda_lib.check(rc, lib_name)
+    setattr(flash_attention, counter, getattr(flash_attention, counter) + 1)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.f32_launches = 0

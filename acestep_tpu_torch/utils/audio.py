@@ -1,9 +1,11 @@
 """Host-side audio I/O: read, resample and save (numpy, scipy, the native codec).
 
 A copy of `acestep_tpu/utils/audio.py`. Reading: WAV through
-`scipy.io.wavfile`, FLAC through the pure-Python decoder (`utils/flac.py`)
-when ffmpeg is missing, every other format through ffmpeg, which raises when
-there is none; resampling through scipy's polyphase filter. Saving
+`scipy.io.wavfile`, FLAC through the native decoder (`utils/native_audio.py`,
+then the pure-Python `utils/flac.py` for a stream it finds malformed) when
+ffmpeg is missing, every other format through ffmpeg, which raises when there
+is none; resampling through the native polyphase resampler (scipy's for
+layouts other than (C, L)). Saving
 (`save_audio`): WAV (16-bit, or 32-bit float as "wav32"), FLAC through the
 native encoder (`utils/native_audio.py`, which raises rather than fall back),
 every other format through ffmpeg, or WAV when there is no ffmpeg, as the JAX
@@ -28,8 +30,15 @@ import numpy as np
 
 
 def resample(audio: np.ndarray, sr_in: int, sr_out: int, axis: int = -1) -> np.ndarray:
+    """(C, L) along L through the native polyphase resampler, as the JAX
+    package does (its channels all at their own offsets here, see
+    `native_audio.resample`); any other layout through scipy's."""
     if sr_in == sr_out:
         return audio
+    if audio.ndim == 2 and axis in (-1, 1):
+        from acestep_tpu_torch.utils import native_audio
+
+        return native_audio.resample(audio.astype(np.float32), sr_in, sr_out)
     from scipy.signal import resample_poly
 
     g = gcd(sr_in, sr_out)
@@ -141,10 +150,14 @@ def load_audio(path: str, target_sr: int = 48_000) -> np.ndarray:
             data = data.astype(np.float32)
         audio = data.T if data.ndim == 2 else data[None]
     elif path.lower().endswith(".flac") and _ffmpeg() is None:
-        from acestep_tpu_torch.utils import flac
+        # The native decoder (the full frame grammar) first; the pure-Python
+        # one when it finds the stream malformed, as the JAX package reads.
+        from acestep_tpu_torch.utils import flac, native_audio
 
         with open(path, "rb") as f:
-            pcm, sr, bps = flac.decode(f.read())
+            blob = f.read()
+        got = native_audio.flac_decode(blob)
+        pcm, sr, bps = got if got is not None else flac.decode(blob)
         audio = pcm.astype(np.float32) / float(1 << (bps - 1))
     else:
         ff = _ffmpeg()

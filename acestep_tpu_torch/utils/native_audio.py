@@ -23,6 +23,7 @@ import platform
 import shutil
 import subprocess
 import threading
+from math import gcd
 from pathlib import Path
 from typing import Optional
 
@@ -177,11 +178,21 @@ def flac_decode(blob: bytes):
 
 
 def resample(audio: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
-    """(ch, n) planar float resampling (Kaiser-windowed-sinc polyphase)."""
+    """(ch, n) planar float resampling (Kaiser-windowed-sinc polyphase).
+
+    The C code writes channel c at ``out + c * out_len`` with
+    ``out_len = n * up // down`` (the reduced ratio), so the rows are
+    allocated exactly that long. The JAX package's wrapper allocates
+    ``ceil(n * sr_out / sr_in) + 8`` columns a row, which shifts every channel
+    after the first by those spare columns (ROADMAP C, deviations)."""
     if sr_in == sr_out:
         return audio
     a = np.ascontiguousarray(audio, np.float32)
     ch, n = a.shape
-    out = np.zeros((ch, int(np.ceil(n * sr_out / sr_in)) + 8), np.float32)
+    g = gcd(sr_in, sr_out)
+    out_len = n * (sr_out // g) // (sr_in // g)
+    out = np.zeros((ch, out_len), np.float32)
     got = _load().as_resample_poly(_ptr(a, ctypes.c_float), n, ch, sr_in, sr_out, _ptr(out, ctypes.c_float))
-    return out[:, :got]
+    if got != out_len:
+        raise RuntimeError(f"resample {sr_in} -> {sr_out}: {got} samples a channel, expected {out_len}")
+    return out

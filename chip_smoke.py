@@ -70,12 +70,28 @@ Phases, each fatal on failure:
      reward score on a thinking request's codes (`run_scoring`), and the
      narrow planner's `sequence_log_prob` on the card against the CPU;
   7. the probe's entry point (`acestep_tpu_torch.tools.probe_kernel_parts`);
-  8. a `{"kernels": [...]}` JSON line, then the `{"ok": true, ...}` line last.
+  8. training: kernel 1's fp32 route against its plain version at the
+     training path's shapes (`run_f32_attention_phase`, run with phase 3's
+     kernel checks: fp32, TF32 off, within `F32_ROUTE_TOL`; times beside the
+     fp32 bound at 67 TFLOP/s and SDPA in fp32); the narrow config's LoRA loss
+     and gradients on the card against
+     the CPU in fp32 within `TRAIN_GRAD_TOL`, and `FlashAttention`'s backward
+     against the plain path's autograd on the card, bf16 and fp32, bit for bit
+     (`run_train_grads`); a full-width LoRA run through `LoRATrainer.train`
+     (`run_lora_training`: the turbo decoder in bf16, rank 32, fp32 60 s
+     samples written with `save_sample`; 6 steps at batch 1, MultiSteps over
+     2 x 2 micro-batches at batch 2, one step with a NaN that must keep the
+     factors; step time, peak allocated memory, losses, and the fp32 route's
+     launches, 48 a forward and none in the backward), then the adapter.npz
+     it wrote served on a 1 x 30 s request, equal bit for bit to the same
+     request on the decoder with the adapter merged in;
+  9. a `{"kernels": [...]}` JSON line, then the `{"ok": true, ...}` line last.
      In it a kernel's `ms`, `plain_ms`, `library_ms` and `bound_ms` are sums
      over its phase-3 shapes, `max_abs_err` their maximum, and `launches` the
      sum over the paths of phases 4 (checkpoint_tiny), 5 (text2music, audio
      inputs, base, serving, the serving phase's direct calls, lora, lrc), 6
-     (thinking, free-form, scoring) and 7 (the
+     (thinking, free-form, scoring), 8 (training, the trained adapter
+     served; the fp32 route's launches are `flash_attention_f32`'s) and 7 (the
      Oobleck kernels' narrow-route calls also in `narrow_launches`). Each
      path is driven with every launch counter set to 0 just before it and
      read just after, and fails if one of its kernels was never launched or
@@ -102,8 +118,11 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+PEAK_F32_FLOPS = 67e12  # fp32 outside the tensor cores (H100 SXM data sheet)
+
+
+def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> tuple:
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -674,6 +693,7 @@ def _path_launches(path: str, need, narrow: Optional[dict] = None) -> dict:
     part takes a Hopper instance)."""
     counters = _counters()
     launches = {k: fn.launches for k, fn in counters.items()}
+    launches["flash_attention_f32"] = counters["flash_attention"].f32_launches
     got = {k: counters[k].narrow_launches for k in _OOBLECK}
     want = {k: (narrow or {}).get(k, 0) for k in _OOBLECK}
     print(json.dumps(dict(phase=f"{path} launches", launches=launches, narrow_launches=got,
@@ -689,6 +709,7 @@ def _path_launches(path: str, need, narrow: Optional[dict] = None) -> dict:
 def _reset_counters() -> None:
     for fn in _counters().values():
         fn.launches = 0
+    _counters()["flash_attention"].f32_launches = 0
     for k in _OOBLECK:
         _counters()[k].narrow_launches = 0
 
@@ -2072,6 +2093,336 @@ def _logits_route(llm, rows: int) -> None:
         raise SystemExit(f"fp32 logits route disagrees with the upcast product: {err}")
 
 
+# ---------------------------------------------------------------------------
+# Training (phase 8)
+# ---------------------------------------------------------------------------
+
+# The fp32 route against its plain version (fp32, TF32 off) at the training
+# shapes: max abs error at most this, twice the largest reading (1.55e-6, the
+# full-width cross case at 768 tokens) on an H100 80GB HBM3 at 700 W. Both
+# sides sum fp32 products in other orders, and the kernel's online softmax
+# rescales its partial sums. The inputs come from the script's seeded
+# generator in a fixed order, so a run repeats the reading.
+F32_ROUTE_TOL = 3.1e-6
+# The narrow config's LoRA loss and gradients, card (fp32 activations, the
+# fp32 route, the recompute backward) against the CPU (fp32, plain): relative
+# error of the loss, and each gradient's max abs error over its largest entry.
+# Twice the first run's largest reading (7.2e-6, a cross-attention v_proj
+# gradient; the losses were equal); the inputs are seeded, so a run repeats it.
+TRAIN_GRAD_TOL = 1.5e-5
+TRAIN_T, TRAIN_L, TRAIN_L_VALID = 1500, 512, 480  # a 60 s sample: latent frames, encoder rows, valid rows
+
+
+def f32_attention_cases(dev, gen):
+    """The training path's attention in fp32. Full width, 16 q / 8 kv heads
+    of 128: a 60 s sample is 750 patched tokens, which `PreprocessedDataset`
+    pads to 768 (1500 latent frames to 1536) with the tail masked; each of
+    sliding w = 128, full, and cross onto 512 encoder rows (480 valid) at 750
+    tokens and at the padded 768 the run feeds the kernel. The narrow config
+    of `run_train_grads` (1024 frames: 512 tokens, 2 / 1 heads; cross onto
+    300 keys), batch 2 with the second row padded."""
+
+    def qkv(b, lq, lk, nq, nkv):
+        mk = lambda l, n: torch.randn((b, l, n, 128), generator=gen, device=dev)
+        return mk(lq, nq), mk(lk, nkv), mk(lk, nkv)
+
+    def prefix(l, *valid):
+        m = torch.zeros((len(valid), l), dtype=torch.int32, device=dev)
+        for i, n in enumerate(valid):
+            m[i, :n] = 1
+        return m
+
+    enc = prefix(TRAIN_L, TRAIN_L_VALID)
+    full_width = []
+    for l, lat in ((750, prefix(750, 750)), (768, prefix(768, 750))):
+        full_width += [
+            (f"dit_self_sliding_60s_train_{l}", qkv(1, l, l, 16, 8), dict(kv_mask=lat, window=128)),
+            (f"dit_self_full_60s_train_{l}", qkv(1, l, l, 16, 8), dict(kv_mask=lat)),
+            (f"dit_cross_60s_train_{l}", qkv(1, l, TRAIN_L, 16, 8), dict(kv_mask=enc)),
+        ]
+    return full_width + [
+        ("narrow_self_sliding_train", qkv(2, 512, 512, 2, 1), dict(kv_mask=prefix(512, 512, 500), window=128)),
+        ("narrow_self_full_train", qkv(2, 512, 512, 2, 1), dict(kv_mask=prefix(512, 512, 500))),
+        ("narrow_cross_train", qkv(2, 512, 300, 2, 1), dict(kv_mask=prefix(300, 300, 260))),
+    ]
+
+
+def run_f32_attention_phase(dev, gen, results):
+    """Kernel 1's fp32 route against its plain version at the training
+    shapes: error, CUDA-event and profiler times, the plain version's time,
+    SDPA on the same fp32 inputs and boolean mask, and the bound (fp32
+    operations at 67 TFLOP/s against the bytes at 3.35 TB/s)."""
+    import torch.nn.functional as F
+
+    from acestep_tpu_torch.ops.attention import make_attention_bias
+    from acestep_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    for name, (q, k, v), kw in f32_attention_cases(dev, gen):
+        run = lambda: flash_attention(q, k, v, kw["kv_mask"], window=kw.get("window"))
+        before = flash_attention.f32_launches
+        out = run()
+        torch.cuda.synchronize()
+        ref = flash_attention_plain(q, k, v, kw["kv_mask"], window=kw.get("window"))
+        err = (out - ref).abs().max().item()
+        ok = bool(err <= F32_ROUTE_TOL) and bool(torch.isfinite(out).all()) and out.dtype == torch.float32 \
+            and flash_attention.f32_launches == before + 1
+        mask = make_attention_bias(q.shape[1], k.shape[1], kv_mask=kw["kv_mask"], window=kw.get("window"), device=dev)
+        pairs = mask.expand(q.shape[0], 1, q.shape[1], k.shape[1]).sum().item()
+        flops = 4.0 * pairs * q.shape[2] * q.shape[3]
+        b_ms, b_by = bound_ms(flops, nbytes(q, k, v, out) + kw["kv_mask"].numel() * 4, PEAK_F32_FLOPS)
+        k_ms = time_ms(run, 20)
+        d_ms = device_ms(run, 10, {"flash_f32_kernel": 1})
+        p_ms = time_ms(lambda: flash_attention_plain(q, k, v, kw["kv_mask"], window=kw.get("window")), 3)
+        # Yardstick only: SDPA on the same fp32 inputs (the port never calls it).
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        reps = q.shape[2] // k.shape[2]
+        kt, vt = kt.repeat_interleave(reps, 1), vt.repeat_interleave(reps, 1)
+        l_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), 20)
+        del qt, kt, vt
+        line = dict(phase=f"kernel flash_attention_f32 {name}", ok=ok, max_abs_err=err, tol=F32_ROUTE_TOL,
+                    kernel_ms=k_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                    tflops=flops / (d_ms * 1e9), shapes=dict(q=list(q.shape), k=list(k.shape)))
+        print(json.dumps(line), flush=True)
+        results.setdefault("flash_attention_f32", []).append(line)
+        if not ok:
+            raise SystemExit(f"flash_attention_f32 {name}: max_abs_err {err} > {F32_ROUTE_TOL}")
+
+
+def _backward_vs_plain(dev, dtype, lq, lk, kw) -> float:
+    """Max |difference| of q, k, v gradients: `FlashAttention` (the kernel's
+    forward, the recompute backward) against the plain path under autograd,
+    with a loss linear in the output (so the two backwards see the same
+    cotangent). 0 when they agree bit for bit."""
+    from acestep_tpu_torch.ops import attention as attn
+
+    g = torch.Generator(device=dev).manual_seed(lq + lk)
+    base = [torch.randn((1, l, n, 128), generator=g, device=dev).to(dtype) for l, n in ((lq, 16), (lk, 8), (lk, 8))]
+    w = torch.randn((1, lq, 16, 128), generator=g, device=dev)
+    grads = []
+    for flash in (True, False):
+        attn.set_flash_enabled(flash)
+        try:
+            leaves = [x.clone().requires_grad_(True) for x in base]
+            (attn.attention(*leaves, **kw).float() * w).sum().backward()
+            grads.append([x.grad.float() for x in leaves])
+        finally:
+            attn.set_flash_enabled(None)
+    return max((a - b).abs().max().item() for a, b in zip(*grads))
+
+
+def run_train_grads(dev):
+    """The LoRA loss and gradients at the narrow config (head_dim 128, so
+    kernel 1 fires): 2 x 1024 latent frames (512 patched tokens, the second
+    row 1000 valid), 300 encoder rows (260 valid in the second row), rank 8
+    over every target with nonzero B, fp32 weights, the same draws. Card
+    against the CPU; then `FlashAttention`'s backward against the plain
+    path's autograd on the card, bf16 and fp32, at the full-width training
+    shapes."""
+    from acestep_tpu_torch.ops.flash_attention import flash_attention
+    from acestep_tpu_torch.params import init_acestep_params
+    from acestep_tpu_torch.training.lora import init_lora_params
+    from acestep_tpu_torch.training.train_step import full_fp32, sample_draws, value_and_grad
+    from acestep_tpu_torch.training.trainer import LoRAConfig, TrainingConfig, decoder_flow_matching_loss, to_device_batch
+
+    cfg = _small_cfgs()[0]
+    params = init_acestep_params(cfg, seed=7, device=dev, dtype=torch.float32)
+    lora = init_lora_params(8, params["decoder"], rank=8)
+    gen = torch.Generator().manual_seed(9)
+    for ab in lora.values():
+        ab["b"] = (torch.randn(ab["b"].shape, generator=gen) * 0.05).to(dev)
+    rng = np.random.default_rng(10)
+    b, t, l = 2, 1024, 300
+    batch = {
+        "target_latents": rng.standard_normal((b, t, 64)).astype(np.float32),
+        "context_latents": rng.standard_normal((b, t, 128)).astype(np.float32),
+        "attention_mask": np.ones((b, t), np.int32),
+        "encoder_hidden_states": rng.standard_normal((b, l, cfg.hidden_size)).astype(np.float32),
+        "encoder_attention_mask": np.ones((b, l), np.int32),
+    }
+    batch["attention_mask"][1, 1000:] = 0
+    batch["encoder_attention_mask"][1, 260:] = 0
+    draws = sample_draws(torch.Generator().manual_seed(11), (b, t, 64))
+    lcfg, tcfg = LoRAConfig(rank=8, alpha=8.0), TrainingConfig(cfg_ratio=float(draws["u"].mean()))
+
+    def loss_and_grads(p, factors, device):
+        tb = to_device_batch(batch, device)
+        fn = lambda fac: decoder_flow_matching_loss(fac, p["decoder"], p["null_condition_emb"], cfg, lcfg, tcfg, tb,
+                                                    draws=draws)
+        with full_fp32():
+            return value_and_grad(fn, factors)
+
+    _reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    loss_c, g_c = loss_and_grads(params, lora, dev)
+    torch.cuda.synchronize()
+    card_s = time.time() - t0
+    f32 = flash_attention.f32_launches
+    loss_h, g_h = loss_and_grads(_tree_to(params, "cpu", torch.float32), _tree_to(lora, "cpu", torch.float32), "cpu")
+    loss_err = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+    grad_errs = {p: max((g_c[p][f].cpu() - g_h[p][f]).abs().max().item() / max(g_h[p][f].abs().max().item(), 1e-30)
+                        for f in g_h[p]) for p in g_h}
+    worst = max(grad_errs, key=grad_errs.get)
+    expected = 2 * cfg.num_hidden_layers  # one self and one cross launch a layer, none in the backward
+    bwd = {f"{dt}_{name}": _backward_vs_plain(dev, getattr(torch, dt), 768, lk, kw)
+           for dt in ("bfloat16", "float32")
+           for name, lk, kw in (("sliding", 768, dict(window=128)), ("cross", TRAIN_L, {}))}
+    ok = (loss_err <= TRAIN_GRAD_TOL and grad_errs[worst] <= TRAIN_GRAD_TOL and f32 == expected
+          and all(v == 0.0 for v in bwd.values()) and bool(torch.isfinite(loss_c)))
+    print(json.dumps(dict(phase="training grads narrow card vs CPU fp32 (LoRA rank 8)", ok=ok, loss_card=float(loss_c),
+                          loss_cpu=float(loss_h), loss_rel_err=loss_err, max_grad_rel_err=grad_errs[worst],
+                          worst_leaf=worst, median_grad_rel_err=float(np.median(list(grad_errs.values()))),
+                          tol=TRAIN_GRAD_TOL, f32_launches=f32, f32_launches_expected=expected, card_s=card_s,
+                          flash_backward_vs_plain_max_abs=bwd)), flush=True)
+    if not ok:
+        raise SystemExit("training gradients: the card disagrees with the CPU or the plain backward")
+
+
+def _write_samples(out_dir: str, hidden: int, n: int = 4, seed: int = 21) -> None:
+    """`n` synthetic fp32 training samples of 60 s through `save_sample` and
+    `write_manifest`: unit-gaussian latents and encoder rows, context
+    latents of gaussian source latents and a chunk mask of ones."""
+    from acestep_tpu_torch.training.dataset import save_sample, write_manifest
+
+    rng = np.random.default_rng(seed)
+    entries = []
+    for i in range(n):
+        enc_mask = np.zeros((TRAIN_L,), np.int32)
+        enc_mask[:TRAIN_L_VALID] = 1
+        sample = {
+            "target_latents": rng.standard_normal((TRAIN_T, 64)).astype(np.float32),
+            "encoder_hidden_states": rng.standard_normal((TRAIN_L, hidden)).astype(np.float32),
+            "encoder_attention_mask": enc_mask,
+            "context_latents": np.concatenate([rng.standard_normal((TRAIN_T, 64)), np.ones((TRAIN_T, 64))],
+                                              axis=1).astype(np.float32),
+            "attention_mask": np.ones((TRAIN_T,), np.int32),
+        }
+        save_sample(os.path.join(out_dir, f"sample_{i}.npz"), sample)
+        entries.append({"file": f"sample_{i}.npz"})
+    write_manifest(out_dir, entries)
+
+
+def _timed_steps(trainer, batches) -> tuple:
+    """Run `trainer.train(batches)`: (seconds of each step, losses)."""
+    times, losses = [], []
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _, loss, _ in trainer.train(batches):
+        torch.cuda.synchronize()  # the step has read its loss back; this is for the clock's sake
+        now = time.time()
+        times.append(now - t0)
+        losses.append(loss)
+        t0 = now
+    return times, losses
+
+
+def run_lora_training(h, smi: str):
+    """A full-width LoRA run through `LoRATrainer.train` on the handler's
+    random bf16 turbo decoder, rank 32, alpha 32, fp32 batches of 60 s
+    samples: 6 steps at batch 1 (warmup 2); then MultiSteps over 2 x 2
+    micro-batches at batch 2; then one step with a NaN in target_latents,
+    which must keep the factors, count in `nonfinite_steps` and log null.
+    Then the adapter.npz the run wrote is served: a 1 x 30 s request with it
+    loaded must equal, bit for bit, the same request on the decoder with the
+    adapter merged in (`merge_lora`). Returns the training path's launches
+    and the serving path's."""
+    import shutil
+    import tempfile
+
+    from acestep_tpu_torch.ops.flash_attention import flash_attention
+    from acestep_tpu_torch.training.dataset import PreprocessedDataset
+    from acestep_tpu_torch.training.lora import merge_lora
+    from acestep_tpu_torch.training.trainer import LoRAConfig, LoRATrainer, TrainingConfig, load_adapter
+
+    tmp = tempfile.mkdtemp(prefix="acestep_train_")
+    base = h.params
+    try:
+        t0 = time.time()
+        _write_samples(tmp, h.config.hidden_size)
+        write_s = time.time() - t0
+        ds = PreprocessedDataset(tmp)
+        run_dir = os.path.join(tmp, "run")
+        lcfg = LoRAConfig(rank=32, alpha=32.0)
+        tcfg = TrainingConfig(learning_rate=1e-4, warmup_steps=2, max_steps=6, checkpoint_every=1000, log_every=1,
+                              output_dir=run_dir)
+        _reset_counters()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = LoRATrainer(base, h.config, lcfg, tcfg)
+        times, losses = _timed_steps(trainer, ds.batches(1, seed=0))
+        peak_b1 = torch.cuda.max_memory_allocated()
+        f32_run1 = flash_attention.f32_launches
+
+        acc_cfg = TrainingConfig(learning_rate=1e-4, warmup_steps=1, max_steps=4, checkpoint_every=1000, log_every=1,
+                                 gradient_accumulation_steps=2, output_dir=os.path.join(tmp, "accum"))
+        torch.cuda.reset_peak_memory_stats()
+        acc = LoRATrainer(base, h.config, lcfg, acc_cfg)
+        acc_times, acc_losses = _timed_steps(acc, ds.batches(2, seed=1))
+        peak_b2 = torch.cuda.max_memory_allocated()
+        del acc_times
+        acc_state = (int(acc.opt_state["gradient_step"]), int(acc.opt_state["mini_step"]))
+        del acc
+
+        before = {p: {k: v.clone() for k, v in ab.items()} for p, ab in trainer.lora.items()}
+        nan_batch = next(ds.batches(1, shuffle=False))
+        nan_batch["target_latents"][0, 10, 3] = np.nan
+        trainer.tcfg.max_steps = 7
+        _, nan_losses = _timed_steps(trainer, iter([nan_batch]))
+        kept = all(torch.equal(v, before[p][k]) for p, ab in trainer.lora.items() for k, v in ab.items())
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        forwards = len(times) + len(acc_losses) + len(nan_losses)
+        launches = _path_launches("training path", ("flash_attention_f32",))
+        adapter = os.path.join(run_dir, "adapter.npz")
+        adapter_bytes = os.path.getsize(adapter)
+        ckpt_bytes = os.path.getsize(os.path.join(run_dir, "checkpoints", "step_7.pt"))
+        finite = all(x is not None and np.isfinite(x) for x in losses + acc_losses)
+        step_ms = float(np.median(times[1:])) * 1e3
+        ok = (finite and len(losses) == 6 and len(acc_losses) == 4 and acc_state == (2, 0)
+              and nan_losses == [None] and trainer.nonfinite_steps == 1 and kept
+              and rows[-1]["loss"] is None and rows[-1]["nonfinite_steps"] == 1
+              and launches["flash_attention_f32"] == 48 * forwards and f32_run1 == 48 * 6
+              and launches["flash_attention"] == 0)
+        print(json.dumps(dict(
+            phase="lora training full width (turbo decoder bf16, rank 32, fp32 60 s samples)", ok=ok, card=smi,
+            step_ms_median_2_6=step_ms, step_s=times, losses=losses, accum_losses=acc_losses,
+            accum_gradient_step_mini_step=list(acc_state), nan_step_losses=nan_losses,
+            nonfinite_steps=trainer.nonfinite_steps, factors_kept_on_nan=kept, metrics_last=rows[-1],
+            resident_before_gib=resident / 2**30, peak_allocated_b1_gib=peak_b1 / 2**30,
+            peak_allocated_b2_gib=peak_b2 / 2**30, forwards=forwards, f32_launches=launches["flash_attention_f32"],
+            f32_launches_expected=48 * forwards, samples_write_s=write_s, adapter_file_bytes=adapter_bytes,
+            checkpoint_file_bytes=ckpt_bytes, tokens=768, tokens_valid=750)), flush=True)
+        if not ok:
+            raise SystemExit("lora training: a check failed")
+
+        # Serve the adapter the run wrote.
+        _reset_counters()
+        kw = dict(audio_duration=30.0, seeds=[LORA_SEED], use_random_seed=False)
+        h.load_lora("trained", adapter)
+        try:
+            on = h.generate_music(CAPTION, LYRICS, **kw)["latents"]
+        finally:
+            h.unload_lora("trained")
+            h.lora.invalidate_cache()
+        served = _path_launches("trained adapter path", ("flash_attention", "decoder_block", "res_units"))
+        off = h.generate_music(CAPTION, LYRICS, **kw)["latents"]
+        factors, meta = load_adapter(adapter, device=h.device)
+        h.params = {**base, "decoder": merge_lora(base["decoder"], factors, alpha=meta["alpha"], rank=meta["rank"])}
+        merged = h.generate_music(CAPTION, LYRICS, **kw)["latents"]
+    finally:
+        h.params = base
+        shutil.rmtree(tmp, ignore_errors=True)
+    rel = float(np.linalg.norm(on - off) / max(np.linalg.norm(off), 1e-12))
+    ok = (bool(np.array_equal(on, merged)) and not np.array_equal(on, off) and bool(np.isfinite(on).all())
+          and meta["step"] == 7)
+    print(json.dumps(dict(phase="trained adapter served b1x30s", ok=ok, on_equals_merged=bool(np.array_equal(on, merged)),
+                          rel_l2_on_base=rel, meta=meta)), flush=True)
+    if not ok:
+        raise SystemExit("trained adapter: the served request differs from the merged decoder's")
+    return launches, served
+
+
 def run_probe_entry():
     """The probe's own entry point, as a developer runs it, at the probe's
     default seq and at 7 500 (every mode and K layout)."""
@@ -2126,6 +2477,9 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(1234)
     results: dict = {}
     run_attention_phase(dev, gen, results)
+    # The training path's kernel check runs here with the other kernels': at
+    # the end of the script 4 of its 6 first profiler windows came back empty.
+    run_f32_attention_phase(dev, gen, results)
     run_vae_phase(dev, gen, results)
     run_narrow_phase(dev, gen, results)
     run_probe_phase(dev, gen, results)
@@ -2142,17 +2496,23 @@ def main() -> int:
     thinking, llm, codes = run_thinking_requests(dev, dit)
     free_form = run_free_form(dit, llm, codes)
     scoring = run_scoring(dev, llm, codes)
-    del dit, llm
+    del llm
     torch.cuda.empty_cache()
     probe = run_probe_entry()
+    run_train_grads(dev)
+    training, trained = run_lora_training(dit, smi)
+    del dit
+    torch.cuda.empty_cache()
     paths = (text2music, audio, base, serving, serving_direct, lora, lrc, thinking, free_form, scoring, probe,
-             checkpoint)
+             checkpoint, training, trained)
     launches = {k: sum(p[k] for p in paths) for k in text2music}
 
     narrow_src = "acestep_tpu_torch/csrc/oobleck_generic.cu"
     replaces = {
         "flash_attention": ("acestep_tpu_torch/csrc/flash_attention.cu",
                             "acestep_tpu/ops/pallas_attention.py:130"),
+        "flash_attention_f32": ("acestep_tpu_torch/csrc/flash_attention_f32.cu",
+                                "acestep_tpu/ops/pallas_attention.py:130"),
         "decoder_block": ("acestep_tpu_torch/csrc/oobleck_sm90.cu", "acestep_tpu/ops/pallas_vae.py:202"),
         "res_units": ("acestep_tpu_torch/csrc/oobleck_sm90.cu", "acestep_tpu/ops/pallas_vae.py:89"),
         "attention_probe": ("acestep_tpu_torch/csrc/attention_probe.cu", "tools/probe_kernel_parts.py:47"),

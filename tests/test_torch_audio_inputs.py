@@ -284,10 +284,11 @@ def _flac_verbatim(pcm: np.ndarray, sr: int) -> bytes:
 
 @pytest.mark.parametrize("form", ["wav_stereo", "wav_mono", "flac", "wav_resampled"])
 def test_load_audio_matches_jax(tmp_path, monkeypatch, form):
-    """WAV through scipy (stereo and mono, at the target rate), FLAC through
-    the pure-Python decoder, and a 24 kHz WAV resampled to 48 kHz through
-    scipy's polyphase filter (the JAX package's route when its native
-    resampler is not built, forced here)."""
+    """WAV through scipy (stereo and mono, at the target rate), FLAC without
+    ffmpeg through the decoders, and a 24 kHz WAV resampled to 48 kHz: both
+    packages through their native resampler, channel 0 bit for bit, and
+    channel 1 bit for bit against JAX's mono call of that channel (JAX's
+    stereo call shifts it: ROADMAP C)."""
     import acestep_tpu.utils.native_audio as jnative
 
     rng = np.random.default_rng(10)
@@ -297,16 +298,46 @@ def test_load_audio_matches_jax(tmp_path, monkeypatch, form):
     if form == "flac":
         with open(path, "wb") as f:
             f.write(_flac_verbatim(pcm, sr))
+        monkeypatch.setattr(taudio, "_ffmpeg", lambda: None)
+        monkeypatch.setattr(jaudio, "_ffmpeg", lambda: None)
     else:
         taudio.save_wav(path, pcm.T, sr)
-    if form == "wav_resampled":
-        monkeypatch.setattr(jnative, "available", lambda: False)
     want, got = jaudio.load_audio(path), taudio.load_audio(path)
     assert got.dtype == np.float32 and got.shape == want.shape
     assert got.shape == (2, 6000 if form == "wav_resampled" else 3000)
-    np.testing.assert_array_equal(got, want)
-    if form != "wav_resampled":
+    if form == "wav_resampled":
+        assert jnative.available()
+        np.testing.assert_array_equal(got[0], want[0])
+        mono = jnative.resample((pcm[:, 1:2].T / 32768.0).astype(np.float32), sr, 48_000)[0]
+        np.testing.assert_array_equal(got[1], mono)
+    else:
+        np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(got[0], pcm[:, 0] / 32768.0)
+
+
+def test_load_flac_goes_through_the_native_decoder(tmp_path, monkeypatch):
+    """Without ffmpeg a FLAC file is read by the native decoder (a stream
+    the port's own encoder wrote), and the pure-Python decoder is not
+    called; a stream the native decoder refuses goes to the pure-Python one."""
+    from acestep_tpu_torch.utils import flac as tflac, native_audio as tnative
+
+    rng = np.random.default_rng(12)
+    pcm = rng.integers(-20000, 20000, (4000, 2)).astype(np.int16)
+    path = str(tmp_path / "n.flac")
+    with open(path, "wb") as f:
+        f.write(tnative.flac_encode(pcm, 48_000))
+    monkeypatch.setattr(taudio, "_ffmpeg", lambda: None)
+    calls = []
+    real = tnative.flac_decode
+    monkeypatch.setattr(tnative, "flac_decode", lambda blob: calls.append("native") or real(blob))
+    monkeypatch.setattr(tflac, "decode", lambda blob: pytest.fail("the pure-Python decoder ran"))
+    got = taudio.load_audio(path)
+    assert calls == ["native"]
+    np.testing.assert_array_equal(got, pcm.T / 32768.0)
+
+    monkeypatch.setattr(tnative, "flac_decode", lambda blob: None)
+    monkeypatch.setattr(tflac, "decode", lambda blob: (pcm.T.astype(np.int32), 48_000, 16))
+    np.testing.assert_array_equal(taudio.load_audio(path), pcm.T / 32768.0)
 
 
 def test_save_wav_matches_jax(tmp_path):

@@ -169,10 +169,115 @@ def test_flash_kernel_refuses_rows_tma_cannot_read(dev):
     assert flash_attention.launches == before
 
 
-def test_flash_kernel_refuses_fp32(dev):
-    q = torch.zeros((1, 256, 2, 128), device=dev)
+def test_flash_kernel_refuses_fp16_and_routes_fp32(dev):
+    """fp16 raises and launches nothing; fp32 takes the fp32 route, counted
+    in `f32_launches` and not in `launches`; bf16 the reverse."""
+    before = (flash_attention.launches, flash_attention.f32_launches)
+    q = torch.zeros((1, 256, 2, 128), device=dev, dtype=torch.float16)
     with pytest.raises(ValueError):
         flash_attention(q, q[:, :, :1], q[:, :, :1])
+    with pytest.raises(ValueError):  # mixed dtypes
+        flash_attention(q.float(), q[:, :, :1].float(), q[:, :, :1].bfloat16())
+    assert (flash_attention.launches, flash_attention.f32_launches) == before
+    q = _randn((1, 256, 2, 128), 9, dev).float()
+    k, v = q[:, :, :1].contiguous(), q[:, :, 1:].contiguous()
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    assert (flash_attention.launches, flash_attention.f32_launches) == (before[0], before[1] + 1)
+    flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    assert (flash_attention.launches, flash_attention.f32_launches) == (before[0] + 1, before[1] + 1)
+
+
+def _randn32(shape, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev)
+
+
+# The fp32 route against the plain version in fp32 (TF32 off): both sum fp32
+# products, in another order, and the kernel's online softmax rescales by
+# exp(m_old - m_new) where the plain one takes one max. Outputs are averages
+# of unit gaussians (|out| < 5); the error is a few units in the last place
+# of the largest terms.
+F32_TOL = 2e-5
+
+
+@pytest.mark.parametrize(
+    "b,lq,lk,nq,nkv,kw",
+    [
+        (1, 750, 750, 16, 8, dict(window=128)),  # DiT sliding layer, training at 60 s
+        (1, 750, 750, 16, 8, {}),  # DiT full layer
+        (1, 750, 512, 16, 8, dict(pad=400)),  # cross-attention onto 512 padded encoder rows
+        (2, 750, 750, 16, 8, dict(pad=700, window=128)),  # padded latent mask, batch 2
+        (1, 512, 512, 2, 1, dict(window=128)),  # the narrow config (2 / 1 heads)
+        (1, 512, 300, 2, 1, dict(pad=250)),  # its cross-attention onto 300 keys
+        (2, 384, 384, 4, 2, dict(causal=True)),
+        (2, 384, 384, 4, 2, dict(causal=True, window=64)),
+        (1, 130, 130, 4, 2, {}),  # one row and one key past a 64 tile
+        (2, 1000, 1000, 4, 2, dict(scatter=True, window=200)),
+        (1, 7500, 7500, 16, 8, dict(window=128)),  # 600 s sliding: band-only work
+    ],
+)
+def test_flash_f32_matches_plain(dev, b, lq, lk, nq, nkv, kw):
+    kw = dict(kw)
+    pad = kw.pop("pad", None)
+    scatter = kw.pop("scatter", False)
+    q, k, v = (_randn32((b, l, n, 128), s, dev) for l, n, s in ((lq, nq, 11), (lk, nkv, 12), (lk, nkv, 13)))
+    mask = None
+    if pad is not None:
+        mask = torch.ones((b, lk), dtype=torch.int32, device=dev)
+        mask[:, pad:] = 0
+    if scatter:
+        mask = _scattered_mask(b, lk, dev)
+    before = flash_attention.f32_launches
+    got = flash_attention(q, k, v, mask, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.f32_launches == before + 1
+    want = flash_attention_plain(q, k, v, mask, **kw)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() < F32_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kw", [dict(window=128), dict(pad=400), dict(causal=True)])
+def test_flash_backward_matches_plain_autograd(dev, dtype, kw):
+    """`FlashAttention`'s backward is the plain path's autograd, recomputed:
+    with a loss linear in the output its gradients equal the plain path's bit
+    for bit, whichever kernel ran the forward."""
+    from acestep_tpu_torch.ops import attention as attn
+
+    kw = dict(kw)
+    pad = kw.pop("pad", None)
+    mask = None
+    if pad is not None:
+        mask = torch.ones((1, 512), dtype=torch.int32, device=dev)
+        mask[:, pad:] = 0
+    base = [_randn32((1, 512, n, 128), s, dev).to(dtype) for n, s in ((16, 21), (8, 22), (8, 23))]
+    w = _randn32((1, 512, 16, 128), 24, dev).to(dtype)
+
+    def grads(flash: bool):
+        attn.set_flash_enabled(flash)
+        try:
+            q, k, v = (x.clone().requires_grad_(True) for x in base)
+            out = attn.attention(q, k, v, kv_mask=mask, **kw)
+            (out.float() * w.float()).sum().backward()
+            return out.detach(), [x.grad for x in (q, k, v)]
+        finally:
+            attn.set_flash_enabled(None)
+
+    counter = "launches" if dtype == torch.bfloat16 else "f32_launches"
+    before = getattr(flash_attention, counter)
+    out_f, g_f = grads(True)
+    assert getattr(flash_attention, counter) == before + 1  # the forward only: no launch in the backward
+    out_p, g_p = grads(False)
+    assert getattr(flash_attention, counter) == before + 1
+    # bf16: both outputs round to bf16, where early causal rows reach |out| ~ 4
+    # (a unit in the last place is 2^-6 there): the bound has a relative term.
+    rel = 2.0**-7 if dtype == torch.bfloat16 else 0.0
+    excess = ((out_f.float() - out_p.float()).abs() - rel * out_p.float().abs()).max().item()
+    assert excess < (1e-2 if dtype == torch.bfloat16 else F32_TOL)
+    for a, b_ in zip(g_f, g_p):
+        assert a.dtype == dtype and torch.equal(a, b_)
 
 
 @pytest.fixture

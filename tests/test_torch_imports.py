@@ -29,6 +29,10 @@ need = {"acestep_tpu_torch.lm.handler", "acestep_tpu_torch.lm.sampling", "aceste
         "acestep_tpu_torch.utils.logbuffer", "acestep_tpu_torch.utils.local_cache",
         "acestep_tpu_torch.utils.env", "acestep_tpu_torch.utils.downloader",
         "acestep_tpu_torch.training", "acestep_tpu_torch.training.lora", "acestep_tpu_torch.training.trainer",
+        "acestep_tpu_torch.training.train_step", "acestep_tpu_torch.training.optim",
+        "acestep_tpu_torch.training.dataset", "acestep_tpu_torch.training.estimate",
+        "acestep_tpu_torch.training.presets", "acestep_tpu_torch.ops.attention",
+        "acestep_tpu_torch.ops.flash_attention", "acestep_tpu_torch.cli",
         "acestep_tpu_torch.pipeline.lora_manager", "acestep_tpu_torch.scoring",
         "acestep_tpu_torch.scoring.alignment", "acestep_tpu_torch.scoring.lyric_score",
         "acestep_tpu_torch.scoring.lm_score"}
@@ -42,6 +46,25 @@ def test_port_imports_no_jax_and_no_acestep_tpu():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_package_data_covers_csrc_and_presets():
+    """Every file under `csrc/` and `training/presets/` that is not a Python
+    module matches a `package-data` pattern of pyproject.toml, so a wheel
+    carries what the port builds at first use (the FLAC writer's
+    `acestep_audio.cpp` included) and the presets it loads."""
+    import fnmatch
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        patterns = tomllib.load(f)["tool"]["setuptools"]["package-data"]["acestep_tpu_torch"]
+    pkg = os.path.join(REPO, "acestep_tpu_torch")
+    files = [os.path.join(d, name) for d in ("csrc", os.path.join("training", "presets"))
+             for name in sorted(os.listdir(os.path.join(pkg, d)))
+             if os.path.isfile(os.path.join(pkg, d, name)) and not name.endswith(".py")]
+    assert any(f.endswith(".cpp") for f in files) and any(f.endswith(".json") for f in files)
+    missing = [f for f in files if not any(fnmatch.fnmatch(f, p) for p in patterns)]
+    assert not missing, missing
 
 
 def test_entry_points_refuse_a_silent_cpu_run(monkeypatch):
@@ -62,6 +85,9 @@ def test_entry_points_refuse_a_silent_cpu_run(monkeypatch):
         probe_main(["--seq", "128"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli_main(["serve", "--random-init", "--port", "0"])
+    for cmd in ("train", "estimate"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli_main([cmd, "--random-init", "--dataset-dir", "."])
     assert resolve_device("cpu").type == "cpu"
 
 
