@@ -1,9 +1,12 @@
 """Command-line interface of the port: `generate`, `generate-examples`, `serve`,
-`train` and `estimate`.
+`train`, `estimate`, `build-dataset`, `download`, `verify-checkpoint` and
+`profile`.
 
 Port of those subcommands of `acestep_tpu/cli.py`, with their flags, plus
 `--device` (the card unless `cpu` is asked for); the mesh flags (`--dp`,
-`--sp`, `--tp`) come with multi-GPU (ROADMAP A.11).
+`--sp`, `--tp`) come with multi-GPU (ROADMAP A.11). The JAX package's
+persistent XLA compile cache has no counterpart: the port compiles only its
+CUDA and C++ libraries, which it caches under `acestep_tpu_torch/_build/`.
 
 - `generate` runs the port's `service.inference.generate_music`;
   `--thinking` runs the 5 Hz LM planner (`LLMHandler()`, the 0.6B size)
@@ -24,12 +27,29 @@ Port of those subcommands of `acestep_tpu/cli.py`, with their flags, plus
   `checkpoints/step_N.pt` and `adapter.npz` under `--output-dir`.
 - `estimate` ranks the decoder's attention projections by gradient
   sensitivity over `--num-batches` batches (`training.estimate`).
+- `build-dataset` scans an audio directory, labels it (sidecars, CSV, and
+  with `--label-with-lm` the planner) and preprocesses it into training
+  tensors (`training.dataset_builder`).
+- `download` ensures each model of `--models` in `--cache-dir`, component
+  by component (`utils.downloader.ensure_components`); exit 1 while any
+  component is missing. `verify-checkpoint` checks one directory (the LM
+  layout with `--lm` or when the directory's name says lm); exit 1 when
+  incomplete. Neither imports torch's CUDA side.
+- `profile` times the Duration x Batch x Think x Steps matrix (wall, LM,
+  DiT, VAE and transfer seconds; `--json-out` writes the rows with the JAX
+  command's keys; `--trace-dir` writes a `torch.profiler` Chrome trace of
+  each timed run), or with `--lm` the planner's prefill and code decode
+  (tokens a second) at each batch of `--batches`.
 
 Run as ``python -m acestep_tpu_torch.cli generate --random-init --thinking --caption "..."``,
 ``python -m acestep_tpu_torch.cli generate-examples --random-init --num 3`` or
 ``python -m acestep_tpu_torch.cli serve --random-init --port 8001 --warmup 1x30``,
-``python -m acestep_tpu_torch.cli train --random-init --dataset-dir data --max-steps 100`` or
-``python -m acestep_tpu_torch.cli estimate --random-init --dataset-dir data --json-out ranks.json``.
+``python -m acestep_tpu_torch.cli train --random-init --dataset-dir data --max-steps 100``,
+``python -m acestep_tpu_torch.cli estimate --random-init --dataset-dir data --json-out ranks.json``,
+``python -m acestep_tpu_torch.cli build-dataset --random-init --audio-dir songs --label-with-lm``,
+``python -m acestep_tpu_torch.cli download --models acestep-v15-turbo``,
+``python -m acestep_tpu_torch.cli verify-checkpoint checkpoints/acestep-v15-turbo`` or
+``python -m acestep_tpu_torch.cli profile --random-init --durations 30,60 --batches 1,2 --json-out m.json``.
 """
 
 from __future__ import annotations
@@ -232,6 +252,203 @@ def cmd_estimate(args) -> int:
     return 0
 
 
+def cmd_build_dataset(args) -> int:
+    """Scan, label and preprocess an audio directory into training tensors."""
+    from acestep_tpu_torch.pipeline.handler import AceStepHandler
+    from acestep_tpu_torch.training.dataset_builder import DatasetBuilder
+
+    dit = AceStepHandler(device=args.device)
+    print(dit.initialize_service(args.checkpoint_dir, random_init=args.random_init or None), flush=True)
+    llm = None
+    if args.label_with_lm:
+        from acestep_tpu_torch.lm.handler import LLMHandler
+
+        llm = LLMHandler(device=args.device)
+        print(llm.initialize(args.lm_checkpoint_dir, random_init=args.random_init or None), flush=True)
+    builder = DatasetBuilder(dit, llm)
+    _, msg = builder.scan_directory(args.audio_dir)
+    print(f"scan: {msg}", flush=True)
+    if args.label_with_lm:
+        for line in builder.label_all(format_lyrics=args.format_lyrics):
+            print("  " + line, flush=True)
+        print(f"labels saved to {builder.save_labels()}")
+    out_dir = args.output_dir or args.audio_dir.rstrip("/") + "_tensors"
+    _, msg = builder.preprocess_to_tensors(out_dir, max_duration=args.max_duration)
+    print(msg)
+    return 0
+
+
+def cmd_download(args) -> int:
+    """Ensure each model of `--models` component by component; 1 while any
+    component of any of them is missing."""
+    from acestep_tpu_torch.utils.downloader import ensure_components
+
+    ok = True
+    for name in [n.strip() for n in args.models.split(",") if n.strip()]:
+        out = ensure_components(name, args.cache_dir)
+        missing = [c for c, good in out["components"].items() if not good]
+        state = "complete" if not missing else f"MISSING: {', '.join(missing)}"
+        print(f"{name}: {out['path'] or '(no source reachable)'} — {state}"
+              + ("  [downloaded]" if out["downloaded"] else ""))
+        ok = ok and not missing
+    return 0 if ok else 1
+
+
+def cmd_verify_checkpoint(args) -> int:
+    """Verify one checkpoint directory component by component (the DiT
+    layout unless `--lm` or the directory's name says lm)."""
+    from acestep_tpu_torch.utils.downloader import (
+        DIT_CHECKPOINT_COMPONENTS,
+        LM_CHECKPOINT_COMPONENTS,
+        verify_checkpoint,
+    )
+
+    lm = args.lm or "lm" in os.path.basename(os.path.normpath(args.path)).lower()
+    status = verify_checkpoint(args.path, LM_CHECKPOINT_COMPONENTS if lm else DIT_CHECKPOINT_COMPONENTS)
+    for comp, good in status.items():
+        print(f"  {comp:>14}: {'ok' if good else 'MISSING'}")
+    if all(status.values()):
+        print(f"{args.path}: complete")
+        return 0
+    print(f"{args.path}: INCOMPLETE")
+    return 1
+
+
+def _profile_lm(args) -> int:
+    """Planner decode throughput (tokens a second) at each batch size: the
+    prefill, then `lm.sampling.generate_codes_scan` on the device; the best
+    of three timed runs after one untimed."""
+    import numpy as np
+    import torch
+
+    from acestep_tpu_torch.lm import sampling
+    from acestep_tpu_torch.lm.handler import LLMHandler
+
+    lm = LLMHandler(device=args.device)
+    print(lm.initialize(args.lm_checkpoint_dir, random_init=args.random_init or None), flush=True)
+    n_steps = args.lm_tokens
+    rows = []
+    print(f"{'Batch':>6} {'Prefill(s)':>11} {'Decode(s)':>10} {'tok/s':>9}")
+    for b in [int(x) for x in args.batches.split(",")]:
+        prompts = ["# Caption\nan energetic synthwave track\n\n# Lyric\n[Instrumental]\n"] * b
+        ids, mask, bucket = lm._encode_prompts(prompts, budget=n_steps + 8)
+        code_start = max(lm.fsm.code_token_start, 0)
+        n_codes = lm.fsm.num_code_tokens or min(4096, lm.config.vocab_size - code_start)
+
+        @torch.inference_mode()
+        def run():
+            t0 = time.time()
+            logits, cache = lm._prefill(ids, mask, bucket + n_steps + 8)
+            positions = lm._tensor(mask.sum(axis=1).astype(np.int32))
+            feed = torch.argmax(logits[:, code_start : code_start + n_codes], dim=-1) + code_start
+            float(logits[:, :8].float().sum())  # waits for the prefill
+            t1 = time.time()
+            toks, _ = sampling.generate_codes_scan(
+                lm.params, lm.config, feed, positions, cache, lm._generator(0), n_steps=n_steps - 1,
+                code_start=code_start, n_codes=n_codes, temperature=0.85, top_k=0, top_p=0.9,
+            )
+            toks.cpu()
+            return t1 - t0, time.time() - t1
+
+        run()  # first calls: kernel loads and the allocator's growth
+        pre, dec = min([run() for _ in range(3)], key=lambda x: x[1])
+        # The first code comes from the prefill's logits (inside the prefill
+        # span); the decode span covers n_steps - 1 tokens.
+        rows.append({"batch": b, "prefill_s": pre, "decode_s": dec, "tok_s": b * (n_steps - 1) / dec})
+        print(f"{b:>6} {pre:>11.3f} {dec:>10.3f} {rows[-1]['tok_s']:>9.0f}", flush=True)
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(rows, f, indent=2)
+    return 0
+
+
+def _traced(fn, trace_path: str):
+    """Run `fn` under `torch.profiler` (the card's activity too when it has
+    one) and write the Chrome trace to `trace_path` after `fn` returns."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        out = fn()
+    prof.export_chrome_trace(trace_path)
+    return out
+
+
+def cmd_profile(args) -> int:
+    """The Duration x Batch x Think x Steps matrix: wall, LM, DiT, VAE and
+    transfer seconds of each cell after one untimed run."""
+    from acestep_tpu_torch.pipeline.handler import AceStepHandler
+
+    if args.lm:
+        return _profile_lm(args)
+    handler = AceStepHandler(device=args.device)
+    print(handler.initialize_service(args.checkpoint_dir, random_init=args.random_init or None), flush=True)
+    think_modes = [t.strip().lower() in ("1", "true", "on", "yes") for t in args.think.split(",")]
+    llm = None
+    if any(think_modes):
+        from acestep_tpu_torch.lm.handler import LLMHandler
+
+        llm = LLMHandler(device=args.device)
+        print(llm.initialize(args.lm_checkpoint_dir, random_init=args.random_init or None), flush=True)
+    if args.trace_dir:
+        os.makedirs(args.trace_dir, exist_ok=True)
+
+    rows = []
+    print(f"{'Dur(s)':>7} {'Batch':>6} {'Think':>6} {'Steps':>6} {'Wall(s)':>8} "
+          f"{'LM(s)':>7} {'DiT(s)':>8} {'VAE(s)':>8} {'Xfer(s)':>8} {'audio_s/s':>10}")
+    for d in [int(x) for x in args.durations.split(",")]:
+        for b in [int(x) for x in args.batches.split(",")]:
+            for think in think_modes:
+                for steps in [int(x) for x in args.steps.split(",")]:
+                    def run():
+                        lm_cost, codes = 0.0, None
+                        if think and llm is not None:
+                            lm_out = llm.generate_with_stop_condition(
+                                caption="profiling run", lyrics="[Instrumental]", target_duration=float(d),
+                                batch_size=b, seed=1,
+                            )
+                            lm_cost = lm_out["time_costs"].get("lm_total_time_cost", 0.0)
+                            codes = lm_out.get("batch_audio_codes")
+                        out = handler.generate_music(
+                            captions=["profiling run"] * b, lyrics=["[Instrumental]"] * b,
+                            audio_duration=float(d), batch_size=b, seeds=list(range(b)), use_random_seed=False,
+                            inference_steps=None if steps == 8 else steps, audio_code_strings=codes,
+                        )
+                        return out, lm_cost
+
+                    def timed():
+                        # The wall covers the run alone: with --trace-dir, not
+                        # the profiler's start and stop or the trace's export.
+                        t0 = time.time()
+                        out, lm_cost = run()
+                        return out, lm_cost, time.time() - t0
+
+                    run()  # first calls: kernel loads and the allocator's growth
+                    if args.trace_dir:
+                        name = f"profile_d{d}_b{b}_think{int(think)}_s{steps}.json"
+                        out, lm_cost, wall = _traced(timed, os.path.join(args.trace_dir, name))
+                    else:
+                        out, lm_cost, wall = timed()
+                    tc = out["time_costs"]
+                    transfer = tc.get("vae_decode_transfer_time_cost", 0)
+                    rows.append({
+                        "duration": d, "batch": b, "think": think, "steps": out["num_steps"], "wall": wall,
+                        "lm": lm_cost, "dit": tc["diffusion_time_cost"], "vae": tc.get("vae_decode_time_cost", 0),
+                        "transfer": transfer, "throughput": b * d / wall,
+                        "throughput_device": b * d / max(wall - transfer, 1e-6),
+                    })
+                    r = rows[-1]
+                    print(f"{d:>7} {b:>6} {str(think):>6} {r['steps']:>6} {r['wall']:>8.2f} "
+                          f"{r['lm']:>7.2f} {r['dit']:>8.2f} {r['vae']:>8.2f} "
+                          f"{r['transfer']:>8.2f} {r['throughput']:>10.2f}", flush=True)
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(rows, f, indent=2)
+    return 0
+
+
 def _model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--checkpoint-dir", default=os.environ.get("ACESTEP_CONFIG_PATH"))
     p.add_argument("--lm-checkpoint-dir", default=os.environ.get("ACESTEP_LM_MODEL_PATH"))
@@ -309,6 +526,40 @@ def main(argv=None) -> int:
     e.add_argument("--cfg-ratio", type=float, default=0.0)
     e.add_argument("--json-out", default=None)
     e.set_defaults(fn=cmd_estimate)
+
+    bd = sub.add_parser("build-dataset", help="scan/label/preprocess audio into training tensors")
+    _model_args(bd)
+    bd.add_argument("--audio-dir", required=True)
+    bd.add_argument("--output-dir", default=None)
+    bd.add_argument("--label-with-lm", action="store_true", help="LM-assisted captions/metas via understand-on-codes")
+    bd.add_argument("--format-lyrics", action="store_true", help="normalize preloaded lyrics with the LM")
+    bd.add_argument("--max-duration", type=float, default=240.0)
+    bd.set_defaults(fn=cmd_build_dataset)
+
+    dl = sub.add_parser("download", help="ensure/download checkpoint components")
+    dl.add_argument("--models", default="acestep-v15-turbo,acestep-5Hz-lm-0.6B",
+                    help="comma list of model names (see downloader.MODEL_REPOS)")
+    dl.add_argument("--cache-dir", default=os.environ.get("ACESTEP_CHECKPOINT_ROOT")
+                    or os.path.expanduser("~/.cache/acestep_tpu/checkpoints"))
+    dl.set_defaults(fn=cmd_download)
+
+    vc = sub.add_parser("verify-checkpoint", help="verify a checkpoint dir per component")
+    vc.add_argument("path")
+    vc.add_argument("--lm", action="store_true", help="use the LM checkpoint layout")
+    vc.set_defaults(fn=cmd_verify_checkpoint)
+
+    p = sub.add_parser("profile", help="benchmark matrix (duration × batch)")
+    _model_args(p)
+    p.add_argument("--durations", default="30,60,120")
+    p.add_argument("--batches", default="1,2")
+    p.add_argument("--think", default="false", help="comma list of think modes, e.g. 'false,true' (needs LM)")
+    p.add_argument("--steps", default="8", help="comma list of step counts, e.g. '8,16'")
+    p.add_argument("--json-out", default=None)
+    p.add_argument("--trace-dir", default=None, help="write a torch.profiler Chrome trace of each timed run")
+    p.add_argument("--lm", action="store_true", help="profile LM decode throughput instead of the DiT matrix")
+    p.add_argument("--lm-tokens", type=int, default=300,
+                   help="decode steps per LM throughput run (default 300 = 60 s of codes)")
+    p.set_defaults(fn=cmd_profile)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -39,6 +39,7 @@ from acestep_tpu_torch.lm import prefix_cache, sampling
 from acestep_tpu_torch.lm.constrained import ConstrainedDecoderFSM
 from acestep_tpu_torch.models import qwen3
 from acestep_tpu_torch.params import LM_CONFIGS, init_qwen3_params, load_safetensors_state
+from acestep_tpu_torch.utils import debug
 from acestep_tpu_torch.utils.constants import (
     DEFAULT_LM_INSPIRED_INSTRUCTION,
     DEFAULT_LM_INSTRUCTION,
@@ -520,6 +521,8 @@ class LLMHandler:
         audio_codes_batch = ["".join(f"<|audio_code_{c}|>" for c in codes) for codes in codes_batch]
         time_costs["lm_codes_time_cost"] = time.time() - t1
         time_costs["lm_total_time_cost"] = time.time() - t0
+        debug.log("lm", f"generate b={b} cfg={cfg_scale} "
+                  + " ".join(f"{k}={v:.3f}" for k, v in time_costs.items()))
         return {
             "metadata": metadatas[0],
             "cot_text": cot_texts[0],

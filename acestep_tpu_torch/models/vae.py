@@ -10,8 +10,9 @@ are NLC (channels last), kernels (K, C_in, C_out); Snake runs in fp32 with the
 
 The JAX package computes the encoder outside any Pallas kernel, so it runs
 here on `ops/conv.conv1d` (strided convs through `F.conv1d`), in fp32 as the
-handler calls it, with cuDNN's TF32 off (`ENCODER_ALLOW_TF32`): an fp32
-encode on the card agrees with the CPU's to fp32 round-off.
+handler calls it, with TF32 off through the process-wide guard
+(`utils/precision.strict_fp32`): an fp32 encode on the card agrees with the
+CPU's to fp32 round-off, also while another thread trains.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from acestep_tpu_torch.ops.oobleck_kernels import (
     snake_f32,
 )
 from acestep_tpu_torch.params import leaf, np32
+from acestep_tpu_torch.utils.precision import strict_fp32
 
 Params = Dict[str, Any]
 
@@ -103,24 +105,22 @@ def decode(p: Params, cfg: OobleckConfig, latents: torch.Tensor) -> torch.Tensor
     return conv1d(x, d["conv2"]["kernel"], d["conv2"].get("bias"), padding=3)
 
 
-# cuDNN may run fp32 convolutions in TF32 (PyTorch's default); the encoder
-# sets its own choice for the duration of a call: off, full fp32.
-ENCODER_ALLOW_TF32 = False
+def _encode_raw(p: Params, cfg: OobleckConfig, audio: torch.Tensor) -> torch.Tensor:
+    """`encode_raw`'s body under the caller's precision flags."""
+    e = p["encoder"]
+    x = conv1d(audio, e["conv1"]["kernel"], e["conv1"].get("bias"), padding=3)
+    for i, stride in enumerate(cfg.downsampling_ratios):
+        x = encoder_block(e["block"][i], x, stride)
+    x = snake(e["snake1"], x)
+    return conv1d(x, e["conv2"]["kernel"], e["conv2"].get("bias"), padding=1)
 
 
 def encode_raw(p: Params, cfg: OobleckConfig, audio: torch.Tensor) -> torch.Tensor:
-    """(B, L_audio, C_audio) -> (B, L_latent, 2 * latent_dim) mean and scale."""
-    e = p["encoder"]
-    saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = ENCODER_ALLOW_TF32
-    try:
-        x = conv1d(audio, e["conv1"]["kernel"], e["conv1"].get("bias"), padding=3)
-        for i, stride in enumerate(cfg.downsampling_ratios):
-            x = encoder_block(e["block"][i], x, stride)
-        x = snake(e["snake1"], x)
-        return conv1d(x, e["conv2"]["kernel"], e["conv2"].get("bias"), padding=1)
-    finally:
-        torch.backends.cudnn.allow_tf32 = saved
+    """(B, L_audio, C_audio) -> (B, L_latent, 2 * latent_dim) mean and scale.
+    cuDNN may run fp32 convolutions in TF32 (PyTorch's default); the encoder
+    runs in strict fp32 under the shared guard."""
+    with strict_fp32():
+        return _encode_raw(p, cfg, audio)
 
 
 def encode_mean(p: Params, cfg: OobleckConfig, audio: torch.Tensor) -> torch.Tensor:

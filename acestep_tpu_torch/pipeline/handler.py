@@ -74,6 +74,7 @@ from acestep_tpu_torch.params import (
 from acestep_tpu_torch.pipeline.lora_manager import LoRARegistry
 from acestep_tpu_torch.scoring.alignment import MusicStampsAligner, format_lrc
 from acestep_tpu_torch.scoring.lyric_score import MusicLyricScorer
+from acestep_tpu_torch.utils import debug
 from acestep_tpu_torch.utils.constants import MAX_AUDIO_CODE, SFT_GEN_PROMPT, TASK_INSTRUCTIONS
 from acestep_tpu_torch.utils.tokenizer import load_tokenizer, pick_bucket, tokenize_padded
 
@@ -600,6 +601,7 @@ class AceStepHandler:
             job = None  # the failed attempt's tensors go before empty_cache
             core = max(64, core // 2)
             self._after_oom(timings)
+            debug.log("vae", f"CUDA out of memory; retrying decode with chunk core={core}")
 
     def _after_oom(self, timings: Optional[Dict[str, float]]) -> None:
         """Count a decode retry after a CUDA out-of-memory and hand the failed
@@ -1180,4 +1182,6 @@ class AceStepHandler:
         if "total_time_cost" not in time_costs:
             time_costs["total_time_cost"] = time.time() - t_start
         result["time_costs"] = time_costs
+        debug.log("generation", f"generate_music b={b} t={t_latent} "
+                  + " ".join(f"{k}={v:.3f}" for k, v in time_costs.items()))
         return result

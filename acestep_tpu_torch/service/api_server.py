@@ -12,9 +12,14 @@ chunk by chunk; `/v1/chat/completions` is the OpenAI-style chat API
 (`service/openrouter.py`).
 
 `/v1/lora/{load,unload,toggle,scale,status}` (POST) drive the handler's
-adapter registry. Routes whose slices have not landed answer 501 with the
-slice's name: `/v1/train/*` and `/v1/dataset/*` (training, ROADMAP A.9); no
-training or dataset service is constructed.
+adapter registry. `/v1/train/{start,status,export,stop,list,build_dataset}`
+(POST) run LoRA training on a thread of its own beside serving, and
+`/v1/dataset/*` is the dataset explorer (`service/train_api.py`); the
+dataset work that runs the handlers on the card holds `model_lock`, the
+training run does not.
+
+`python -m acestep_tpu_torch.service.api_server` starts a server with the
+JAX package's arguments (the `acestep-tpu-api` entry point), plus `--device`.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from acestep_tpu_torch.service.inference import (
     understand_music,
 )
 from acestep_tpu_torch.service.params import GenerationConfig, GenerationParams
+from acestep_tpu_torch.service.train_api import DatasetService, TrainingService
 from acestep_tpu_torch.utils import audio as audio_utils
 from acestep_tpu_torch.utils.local_cache import get_cache
 from acestep_tpu_torch.utils.logbuffer import install as install_logbuffer
@@ -53,19 +59,6 @@ from acestep_tpu_torch.utils.progress import ProgressEstimator
 
 JOB_TTL_SECONDS = 3600
 MAX_QUEUE = 200
-
-# Route prefixes whose slices are not ported yet, and the slice each waits for.
-UNPORTED_ROUTES = (
-    ("/v1/train/", "training and its REST API (ROADMAP A.9)"),
-    ("/v1/dataset/", "the training dataset explorer (ROADMAP A.9)"),
-)
-
-
-def _refuse_unported(path: str) -> None:
-    for prefix, what in UNPORTED_ROUTES:
-        if path.startswith(prefix):
-            raise NotImplementedError(f"{path}: {what} is not ported yet")
-
 
 class JobStore:
     """In-memory job store with age-based GC (ref _JobStore :816-941)."""
@@ -258,6 +251,10 @@ class ApiService:
         # ref api_server.py:1263-1268). Without it a reinit racing a running
         # job can mix old/new params mid-trajectory.
         self.model_lock = threading.Lock()
+        self.training = TrainingService(dit_handler, llm_handler, self.model_lock)
+        # The dataset explorer: scan/load/samples/sample edit/save,
+        # auto_label and preprocess (also as polled background tasks).
+        self.dataset = DatasetService(dit_handler, llm_handler, self.model_lock)
         # Serializes admission (check-pending + put + position read): the
         # check-then-put is not atomic on its own, so a burst of concurrent
         # submits could admit past MAX_QUEUE and hand two clients the same
@@ -1037,10 +1034,21 @@ def make_handler(service: ApiService, api_key: Optional[str] = None):
                 self.end_headers()
                 self.wfile.write(data)
                 return
-            try:
-                _refuse_unported(url.path)
-            except NotImplementedError as e:
-                return self._json(501, {"success": False, "error": str(e)})
+            # Dataset explorer reads, and the background tasks' status.
+            if url.path == "/v1/dataset/samples":
+                return self._json(200, service.dataset.samples())
+            if url.path.startswith("/v1/dataset/sample/"):
+                try:
+                    idx = int(url.path.rsplit("/", 1)[-1])
+                except ValueError:
+                    return self._json(400, {"error": "bad sample index"})
+                out = service.dataset.get_sample(idx)
+                return self._json(200 if out.get("success") else 404, out)
+            for kind in ("auto_label", "preprocess"):
+                prefix = f"/v1/dataset/{kind}_status"
+                if url.path.startswith(prefix):
+                    tid = url.path[len(prefix):].strip("/") or None
+                    return self._json(200, service.dataset.task_status(kind, tid))
             return self._json(404, {"error": "unknown endpoint"})
 
         def do_POST(self):  # noqa: N802
@@ -1122,10 +1130,48 @@ def make_handler(service: ApiService, api_key: Optional[str] = None):
             if url.path == "/understand":
                 res = understand_music(service.llm_handler, body.get("audio_codes", ""))
                 return self._json(200, res.to_dict())
-            try:
-                _refuse_unported(url.path)
-            except NotImplementedError as e:
-                return self._json(501, {"success": False, "error": str(e)})
+            if url.path == "/v1/train/start":
+                try:
+                    return self._json(200, service.training.start_run(body))
+                except KeyError as e:
+                    return self._json(400, {"error": f"missing field: {e}"})
+                except ValueError as e:
+                    return self._json(400, {"error": str(e)})
+            if url.path == "/v1/train/status":
+                st = service.training.status(body.get("run_id", ""))
+                if st is None:
+                    return self._json(404, {"error": "unknown run"})
+                return self._json(200, st)
+            if url.path == "/v1/train/export":
+                return self._json(200, service.training.export_adapter(body.get("run_id", ""), body.get("target_dir")))
+            if url.path == "/v1/train/stop":
+                return self._json(200, {"stopped": service.training.stop(body.get("run_id", ""))})
+            if url.path == "/v1/train/list":
+                return self._json(200, service.training.list_runs())
+            if url.path == "/v1/train/build_dataset":
+                try:
+                    return self._json(200, service.training.build_dataset(body))
+                except KeyError as e:
+                    return self._json(400, {"error": f"missing field: {e}"})
+            if url.path.startswith("/v1/dataset/"):
+                ds = service.dataset
+                op = url.path[len("/v1/dataset/"):]
+                ops = {"scan": ds.scan, "load": ds.load, "save": ds.save, "auto_label": ds.auto_label,
+                       "auto_label_async": ds.auto_label_async, "preprocess": ds.preprocess,
+                       "preprocess_async": ds.preprocess_async}
+                try:
+                    if op in ops:
+                        return self._json(200, ops[op](body))
+                    if op.startswith("sample/"):
+                        try:
+                            idx = int(op.rsplit("/", 1)[-1])
+                        except ValueError:
+                            return self._json(400, {"error": "bad sample index"})
+                        out = ds.update_sample(idx, body)
+                        return self._json(200 if out.get("success") else 404, out)
+                except Exception as e:  # noqa: BLE001
+                    return self._json(500, {"success": False, "error": str(e)})
+                return self._json(404, {"error": "unknown dataset endpoint"})
             if url.path == "/v1/reinitialize":
                 # Reload checkpoints in place (ref api_server.py:3126),
                 # serialized against the job worker via model_lock (the
@@ -1198,7 +1244,8 @@ def make_handler(service: ApiService, api_key: Optional[str] = None):
                     return self._json(500, {"success": False, "error": str(e)})
             return self._json(404, {"error": "unknown endpoint"})
 
-        # The reference updates dataset samples with PUT; both verbs answer.
+        # The reference edits a dataset sample with PUT
+        # (/v1/dataset/sample/{idx}); both verbs answer.
         do_PUT = do_POST  # noqa: N815
 
     return Handler
@@ -1218,3 +1265,37 @@ def serve(
     server = ThreadingHTTPServer((host, port), make_handler(service, api_key))
     server.service = service  # type: ignore[attr-defined]
     return server
+
+
+def main(argv=None) -> None:
+    """Load the DiT and the planner (random weights when no checkpoint
+    directory is given) and serve until interrupted."""
+    import argparse
+
+    from acestep_tpu_torch.lm.handler import LLMHandler
+    from acestep_tpu_torch.pipeline.handler import AceStepHandler
+
+    ap = argparse.ArgumentParser(prog="acestep-tpu-torch-api")
+    ap.add_argument("--checkpoint-dir", default=os.environ.get("ACESTEP_CONFIG_PATH"))
+    ap.add_argument("--lm-checkpoint-dir", default=os.environ.get("ACESTEP_LM_MODEL_PATH"))
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=8001, help="0 binds a free port (printed)")
+    ap.add_argument("--api-key", default=os.environ.get("ACESTEP_API_KEY"))
+    ap.add_argument("--output-dir", default="./outputs")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    dit = AceStepHandler(device=args.device)
+    print(dit.initialize_service(args.checkpoint_dir), flush=True)
+    llm = LLMHandler(device=args.device)
+    print(llm.initialize(args.lm_checkpoint_dir), flush=True)
+    server = serve(dit, llm, args.host, args.port, args.api_key, args.output_dir)
+    print(f"listening on {args.host}:{server.server_address[1]}", flush=True)
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+
+
+if __name__ == "__main__":
+    main()

@@ -2,9 +2,8 @@
 
 A copy of `acestep_tpu/service/webui.py`: a static page over the job API
 (generation modes, caption and lyrics, metadata, the planner's controls,
-batch results with audio players). Its training tab calls `/v1/train/*` and
-`/v1/dataset/*`, which the port answers with the name of the slice still to
-port (ROADMAP A.9).
+batch results with audio players). Its training tab and dataset explorer
+call `/v1/train/*` and `/v1/dataset/*` (`service/train_api.py`).
 """
 
 STUDIO_HTML = """<!DOCTYPE html>

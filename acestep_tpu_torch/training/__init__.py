@@ -2,9 +2,9 @@
 
 The flow-matching step (`train_step`), optax's chain in torch (`optim`), the
 LoRA / LoKr trainer (`trainer`), the preprocessed dataset reader (`dataset`),
-the gradient-sensitivity estimate (`estimate`), the adapters (`lora`) and the
-presets (`presets`). The dataset builder, `preprocess_audio_to_sample` and the
-training REST API come with ROADMAP A.9 part 2.
+the gradient-sensitivity estimate (`estimate`), the adapters (`lora`), the
+presets (`presets`), `dataset.preprocess_audio_to_sample` and the dataset
+builder (`dataset_builder`). The training REST API is `service/train_api`.
 """
 
 from acestep_tpu_torch.training.lora import apply_lora, init_lora_params, merge_lora

@@ -1,9 +1,10 @@
-"""Preprocessed tensor dataset for decoder fine-tuning (the reader half).
+"""Preprocessed tensor dataset for decoder fine-tuning.
 
-Port of the reader half of `acestep_tpu/training/dataset.py`: `save_sample`,
-`write_manifest` and `PreprocessedDataset`, plain numpy as in the JAX
-package. Training consumes precomputed tensors (no encoders at train time),
-one .npz a sample plus manifest.json:
+Port of `acestep_tpu/training/dataset.py`: `save_sample`, `write_manifest`
+and `PreprocessedDataset`, plain numpy as in the JAX package, and
+`preprocess_audio_to_sample`, which runs a song through the encoders once.
+Training consumes precomputed tensors (no encoders at train time), one .npz
+a sample plus manifest.json:
 
     target_latents         (T, 64)   float32, the song's VAE latents
     encoder_hidden_states  (L, D)    float32, the packed condition encoder output
@@ -12,17 +13,20 @@ one .npz a sample plus manifest.json:
     attention_mask         (T,)      int32
 
 Batches are zero-padded to (T_max, L_max) rounded up to `pad_multiple`.
-`preprocess_audio_to_sample` (the VAE encode and the condition encoder of a
-song) is not ported yet.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Union
 
 import numpy as np
+import torch
+
+from acestep_tpu_torch.models import dit
+from acestep_tpu_torch.utils.constants import DEFAULT_DIT_INSTRUCTION, SFT_GEN_PROMPT
+from acestep_tpu_torch.utils.tokenizer import tokenize_padded
 
 
 def save_sample(path: str, sample: Dict[str, np.ndarray]) -> None:
@@ -126,3 +130,51 @@ class PreprocessedDataset:
             batch["encoder_hidden_states"][i, :l] = s["encoder_hidden_states"]
             batch["encoder_attention_mask"][i, :l] = s["encoder_attention_mask"][:l]
         return batch
+
+
+@torch.inference_mode()
+def preprocess_audio_to_sample(
+    handler,
+    audio: np.ndarray,  # (2, L) float at 48 kHz
+    caption: str,
+    lyrics: str,
+    *,
+    metas: Optional[Union[str, Dict[str, Any]]] = None,
+    vocal_language: str = "unknown",
+) -> Dict[str, np.ndarray]:
+    """Audio + text -> one sample's training tensors, fp32 numpy in the JAX
+    package's layout: the VAE encode, the text and lyric embeddings, and the
+    condition encoder on a silence timbre reference, run once so training
+    touches only the decoder. `metas` is a metadata string or dict
+    (`handler.parse_metas`). On the card every attention over 256 tokens or
+    more takes kernel 1's bf16 route (`ops/attention.flash_wanted`): the
+    timbre encoder's reference frames, and a long lyric or prompt."""
+    z = handler.encode_reference_audio(audio)  # (T, 64)
+    t = z.shape[0]
+
+    metas_str = handler.parse_metas([metas], 1)[0]
+    text_prompt = SFT_GEN_PROMPT.format(handler.format_instruction(DEFAULT_DIT_INSTRUCTION), caption, metas_str)
+    lyric_text = handler.format_lyrics(lyrics, vocal_language)
+    text_ids, text_mask = tokenize_padded(handler.text_tokenizer, [text_prompt], 256)
+    lyric_ids, lyric_mask = tokenize_padded(handler.text_tokenizer, [lyric_text], 2048)
+
+    text_hidden = handler.infer_text_embeddings(text_ids)
+    lyric_hidden = handler.infer_lyric_embeddings(lyric_ids)
+
+    silence = handler._silence_tiled(max(t, handler.config.timbre_fix_frame))
+    refer_packed = handler._tensor(silence[None, : handler.config.timbre_fix_frame], handler.dtype)
+    enc, enc_mask = dit.condition_encoder(
+        handler.params["encoder"], handler.config,
+        text_hidden.to(handler.dtype), handler._tensor(text_mask),
+        lyric_hidden.to(handler.dtype), handler._tensor(lyric_mask),
+        refer_packed, handler._tensor(np.zeros((1,), np.int32)), 1,
+    )
+
+    chunk = np.ones((t, z.shape[1]), np.float32)
+    return {
+        "target_latents": z.astype(np.float32),
+        "encoder_hidden_states": enc[0].float().cpu().numpy(),
+        "encoder_attention_mask": enc_mask[0].to(torch.int32).cpu().numpy(),
+        "context_latents": np.concatenate([silence[:t], chunk], axis=-1).astype(np.float32),
+        "attention_mask": np.ones((t,), np.int32),
+    }

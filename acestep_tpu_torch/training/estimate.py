@@ -12,7 +12,7 @@ The port's decoder layers are a per-layer list, so only the unstacked layout
 exists here (JAX's stacked {"sliding", "full"} layout is a serving layout the
 port does not have). The draws come from a `torch.Generator` seeded with
 `seed`, or from `draws=` (one dict a batch), as in the trainer. TF32 is off
-for the forward and the backward.
+for the forward and the backward (`utils/precision.strict_fp32`).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import torch
 
 from acestep_tpu_torch.config import AceStepConfig
 from acestep_tpu_torch.training.lora import _walk_paths, set_path
-from acestep_tpu_torch.training.train_step import Draws, full_fp32, value_and_grad
+from acestep_tpu_torch.training.train_step import Draws, value_and_grad
 from acestep_tpu_torch.training.trainer import (
     LoRAConfig,
     TrainingConfig,
@@ -31,6 +31,7 @@ from acestep_tpu_torch.training.trainer import (
     step_draws,
     to_device_batch,
 )
+from acestep_tpu_torch.utils.precision import strict_fp32
 
 ATTN_BLOCKS = ("self_attn", "cross_attn")
 ATTN_PROJS = ("q_proj", "k_proj", "v_proj", "o_proj")
@@ -92,7 +93,7 @@ def run_estimation(
                 dec = set_path(dec, p.split("/"), leaf)
             return decoder_flow_matching_loss({}, dec, null_emb, cfg, lcfg, tcfg, tb, draws=d)
 
-        with full_fp32():
+        with strict_fp32():
             _, grads = value_and_grad(loss, trainable)
         paths = sorted(grads)
         norms = torch.stack([torch.linalg.norm(grads[p].float().reshape(-1)) for p in paths]).tolist()

@@ -22,9 +22,8 @@ their old values.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -32,6 +31,7 @@ from acestep_tpu_torch.config import AceStepConfig
 from acestep_tpu_torch.models import dit
 from acestep_tpu_torch.training.lora import apply_lora
 from acestep_tpu_torch.training.optim import AdamWChain, apply_updates, make_optimizer, tree_leaves, tree_map
+from acestep_tpu_torch.utils.precision import strict_fp32
 
 Draws = Dict[str, torch.Tensor]
 
@@ -125,23 +125,6 @@ def flow_matching_loss(
                                context_latents, batch.get("attention_mask"), draws, cfg_ratio)
 
 
-@contextlib.contextmanager
-def full_fp32() -> Iterator[None]:
-    """TF32 off for the block: fp32 products and convolutions stay fp32.
-
-    cuDNN runs fp32 convolutions (the DiT's `proj_in` conv1d and `proj_out`
-    conv_transpose1d, forward and backward) in TF32 by PyTorch's default; the
-    JAX package on the CPU computes them in fp32. Like `models/vae.encode_raw`,
-    the training forward and backward set the choice for their duration and
-    restore the caller's."""
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
-
-
 def leaves_requiring_grad(tree: Any) -> Any:
     """A copy of `tree` whose leaves are new autograd leaves (detached)."""
     return tree_map(lambda t: t.detach().requires_grad_(True), tree)
@@ -213,7 +196,7 @@ def make_train_step(
                 params = trainable
             return flow_matching_loss(params, cfg, batch, gen, cfg_ratio=cfg_ratio, draws=draws)
 
-        with full_fp32():
+        with strict_fp32():
             loss, grads = value_and_grad(loss_fn, state_params)
         finite = bool(all_finite(loss, grads))
         if not finite:

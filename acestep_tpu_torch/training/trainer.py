@@ -13,7 +13,8 @@ Numbers as in the JAX package: the dataset's batches are fp32 and go in as
 they are, so the decoder runs in fp32 over its (bf16) weights cast up by
 `linear`, and its attention takes kernel 1's fp32 route on the card
 (`ops.attention.FlashAttention`, whose backward recomputes the einsum path).
-TF32 is off for the forward and the backward (`train_step.full_fp32`).
+TF32 is off for the forward and the backward (`utils/precision.strict_fp32`,
+the guard the VAE encode shares, so a run beside serving stays fp32).
 
 The parameter tree's decoder layers are already a per-layer list in the port,
 so the JAX package's `unstack_decoder_params` (serving stacks layers for
@@ -54,10 +55,10 @@ from acestep_tpu_torch.training.train_step import (
     Draws,
     all_finite,
     flow_matching_terms,
-    full_fp32,
     sample_draws,
     value_and_grad,
 )
+from acestep_tpu_torch.utils.precision import strict_fp32
 
 
 @dataclasses.dataclass
@@ -177,7 +178,7 @@ class LoRATrainer:
             return decoder_flow_matching_loss(lora, self.base["decoder"], self.base["null_condition_emb"],
                                               self.cfg, self.lcfg, self.tcfg, batch, draws=draws)
 
-        with full_fp32():
+        with strict_fp32():
             loss, grads = value_and_grad(loss_fn, self.lora)
         finite = bool(all_finite(loss, grads))
         if not finite:

@@ -10,7 +10,8 @@ layouts other than (C, L)). Saving
 native encoder (`utils/native_audio.py`, which raises rather than fall back),
 every other format through ffmpeg, or WAV when there is no ffmpeg, as the JAX
 package does. `wav_header` heads the streamed WAV of `/v1/generate_stream`;
-`deterministic_uuid` names saved results.
+`deterministic_uuid` names saved results. Levels: `peak_normalize`,
+`clip_guard` and `is_silence`.
 """
 
 from __future__ import annotations
@@ -27,6 +28,26 @@ from math import gcd
 from typing import Any, Dict, Optional
 
 import numpy as np
+
+
+def peak_normalize(audio: np.ndarray, target_db: float = -1.0) -> np.ndarray:
+    """Scale so that the peak sits at `target_db` dBFS (silence as it is)."""
+    peak = float(np.max(np.abs(audio)))
+    if peak <= 0:
+        return audio
+    return audio * (10.0 ** (target_db / 20.0) / peak)
+
+
+def clip_guard(audio: np.ndarray) -> np.ndarray:
+    """Divide by the peak only where it exceeds 1.0."""
+    peak = float(np.max(np.abs(audio)))
+    return audio / peak if peak > 1.0 else audio
+
+
+def is_silence(audio: np.ndarray, threshold_db: float = -60.0) -> bool:
+    """True when the peak level lies below `threshold_db` dBFS (or is 0)."""
+    peak = float(np.max(np.abs(audio))) if audio.size else 0.0
+    return peak <= 0 or 20.0 * np.log10(peak) < threshold_db
 
 
 def resample(audio: np.ndarray, sr_in: int, sr_out: int, axis: int = -1) -> np.ndarray:

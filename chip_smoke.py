@@ -552,6 +552,15 @@ def _tree_to(tree, device, dtype):
     return tree.to(device=device, dtype=dtype)
 
 
+def _leaves(tree):
+    """The tensors of a nested dict / list of tensors."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
 def _small_cfgs():
     from acestep_tpu_torch.config import AceStepConfig, OobleckConfig, Qwen3Config
 
@@ -1116,8 +1125,8 @@ def _wait_jobs(port: int, ids, deadline_s: float = 600.0) -> dict:
 
 
 def _release(port: int, **fields) -> str:
-    status, out, _ = _http(port, "POST", "/release_task", dict(caption=CAPTION, lyrics=LYRICS, thinking=False,
-                                                               batch_size=1, **fields))
+    status, out, _ = _http(port, "POST", "/release_task", {**dict(caption=CAPTION, lyrics=LYRICS, thinking=False,
+                                                                  batch_size=1), **fields})
     if status != 200:
         raise SystemExit(f"serving: /release_task answered {status}: {out[:300]}")
     return json.loads(out)["task_id"]
@@ -1752,17 +1761,20 @@ def _vae_encode_profile(h, seconds: int = 20, reps: int = 3) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3 / reps
         events = kernel_events(chunk, reps)
-        vae.ENCODER_ALLOW_TF32 = True
+        # The encoder's body under the script's own flags, TF32 on (encode_raw
+        # itself always runs it in strict fp32).
+        tf32_chunk = lambda: vae._encode_raw(h.vae_params, h.vae_config, x).chunk(2, dim=-1)[0]
+        torch.backends.cudnn.allow_tf32 = True
         try:
-            tf32 = chunk()
+            tf32 = tf32_chunk()
             torch.cuda.synchronize()
             t0 = time.time()
             for _ in range(reps):
-                chunk()
+                tf32_chunk()
             torch.cuda.synchronize()
             tf32_ms = (time.time() - t0) * 1e3 / reps
         finally:
-            vae.ENCODER_ALLOW_TF32 = False
+            torch.backends.cudnn.allow_tf32 = False
         tf32_rel = float((tf32 - ref).norm() / ref.norm())
     dev_ms, n_kernels, kinds, top = _device_summary(events, reps, _encode_kind)
     return dict(samples=x.shape[1], latent_frames=ref.shape[1], wall_ms_per_chunk=wall_ms,
@@ -2221,8 +2233,9 @@ def run_train_grads(dev):
     from acestep_tpu_torch.ops.flash_attention import flash_attention
     from acestep_tpu_torch.params import init_acestep_params
     from acestep_tpu_torch.training.lora import init_lora_params
-    from acestep_tpu_torch.training.train_step import full_fp32, sample_draws, value_and_grad
+    from acestep_tpu_torch.training.train_step import sample_draws, value_and_grad
     from acestep_tpu_torch.training.trainer import LoRAConfig, TrainingConfig, decoder_flow_matching_loss, to_device_batch
+    from acestep_tpu_torch.utils.precision import strict_fp32
 
     cfg = _small_cfgs()[0]
     params = init_acestep_params(cfg, seed=7, device=dev, dtype=torch.float32)
@@ -2248,7 +2261,7 @@ def run_train_grads(dev):
         tb = to_device_batch(batch, device)
         fn = lambda fac: decoder_flow_matching_loss(fac, p["decoder"], p["null_condition_emb"], cfg, lcfg, tcfg, tb,
                                                     draws=draws)
-        with full_fp32():
+        with strict_fp32():
             return value_and_grad(fn, factors)
 
     _reset_counters()
@@ -2423,6 +2436,382 @@ def run_lora_training(h, smi: str):
     return launches, served
 
 
+# The REST training phase: the run's steps (enough that it spans the two jobs
+# served beside it) and the served requests' seeds.
+REST_TRAIN_STEPS = 30
+REST_T2M_SEED, REST_COVER_SEED = 11, 12
+REST_LABEL_TOKENS = 128
+# The largest job the memory policy lets the server take on an 80 GB card
+# (batch 8, 600 s), served beside a rank-32 run.
+REST_BIG_BATCH, REST_BIG_S = 8, 600
+
+
+def _timed(cls, name: str, took: list) -> None:
+    """Wrap `cls.name` so that each call appends its seconds to `took` (the
+    caller puts the original back)."""
+    real = getattr(cls, name)
+
+    def timed(*a, **kw):
+        t0 = time.time()
+        try:
+            return real(*a, **kw)
+        finally:
+            took.append(time.time() - t0)
+
+    setattr(cls, name, timed)
+
+
+def _json_call(port: int, method: str, path: str, body=None) -> dict:
+    status, out, _ = _http(port, method, path, body)
+    if status != 200:
+        raise SystemExit(f"rest training: {method} {path} answered {status}: {out[:300]}")
+    return json.loads(out)
+
+
+def _poll_json(port: int, method: str, path: str, body, done, what: str, deadline_s: float = 300.0) -> dict:
+    t_end = time.time() + deadline_s
+    while True:
+        out = _json_call(port, method, path, body)
+        if done(out):
+            return out
+        if time.time() > t_end:
+            raise SystemExit(f"rest training: {what} not done after {deadline_s} s: {str(out)[:300]}")
+        time.sleep(0.05)
+
+
+def _cli(*args) -> subprocess.Popen:
+    """`python -m acestep_tpu_torch.cli ARGS` from the checkout's root, output captured."""
+    return subprocess.Popen([sys.executable, "-m", "acestep_tpu_torch.cli", *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def run_rest_training(h, llm, smi: str):
+    """The dataset builder and a LoRA run through the REST server, beside
+    serving, on the full-width bf16 handler and the 4B planner `llm` (random
+    weights), with cuDNN's TF32 at PyTorch's default (on) for the phase.
+
+      songs: three 60 s stereo 48 kHz WAVs: one with .caption.txt and
+        .lyrics.txt, one with a .json, one with nothing; the server serves a
+        1 x 30 s text2music job and a 1 x 30 s cover job of the first song
+        (WAV files), and their latents and PCM are the reference;
+      build: `/v1/train/build_dataset` with `label_with_lm`: every song
+        labelled by the planner (understand on its codes, at most
+        REST_LABEL_TOKENS tokens) and preprocessed, each sample under the
+        server's model_lock; seconds per sample of each, the manifest,
+        kernel 1's bf16 launches on this path; the text2music job again,
+        submitted while the first sample's label holds model_lock: it must
+        end before the build does (it waits for one sample, not the
+        dataset) and equal the reference bit for bit; its wall;
+      train: `/v1/train/start` (rank 32, REST_TRAIN_STEPS steps, fp32 on the
+        bf16 decoder, no model_lock); while it is `running` (before the first
+        job is submitted and after the second ends) the two jobs again: their
+        latents and PCM must equal the reference bit for bit. Step times
+        under the server (metrics.jsonl), the peak max_memory_allocated, the
+        fp32 launches (48 a step);
+      then status to completed, `/v1/train/export`, `/v1/lora/load`, one
+        1 x 30 s job with the adapter (finite, not the base's latents), the
+        `/v1/dataset/{scan,samples,sample/0 (PUT),preprocess_async,
+        preprocess_status}` round; a second rank-32 run, and while it is
+        `running` the largest job the memory policy lets the server take
+        (batch REST_BIG_BATCH x REST_BIG_S s, thinking off, the 4B planner
+        resident): its wall and the peak max_memory_allocated over the run
+        and the job, beside the card's memory and the KV cache a thinking
+        job of that size would add in its planner phase (computed from the
+        4B config); then `stop` on that run;
+      cli: `profile` (1 x 30 s, 8 steps), `profile --lm` (batches 1 and 2, 64
+        tokens), `build-dataset` on the songs and `verify-checkpoint` on
+        tests/goldens/checkpoint_tiny, as four subprocesses at once: each
+        exits 0 (verify-checkpoint's code is the CPU test's), rows with the
+        JAX command's keys.
+
+    Returns the launches of the build path, the training path (the run and
+    the jobs served beside it), the adapter's job and the explorer round."""
+    import shutil
+    import tempfile
+    import threading
+
+    from acestep_tpu_torch.ops.flash_attention import flash_attention
+    from acestep_tpu_torch.service.api_server import serve
+    from acestep_tpu_torch.training.dataset_builder import DatasetBuilder
+    from acestep_tpu_torch.utils.audio import save_wav
+
+    saved_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default: the guard, not the script, keeps fp32 strict
+    tmp = tempfile.mkdtemp(prefix="acestep_rest_train_")
+    songs = os.path.join(tmp, "songs")
+    os.makedirs(songs)
+    for i, name in enumerate(("captioned", "described", "bare")):
+        save_wav(os.path.join(songs, f"{name}.wav"), _signal(60.0, 40 + i, h.vae_config.sampling_rate))
+    with open(os.path.join(songs, "captioned.caption.txt"), "w") as f:
+        f.write(CAPTION)
+    with open(os.path.join(songs, "captioned.lyrics.txt"), "w") as f:
+        f.write(LYRICS)
+    with open(os.path.join(songs, "described.json"), "w") as f:
+        json.dump({"caption": "a slow piano ballad", "bpm": 72, "keyscale": "E minor", "language": "en"}, f)
+    # Random weights rarely stop before the API's 512-token budget, at ≈ 48 ms
+    # a token (host-bound); a label takes REST_LABEL_TOKENS at most here.
+    understand = llm.understand_audio_from_codes
+    llm.understand_audio_from_codes = lambda codes, **kw: understand(
+        codes, **{**kw, "max_new_tokens": REST_LABEL_TOKENS})
+    server = serve(h, llm, "127.0.0.1", 0, output_dir=os.path.join(tmp, "out"))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    latents = []
+    real_generate = h.generate_music
+
+    def generate_spy(*a, **kw):
+        out = real_generate(*a, **kw)
+        latents.append(out["latents"])
+        return out
+
+    def serve_pair():
+        """The text2music job, then the cover job: (latents, WAV bytes, walls)."""
+        got, walls = [], []
+        for fields in (dict(seed=REST_T2M_SEED),
+                       dict(seed=REST_COVER_SEED, task_type="cover",
+                            src_audio=os.path.join(songs, "captioned.wav"))):
+            t0 = time.time()
+            tid = _release(port, duration=30.0, audio_format="wav", **fields)
+            res = _wait_jobs(port, [tid])[tid]
+            walls.append(time.time() - t0)
+            with open(res["result"]["audio_paths"][0], "rb") as f:
+                got.append((latents[-1], f.read()))
+        return got, walls
+
+    real_label, real_pre = DatasetBuilder.label_all, DatasetBuilder.preprocess_to_tensors
+    real_convert = h.convert_audio_to_codes
+    label_s, pre_s = [], []
+    h.generate_music = generate_spy
+    try:
+        ref, ref_walls = serve_pair()
+
+        # ---- the dataset builder under the server ----
+        ds = os.path.join(tmp, "tensors")
+        _timed(DatasetBuilder, "label_all", label_s)
+        _timed(DatasetBuilder, "preprocess_to_tensors", pre_s)
+        labelling = threading.Event()
+
+        def convert_audio_to_codes(*a, **kw):  # inside the builder's hold of model_lock
+            labelling.set()
+            return real_convert(*a, **kw)
+
+        h.convert_audio_to_codes = convert_audio_to_codes
+        _reset_counters()
+        t0 = time.time()
+        build = {}
+        builder = threading.Thread(target=lambda: build.update(out=_json_call(
+            port, "POST", "/v1/train/build_dataset", {"audio_dir": songs, "output_dir": ds, "label_with_lm": True})))
+        builder.start()
+        if not labelling.wait(300):
+            raise SystemExit("rest dataset build: no label began")
+        t1 = time.time()
+        tid = _release(port, duration=30.0, seed=REST_T2M_SEED, audio_format="wav")
+        _wait_jobs(port, [tid])
+        job_wall_during_build = time.time() - t1
+        job_before_build = builder.is_alive()
+        with open(_wait_jobs(port, [tid])[tid]["result"]["audio_paths"][0], "rb") as f:
+            job_same = bool(np.array_equal(latents[-1], ref[0][0])) and f.read() == ref[0][1]
+        builder.join(600)
+        build_s = time.time() - t0
+        built = build["out"]
+        DatasetBuilder.label_all, DatasetBuilder.preprocess_to_tensors = real_label, real_pre
+        del h.convert_audio_to_codes
+        build_launches = _path_launches("dataset build path (and the job served during it)",
+                                        ("flash_attention",))
+        with open(os.path.join(ds, "manifest.json")) as f:
+            manifest = json.load(f)["samples"]
+        with open(os.path.join(songs, "labels.json")) as f:
+            labels = json.load(f)
+        by = {row["filename"]: row for row in labels}
+        ok = (built["samples"] == 3 and [m["file"] for m in manifest] == ["bare.npz", "captioned.npz",
+                                                                            "described.npz"]
+              and all(row["label_source"] == "lm" and row["labeled"] for row in labels)
+              and by["captioned.wav"]["caption"] == CAPTION and by["described.wav"]["bpm"] == 72
+              and len(label_s) == len(pre_s) == 1 and job_before_build and job_same)
+        print(json.dumps(dict(
+            phase="rest dataset build (3 x 60 s, label_with_lm on the 4B planner)", ok=ok, card=smi,
+            label_tokens_max=REST_LABEL_TOKENS, build_s=build_s,
+            job_wall_during_build_s=job_wall_during_build, job_wall_alone_s=ref_walls[0],
+            job_ended_before_build=job_before_build, job_equal_reference_bit_for_bit=job_same,
+            label_s_per_sample=label_s[0] / 3 if label_s else None,
+            preprocess_s_per_sample=pre_s[0] / 3 if pre_s else None, manifest=manifest,
+            labels=[{k: row[k] for k in ("filename", "caption", "bpm", "keyscale", "language", "label_source")}
+                    for row in labels],
+            label_log=built["label_log"], flash_bf16_launches=build_launches["flash_attention"])), flush=True)
+        if not ok:
+            raise SystemExit(f"rest dataset build: {built}")
+        with np.load(os.path.join(ds, "captioned.npz")) as z:
+            sample = {k: z[k] for k in z.files}
+        if sample["target_latents"].shape != (1500, 64) or not all(np.isfinite(v).all() for v in sample.values()):
+            raise SystemExit(f"rest dataset build: bad tensors {[(k, v.shape) for k, v in sample.items()]}")
+
+        # ---- a training run beside serving ----
+        run_dir = os.path.join(tmp, "run")
+        _reset_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run_id = _json_call(port, "POST", "/v1/train/start", {
+            "dataset_dir": ds, "rank": 32, "alpha": 32.0, "max_steps": REST_TRAIN_STEPS, "seed": 0,
+            "checkpoint_every": 1000, "output_dir": run_dir})["run_id"]
+        status = lambda: _json_call(port, "POST", "/v1/train/status", {"run_id": run_id})
+        st = _poll_json(port, "POST", "/v1/train/status", {"run_id": run_id},
+                        lambda st: st["status"] != "starting" and st["step"] >= 1, "the first step")
+        running_before, step_before = st["status"] == "running", st["step"]
+        during, during_walls = serve_pair()
+        st = status()
+        running_after, step_after = st["status"] == "running", st["step"]
+        st = _poll_json(port, "POST", "/v1/train/status", {"run_id": run_id},
+                        lambda st: st["status"] != "running", "the run")
+        torch.cuda.synchronize()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        train_launches = _path_launches("rest training path (the run and the jobs beside it)",
+                                        ("flash_attention", "flash_attention_f32", "decoder_block", "res_units"))
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        step_ms = [(b["time"] - a["time"]) * 1e3 / (b["step"] - a["step"]) for a, b in zip(rows, rows[1:])]
+        same = [bool(np.array_equal(g[0], r[0])) and g[1] == r[1] for g, r in zip(during, ref)]
+        ok = (running_before and running_after and all(same) and st["status"] == "completed"
+              and st["step"] == REST_TRAIN_STEPS and flash_attention.f32_launches == 48 * REST_TRAIN_STEPS
+              and all(np.isfinite(row["loss"]) for row in rows))
+        print(json.dumps(dict(
+            phase="rest training beside serving (rank 32, fp32 on the bf16 decoder, TF32 on by default)", ok=ok,
+            card=smi, running_before_first_job=running_before, step_before=step_before,
+            running_after_second_job=running_after, step_after=step_after, final=st["status"], steps=st["step"],
+            jobs_equal_reference_bit_for_bit=dict(text2music=same[0], cover=same[1]),
+            reference_job_walls_s=ref_walls, job_walls_beside_training_s=during_walls,
+            step_ms_under_server=step_ms, metrics=rows, peak_allocated_gib=peak_gib,
+            f32_launches=flash_attention.f32_launches, f32_launches_expected=48 * REST_TRAIN_STEPS,
+            tf32_flags_after=[torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32])),
+            flush=True)
+        if not ok:
+            raise SystemExit(f"rest training: a check failed ({st.get('error')})")
+
+        # ---- export, load, serve with the adapter ----
+        exported = _json_call(port, "POST", "/v1/train/export", {"run_id": run_id,
+                                                                 "target_dir": os.path.join(tmp, "adapters")})
+        loaded = _json_call(port, "POST", "/v1/lora/load", {"name": "rest", "path": exported["adapter_path"]})
+        _reset_counters()
+        tid = _release(port, duration=30.0, seed=REST_T2M_SEED, audio_format="wav")
+        _wait_jobs(port, [tid])
+        adapted = latents[-1]
+        adapter_launches = _path_launches("rest adapter job", ("flash_attention", "decoder_block", "res_units"))
+        unloaded = _json_call(port, "POST", "/v1/lora/unload", {"name": "rest"})["success"]
+        base = ref[0][0]
+        rel = float(np.linalg.norm(adapted - base) / max(np.linalg.norm(base), 1e-12))
+
+        # ---- the dataset explorer ----
+        _reset_counters()
+        scanned = _json_call(port, "POST", "/v1/dataset/scan", {"directory": songs})
+        listed = _json_call(port, "GET", "/v1/dataset/samples")
+        edited = _json_call(port, "PUT", "/v1/dataset/sample/0", {"caption": "an edited caption", "bpm": "90"})
+        task = _json_call(port, "POST", "/v1/dataset/preprocess_async", {"output_dir": os.path.join(tmp, "t2")})
+        done = _poll_json(port, "GET", f"/v1/dataset/preprocess_status/{task['task_id']}", None,
+                          lambda t: t["status"] != "running", "preprocess_async")
+        explorer_launches = _path_launches("rest dataset explorer", ("flash_attention",))
+
+        # ---- the largest job beside a second run, then stop that run ----
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run2 = _json_call(port, "POST", "/v1/train/start", {
+            "dataset_dir": ds, "rank": 32, "max_steps": 100000, "output_dir": os.path.join(tmp, "run2")})["run_id"]
+        _poll_json(port, "POST", "/v1/train/status", {"run_id": run2}, lambda st: st["step"] >= 1, "run 2")
+        policy = server.service.memory_policy
+        t0 = time.time()
+        tid = _release(port, duration=float(REST_BIG_S), batch_size=REST_BIG_BATCH, seed=REST_T2M_SEED,
+                       audio_format="wav")
+        big = _wait_jobs(port, [tid])[tid]
+        big_wall = time.time() - t0
+        st = _json_call(port, "POST", "/v1/train/status", {"run_id": run2})
+        big_running_after, big_step_after = st["status"] == "running", st["step"]
+        torch.cuda.synchronize()
+        big_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        big_ok = (len(big["result"]["audio_paths"]) == REST_BIG_BATCH and big_running_after
+                  and bool(np.isfinite(latents[-1]).all()) and latents[-1].shape[0] == REST_BIG_BATCH
+                  and policy.max_batch_size >= REST_BIG_BATCH and policy.max_duration_s >= REST_BIG_S)
+        c = llm.config
+        # A thinking job's planner phase: the code pass's KV cache, rows doubled
+        # for the planner's CFG, its prompt bucket taken as 1024 positions.
+        kv_gib = (2 * c.num_hidden_layers * 2 * REST_BIG_BATCH * (1024 + REST_BIG_S * 5 + 8)
+                  * c.num_key_value_heads * c.head_dim * 2) / 2**30
+        total_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+        print(json.dumps(dict(
+            phase=f"rest largest job beside a run ({REST_BIG_BATCH} x {REST_BIG_S} s, thinking off, the 4B "
+                  "planner resident, rank 32)", ok=big_ok, card=smi,
+            policy=dict(max_batch_size=policy.max_batch_size, max_duration_s=policy.max_duration_s,
+                        lm_size=policy.lm_size), latent_shape=list(latents[-1].shape), job_wall_s=big_wall,
+            run_step_after=big_step_after,
+            run_running_after=big_running_after, peak_allocated_gib=big_peak_gib,
+            planner_resident_gib=nbytes(*_leaves(llm.params)) / 2**30,
+            thinking_kv_cache_gib_computed=kv_gib, card_total_gib=total_gib,
+            headroom_gib=total_gib - big_peak_gib - kv_gib)), flush=True)
+        if not big_ok:
+            raise SystemExit(f"rest largest job: {big}")
+        stopped = _json_call(port, "POST", "/v1/train/stop", {"run_id": run2})
+        st2 = _poll_json(port, "POST", "/v1/train/status", {"run_id": run2},
+                         lambda st: st["status"] not in ("starting", "running"), "run 2's stop")
+        runs = _json_call(port, "POST", "/v1/train/list", {})
+        ok = (exported["success"] and exported["step"] == REST_TRAIN_STEPS and loaded["success"]
+              and loaded["meta"]["rank"] == 32 and unloaded and bool(np.isfinite(adapted).all())
+              and not np.array_equal(adapted, base)
+              and scanned["total_samples"] == listed["total_samples"] == 3
+              and edited["sample"]["caption"] == "an edited caption" and edited["sample"]["bpm"] == 90
+              and done["status"] == "completed" and done["result"]["written"] == 3
+              and stopped["stopped"] and st2["status"] == "stopped" and os.path.exists(st2["adapter_path"])
+              and {runs[run_id]["status"], runs[run2]["status"]} == {"completed", "stopped"})
+        print(json.dumps(dict(
+            phase="rest export, adapter job, dataset explorer, stop", ok=ok, card=smi,
+            exported_step=exported["step"], adapter_meta=loaded["meta"], rel_l2_adapted_base=rel,
+            explorer=dict(scanned=scanned["total_samples"], edited=edited["sample"]["caption"],
+                          preprocess=done["status"], written=done["result"]["written"]),
+            stopped_at_step=st2["step"], runs={k: v["status"] for k, v in runs.items()})), flush=True)
+        if not ok:
+            raise SystemExit("rest training: export / adapter / explorer / stop checks failed")
+    finally:
+        DatasetBuilder.label_all, DatasetBuilder.preprocess_to_tensors = real_label, real_pre
+        h.generate_music = real_generate
+        h.__dict__.pop("convert_audio_to_codes", None)
+        del llm.understand_audio_from_codes
+        server.shutdown()
+        server.server_close()
+        torch.backends.cudnn.allow_tf32 = saved_tf32
+    torch.cuda.empty_cache()
+
+    # ---- the command line, four subprocesses at once ----
+    try:
+        jobs = {
+            "profile": _cli("profile", "--random-init", "--durations", "30", "--batches", "1", "--think", "0",
+                            "--steps", "8", "--json-out", os.path.join(tmp, "profile.json")),
+            "profile_lm": _cli("profile", "--lm", "--random-init", "--batches", "1,2", "--lm-tokens", "64",
+                               "--json-out", os.path.join(tmp, "profile_lm.json")),
+            "build_dataset": _cli("build-dataset", "--random-init", "--audio-dir", songs, "--output-dir",
+                                  os.path.join(tmp, "cli_tensors")),
+            "verify_checkpoint": _cli("verify-checkpoint", CKPT_TINY),
+        }
+        t0 = time.time()
+        outs = {k: p.communicate(timeout=600)[0] for k, p in jobs.items()}
+        cli_s = time.time() - t0
+        rcs = {k: p.returncode for k, p in jobs.items()}
+        with open(os.path.join(tmp, "profile.json")) as f:
+            profile_rows = json.load(f)
+        with open(os.path.join(tmp, "profile_lm.json")) as f:
+            lm_rows = json.load(f)
+        written = sorted(os.listdir(os.path.join(tmp, "cli_tensors")))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    keys = ["batch", "dit", "duration", "lm", "steps", "think", "throughput", "throughput_device", "transfer",
+            "vae", "wall"]
+    ok = (rcs == dict.fromkeys(jobs, 0) and [sorted(r) for r in profile_rows] == [keys]
+          and [sorted(r) for r in lm_rows] == [["batch", "decode_s", "prefill_s", "tok_s"]] * 2
+          and written == ["bare.npz", "captioned.npz", "described.npz", "manifest.json"])
+    print(json.dumps(dict(phase="cli profile, profile --lm, build-dataset, verify-checkpoint (at once)", ok=ok,
+                          card=smi, exit_codes=rcs, wall_s=cli_s, profile_rows=profile_rows, lm_rows=lm_rows,
+                          build_dataset_files=written, tails={k: v[-600:] for k, v in outs.items() if rcs[k]})),
+          flush=True)
+    if not ok:
+        raise SystemExit(f"cli subprocesses: {rcs}")
+    return build_launches, train_launches, adapter_launches, explorer_launches
+
+
 def run_probe_entry():
     """The probe's own entry point, as a developer runs it, at the probe's
     default seq and at 7 500 (every mode and K layout)."""
@@ -2436,7 +2825,16 @@ def run_probe_entry():
     return _path_launches("probe entry point", ("attention_probe",))
 
 
+def _timed_phase(seconds: dict, name: str, fn, *args):
+    """fn(*args), its wall added to `seconds[name]`."""
+    t0 = time.time()
+    out = fn(*args)
+    seconds[name] = seconds.get(name, 0.0) + time.time() - t0
+    return out
+
+
 def main() -> int:
+    t_start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2476,35 +2874,37 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     results: dict = {}
-    run_attention_phase(dev, gen, results)
+    seconds: dict = {}  # each top-level phase's wall, for the script's time budget
+    _timed_phase(seconds, "run_attention_phase", run_attention_phase, dev, gen, results)
     # The training path's kernel check runs here with the other kernels': at
     # the end of the script 4 of its 6 first profiler windows came back empty.
-    run_f32_attention_phase(dev, gen, results)
-    run_vae_phase(dev, gen, results)
-    run_narrow_phase(dev, gen, results)
-    run_probe_phase(dev, gen, results)
-    run_small_reference(dev)
-    run_small_thinking_reference(dev)
-    run_small_base_reference(dev)
-    checkpoint = run_checkpoint_tiny(dev)
-    dit, text2music = run_requests(dev)
-    audio = run_audio_requests(dit)
-    base = run_base_requests(dit)
-    serving, serving_direct = run_serving(dit, smi)
-    lora = run_lora(dit)
-    lrc = run_lrc(dit)
-    thinking, llm, codes = run_thinking_requests(dev, dit)
-    free_form = run_free_form(dit, llm, codes)
-    scoring = run_scoring(dev, llm, codes)
+    _timed_phase(seconds, "run_f32_attention_phase", run_f32_attention_phase, dev, gen, results)
+    _timed_phase(seconds, "run_vae_phase", run_vae_phase, dev, gen, results)
+    _timed_phase(seconds, "run_narrow_phase", run_narrow_phase, dev, gen, results)
+    _timed_phase(seconds, "run_probe_phase", run_probe_phase, dev, gen, results)
+    _timed_phase(seconds, "run_small_reference", run_small_reference, dev)
+    _timed_phase(seconds, "run_small_thinking_reference", run_small_thinking_reference, dev)
+    _timed_phase(seconds, "run_small_base_reference", run_small_base_reference, dev)
+    checkpoint = _timed_phase(seconds, "run_checkpoint_tiny", run_checkpoint_tiny, dev)
+    dit, text2music = _timed_phase(seconds, "run_requests", run_requests, dev)
+    audio = _timed_phase(seconds, "run_audio_requests", run_audio_requests, dit)
+    base = _timed_phase(seconds, "run_base_requests", run_base_requests, dit)
+    serving, serving_direct = _timed_phase(seconds, "run_serving", run_serving, dit, smi)
+    lora = _timed_phase(seconds, "run_lora", run_lora, dit)
+    lrc = _timed_phase(seconds, "run_lrc", run_lrc, dit)
+    thinking, llm, codes = _timed_phase(seconds, "run_thinking_requests", run_thinking_requests, dev, dit)
+    free_form = _timed_phase(seconds, "run_free_form", run_free_form, dit, llm, codes)
+    scoring = _timed_phase(seconds, "run_scoring", run_scoring, dev, llm, codes)
+    rest = _timed_phase(seconds, "run_rest_training", run_rest_training, dit, llm, smi)
     del llm
     torch.cuda.empty_cache()
-    probe = run_probe_entry()
-    run_train_grads(dev)
-    training, trained = run_lora_training(dit, smi)
+    probe = _timed_phase(seconds, "run_probe_entry", run_probe_entry)
+    _timed_phase(seconds, "run_train_grads", run_train_grads, dev)
+    training, trained = _timed_phase(seconds, "run_lora_training", run_lora_training, dit, smi)
     del dit
     torch.cuda.empty_cache()
     paths = (text2music, audio, base, serving, serving_direct, lora, lrc, thinking, free_form, scoring, probe,
-             checkpoint, training, trained)
+             checkpoint, training, trained, *rest)
     launches = {k: sum(p[k] for p in paths) for k in text2music}
 
     narrow_src = "acestep_tpu_torch/csrc/oobleck_generic.cu"
@@ -2533,6 +2933,7 @@ def main() -> int:
             library_ms=sum(lib) if lib else None,
             shapes=[l["phase"].split()[-1] for l in lines],
         ))
+    print(json.dumps(dict(phase="seconds by phase", total=time.time() - t_start, **seconds)), flush=True)
     leads = [lead for _, lead in WINDOWS if lead is not None]
     print(json.dumps(dict(phase="profiler windows", taken=len(WINDOWS), rejected=sum(not ok for ok, _ in WINDOWS),
                           guard_s=WINDOW_GUARD_S, least_launch_to_start_us=min(leads) if leads else None,

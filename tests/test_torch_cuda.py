@@ -760,3 +760,98 @@ def test_capture_full_width_flash_matches_plain(dev, monkeypatch):
         rel = float((g - w).norm() / w.norm())
         assert torch.isfinite(g).all() and rel <= capture_tol, (layer, rel)
         assert float(g[:, :, 260:].abs().max()) == 0.0
+
+
+def test_preprocess_audio_to_sample_on_the_card_matches_cpu(dev):
+    """`training.dataset.preprocess_audio_to_sample` on tests/goldens/checkpoint_tiny
+    in fp32: the card's tensors (the VAE encode under the strict-fp32 guard,
+    the text, lyric and timbre encoders) agree with the CPU's within 1e-4 of
+    max(1, max|ref|) (the same sums in other orders); the masks are equal."""
+    import os
+
+    import numpy as np
+
+    from acestep_tpu_torch.pipeline.handler import AceStepHandler
+    from acestep_tpu_torch.training.dataset import preprocess_audio_to_sample
+
+    ckpt = os.path.join(os.path.dirname(__file__), "goldens", "checkpoint_tiny")
+    rng = np.random.default_rng(3)
+    audio = (0.3 * rng.standard_normal((2, 2 * 800))).astype(np.float32)
+    out = {}
+    for where in (dev, "cpu"):
+        h = AceStepHandler(dtype=torch.float32, device=where)
+        h.initialize_service(ckpt)
+        out[str(where)] = preprocess_audio_to_sample(h, audio, "a warm piano", "[Verse]\nhello",
+                                                     metas={"bpm": 90}, vocal_language="en")
+    got, want = out[str(dev)], out["cpu"]
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].shape == want[k].shape and got[k].dtype == want[k].dtype, k
+        if want[k].dtype == np.int32:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        else:
+            tol = 1e-4 * max(1.0, float(np.abs(want[k]).max()))
+            assert np.isfinite(got[k]).all() and float(np.abs(got[k] - want[k]).max()) <= tol, k
+
+
+def test_strict_fp32_guard_under_two_cuda_threads(dev, monkeypatch):
+    """With TF32 on (PyTorch's default for cuDNN), two threads run fp32
+    products and convolutions on the card in guarded sections that overlap
+    (A enters, B enters, A leaves, B computes, B leaves), many times: every
+    guarded result equals the strict-fp32 reference bit for bit, the flags
+    are False inside, and both come back on afterwards. The TF32 product
+    differs from the reference, so a leaked flag would show."""
+    import threading
+
+    import torch.nn.functional as F
+
+    from acestep_tpu_torch.utils.precision import strict_fp32
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((1024, 1024), generator=g, device=dev)
+    x = torch.randn((2, 256, 2048), generator=g, device=dev)
+    w = torch.randn((256, 256, 7), generator=g, device=dev) * 0.05
+
+    def work():
+        return torch.mm(a, a), F.conv1d(x, w, padding=3)
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    ref = work()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    tf32 = work()
+    assert not torch.equal(tf32[0], ref[0])
+
+    phase = threading.Barrier(2, timeout=60)
+    bad = []
+
+    def run(first: bool):
+        for _ in range(20):
+            cm = strict_fp32()
+            if not first:
+                phase.wait()  # A is inside
+            cm.__enter__()
+            if first:
+                phase.wait()
+                phase.wait()  # B is inside
+                got = work()
+                cm.__exit__(None, None, None)
+                phase.wait()  # A has left
+            else:
+                phase.wait()
+                phase.wait()  # A has left: B computes alone inside
+                got = work()
+                flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+                cm.__exit__(None, None, None)
+                if flags != (False, False):
+                    bad.append(flags)
+            torch.cuda.synchronize()
+            bad.extend(i for i in range(2) if not torch.equal(got[i], ref[i]))
+
+    threads = [threading.Thread(target=run, args=(first,)) for first in (True, False)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads) and not bad, bad
+    assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == (True, True)

@@ -4,7 +4,8 @@ The job flow (release -> query -> /v1/audio), 429 on a full queue, API-key
 gating, multipart upload, `/v1/generate_stream`, dynamic batching of queued
 jobs, the pipelined worker against the serial one, `/v1/reinitialize` from
 `tests/goldens/checkpoint_tiny`, the chat API (streaming and not), and the
-routes whose slices are not ported. The port alone: its requests are
+training and dataset routes' answers to bodies that reach no handler, held
+against the JAX package's server. Otherwise the port alone: its requests are
 compared with its own direct calls. Every test shuts its server down and
 bounds every wait (a poll deadline of 60 s at most), so a hang fails the
 test instead of stalling the suite.
@@ -69,8 +70,8 @@ def dit():
 class Server:
     """A port server on a free loopback port, with JSON helpers."""
 
-    def __init__(self, dit, out_dir, llm=None, **kw):
-        self.server = serve(dit, llm, host="127.0.0.1", port=0, output_dir=str(out_dir), **kw)
+    def __init__(self, dit, out_dir, llm=None, serve_fn=serve, **kw):
+        self.server = serve_fn(dit, llm, host="127.0.0.1", port=0, output_dir=str(out_dir), **kw)
         self.service = self.server.service
         self.port = self.server.server_address[1]
         self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
@@ -413,17 +414,31 @@ def test_chat_completions(server):
         assert server.post("/v1/chat/completions", bad)[0] == 400
 
 
-@pytest.mark.parametrize("method,path,slice_name", [
-    ("POST", "/v1/train/start", "A.9"),
-    ("POST", "/v1/train/list", "A.9"),
-    ("POST", "/v1/dataset/scan", "A.9"),
-    ("GET", "/v1/dataset/samples", "A.9"),
-    ("PUT", "/v1/dataset/sample/0", "A.9"),
+@pytest.fixture(scope="module")
+def jax_server(tmp_path_factory):
+    """The JAX package's server with no handlers: these requests reach none."""
+    from acestep_tpu.service.api_server import serve as jax_serve
+
+    s = Server(None, tmp_path_factory.mktemp("jax_out"), serve_fn=jax_serve)
+    yield s
+    s.close()
+
+
+@pytest.mark.parametrize("method,path", [
+    ("POST", "/v1/train/start"),
+    ("POST", "/v1/train/list"),
+    ("POST", "/v1/dataset/scan"),
+    ("GET", "/v1/dataset/samples"),
+    ("PUT", "/v1/dataset/sample/0"),
 ])
-def test_unported_routes_name_their_slice(server, method, path, slice_name):
-    status, out, _ = server.request(method, path, {} if method != "GET" else None)
-    assert status == 501 and not out["success"]
-    assert "not ported yet" in out["error"] and slice_name in out["error"] and path in out["error"]
+def test_training_routes_answer_as_jax(server, jax_server, method, path):
+    """The training and dataset routes with an empty body, before any run or
+    scan: the port's status and body equal the JAX server's."""
+    body = {} if method != "GET" else None
+    status, out, _ = server.request(method, path, body)
+    want_status, want, _ = jax_server.request(method, path, body)
+    assert (status, sorted(out)) == (want_status, sorted(want))
+    assert out == want and status != 501
 
 
 def test_lora_routes_lifecycle(server, dit, tmp_path, monkeypatch):
