@@ -9,16 +9,19 @@ routes by dtype:
   loads of 128-key K/V tiles into a ring fed by a producer thread, wgmma
   products and an online softmax over only the key tiles inside the band;
 - fp32 (training, where the JAX package runs the DiT in fp32):
-  `csrc/flash_attention_f32.cu`, SIMT fp32 FMAs (no TF32): one CTA per
-  (64-row q tile, q head, batch), 64-key K/V tiles through a two-stage
-  cp.async ring, the same band, mask and online softmax.
+  `csrc/flash_attention_f32.cu`, 3xTF32 `mma.sync` on the tensor cores at
+  fp32 accuracy (each operand split into two TF32 parts in registers, three
+  products per product): one CTA per (64-row q tile, q head, batch), two an
+  SM, 32-key K/V tiles through a two-stage cp.async ring, the same band,
+  mask and online softmax.
 
 Each source note gives what bounds it on an H100. `flash_attention` launches
 a kernel for a CUDA tensor (head_dim 128, rows with 16-byte strides and base:
 see `_rows_ok`) and raises on anything it does not take, any other dtype
 included, without copying; a CPU tensor takes `flash_attention_plain`, the
 einsum with an fp32 softmax. `.launches` counts the bf16 route's launches,
-`.f32_launches` the fp32 route's.
+`.f32_launches` the fp32 route's. `f32_ctas_per_sm` reads the fp32 route's
+occupancy on the current card.
 """
 
 from __future__ import annotations
@@ -39,6 +42,24 @@ _ROUTES = {  # dtype -> (library, C entry point, launch counter)
     torch.bfloat16: ("flash_attention", "acestep_flash_attention", "launches"),
     torch.float32: ("flash_attention_f32", "acestep_flash_attention_f32", "f32_launches"),
 }
+_F32_CTAS = "acestep_flash_attention_f32_ctas_per_sm"
+
+
+def _library(dtype: torch.dtype) -> ctypes.CDLL:
+    lib_name, entry, _ = _ROUTES[dtype]
+    signatures = {entry: (_ARGS, ctypes.c_int)}
+    if dtype == torch.float32:
+        signatures[_F32_CTAS] = ([], ctypes.c_int)
+    return cuda_lib.load(lib_name, signatures)
+
+
+def f32_ctas_per_sm() -> int:
+    """CTAs of the fp32 route's kernel that one SM of the current card holds
+    at once (its design asks for 2); raises on a CUDA error."""
+    n = getattr(_library(torch.float32), _F32_CTAS)()
+    if n < 0:
+        cuda_lib.check(-n, "flash_attention_f32")
+    return n
 
 
 def flash_attention_plain(
@@ -103,8 +124,7 @@ def flash_attention(
     out = torch.empty((b, lq, nq, h), dtype=q.dtype, device=q.device)
     scale = h**-0.5 if scale is None else scale
     lib_name, entry, counter = _ROUTES[q.dtype]
-    lib = cuda_lib.load(lib_name, {entry: (_ARGS, ctypes.c_int)})
-    rc = getattr(lib, entry)(
+    rc = getattr(_library(q.dtype), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
         out.data_ptr(), b, lq, lk, nq, nkv,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),

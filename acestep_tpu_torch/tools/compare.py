@@ -39,7 +39,7 @@ def main(child: str, tool: str, argv: Optional[Sequence[str]] = None) -> int:
 
     def cell(d: str, case: str) -> str:
         fw, rv = runs[d][0][case], runs[d][1][case]
-        err = f" ({fw['max_abs_err']:.4f})" if "max_abs_err" in fw else ""
+        err = f" ({fw['max_abs_err']:.3g})" if "max_abs_err" in fw else ""
         return f"{fw['ms']:9.4f}/{rv['ms']:9.4f}{err}".rjust(34)
 
     print("ms forward/reverse (max abs err)".ljust(34) + "".join(n[-20:].rjust(34) for n in names))

@@ -73,8 +73,9 @@ Phases, each fatal on failure:
   8. training: kernel 1's fp32 route against its plain version at the
      training path's shapes (`run_f32_attention_phase`, run with phase 3's
      kernel checks: fp32, TF32 off, within `F32_ROUTE_TOL`; times beside the
-     fp32 bound at 67 TFLOP/s and SDPA in fp32); the narrow config's LoRA loss
-     and gradients on the card against
+     fp32 bound at 67 TFLOP/s, the 3xTF32 bound at 495 / 3 TFLOP/s and its
+     share, SDPA in fp32, and the kernel's CTAs an SM); the narrow config's
+     LoRA loss and gradients on the card against
      the CPU in fp32 within `TRAIN_GRAD_TOL`, and `FlashAttention`'s backward
      against the plain path's autograd on the card, bf16 and fp32, bit for bit
      (`run_train_grads`); a full-width LoRA run through `LoRATrainer.train`
@@ -87,7 +88,9 @@ Phases, each fatal on failure:
      request on the decoder with the adapter merged in;
   9. a `{"kernels": [...]}` JSON line, then the `{"ok": true, ...}` line last.
      In it a kernel's `ms`, `plain_ms`, `library_ms` and `bound_ms` are sums
-     over its phase-3 shapes, `max_abs_err` their maximum, and `launches` the
+     over its phase-3 shapes (the fp32 route's `bound_ms` sums its 3xTF32
+     bounds: the least time for fp32 products at fp32 accuracy on this card),
+     `max_abs_err` their maximum, and `launches` the
      sum over the paths of phases 4 (checkpoint_tiny), 5 (text2music, audio
      inputs, base, serving, the serving phase's direct calls, lora, lrc), 6
      (thinking, free-form, scoring), 8 (training, the trained adapter
@@ -116,9 +119,11 @@ import torch
 
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
-
-
 PEAK_F32_FLOPS = 67e12  # fp32 outside the tensor cores (H100 SXM data sheet)
+# TF32 on the tensor cores (H100 SXM data sheet). Kernel 1's fp32 route takes
+# three TF32 products for each fp32 product (3xTF32), so its bound at fp32
+# accuracy is the operations at PEAK_TF32_FLOPS / 3.
+PEAK_TF32_FLOPS = 495e12
 
 
 def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> tuple:
@@ -443,7 +448,6 @@ def run_vae_phase(dev, gen, results):
             raise SystemExit(f"{kname} {label}: max_abs_err {err} > {tol}")
 
 
-PEAK_FP32_FLOPS = 67e12  # fp32 outside the tensor cores (H100 SXM data sheet)
 NARROW_TOL = {torch.bfloat16: 3e-2, torch.float32: 5e-5}  # of max(1, max|ref|)
 
 
@@ -517,7 +521,7 @@ def run_narrow_phase(dev, gen, results):
             err = (out.float() - ref).abs().max().item()
             tol = NARROW_TOL[dtype] * max(1.0, ref.abs().max().item())
             ok = bool(err <= tol) and bool(torch.isfinite(out).all()) and out.dtype == dtype
-            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
             t_ops, t_bytes = flops / peak, (nbytes(x, out) + 4 * w_elems) / PEAK_BYTES
             b_ms, b_by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
             k_ms = time_ms(run, 10)
@@ -2110,11 +2114,12 @@ def _logits_route(llm, rows: int) -> None:
 # ---------------------------------------------------------------------------
 
 # The fp32 route against its plain version (fp32, TF32 off) at the training
-# shapes: max abs error at most this, twice the largest reading (1.55e-6, the
-# full-width cross case at 768 tokens) on an H100 80GB HBM3 at 700 W. Both
-# sides sum fp32 products in other orders, and the kernel's online softmax
-# rescales its partial sums. The inputs come from the script's seeded
-# generator in a fixed order, so a run repeats the reading.
+# shapes: max abs error at most this, twice the largest reading of the
+# route's first, SIMT fp32 kernel (1.55e-6, the full-width cross case at 768
+# tokens) on an H100 80GB HBM3 at 700 W; the 3xTF32 kernel is held to the
+# same. Both sides sum fp32-accurate products in other orders, and the
+# kernel's online softmax rescales its partial sums. The inputs come from the
+# script's seeded generator in a fixed order, so a run repeats the reading.
 F32_ROUTE_TOL = 3.1e-6
 # The narrow config's LoRA loss and gradients, card (fp32 activations, the
 # fp32 route, the recompute backward) against the CPU (fp32, plain): relative
@@ -2162,12 +2167,20 @@ def f32_attention_cases(dev, gen):
 def run_f32_attention_phase(dev, gen, results):
     """Kernel 1's fp32 route against its plain version at the training
     shapes: error, CUDA-event and profiler times, the plain version's time,
-    SDPA on the same fp32 inputs and boolean mask, and the bound (fp32
-    operations at 67 TFLOP/s against the bytes at 3.35 TB/s)."""
+    SDPA on the same fp32 inputs and boolean mask, and two bounds against
+    the bytes at 3.35 TB/s: `bound_ms` with the fp32 operations at 67 TFLOP/s
+    (SIMT), `bound_3xtf32_ms` at 495 / 3 TFLOP/s (three TF32 products a
+    product, as the kernel computes), with `share_of_3xtf32_bound` (the
+    bound over `kernel_ms`). The kernels line sums the 3xTF32 bound. The
+    kernel's CTAs an SM are read first (its design asks for 2)."""
     import torch.nn.functional as F
 
     from acestep_tpu_torch.ops.attention import make_attention_bias
-    from acestep_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from acestep_tpu_torch.ops.flash_attention import f32_ctas_per_sm, flash_attention, flash_attention_plain
+
+    ctas = f32_ctas_per_sm()
+    print(json.dumps(dict(phase="flash_attention_f32 occupancy", ctas_per_sm=ctas,
+                          sms=torch.cuda.get_device_properties(dev).multi_processor_count)), flush=True)
 
     for name, (q, k, v), kw in f32_attention_cases(dev, gen):
         run = lambda: flash_attention(q, k, v, kw["kv_mask"], window=kw.get("window"))
@@ -2181,7 +2194,9 @@ def run_f32_attention_phase(dev, gen, results):
         mask = make_attention_bias(q.shape[1], k.shape[1], kv_mask=kw["kv_mask"], window=kw.get("window"), device=dev)
         pairs = mask.expand(q.shape[0], 1, q.shape[1], k.shape[1]).sum().item()
         flops = 4.0 * pairs * q.shape[2] * q.shape[3]
-        b_ms, b_by = bound_ms(flops, nbytes(q, k, v, out) + kw["kv_mask"].numel() * 4, PEAK_F32_FLOPS)
+        moved = nbytes(q, k, v, out) + kw["kv_mask"].numel() * 4
+        b_ms, b_by = bound_ms(flops, moved, PEAK_F32_FLOPS)
+        b3_ms, b3_by = bound_ms(flops, moved, PEAK_TF32_FLOPS / 3)
         k_ms = time_ms(run, 20)
         d_ms = device_ms(run, 10, {"flash_f32_kernel": 1})
         p_ms = time_ms(lambda: flash_attention_plain(q, k, v, kw["kv_mask"], window=kw.get("window")), 3)
@@ -2193,7 +2208,8 @@ def run_f32_attention_phase(dev, gen, results):
         del qt, kt, vt
         line = dict(phase=f"kernel flash_attention_f32 {name}", ok=ok, max_abs_err=err, tol=F32_ROUTE_TOL,
                     kernel_ms=k_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
-                    tflops=flops / (d_ms * 1e9), shapes=dict(q=list(q.shape), k=list(k.shape)))
+                    bound_3xtf32_ms=b3_ms, bound_3xtf32_by=b3_by, share_of_3xtf32_bound=b3_ms / k_ms,
+                    tflops=flops / (d_ms * 1e9), ctas_per_sm=ctas, shapes=dict(q=list(q.shape), k=list(k.shape)))
         print(json.dumps(line), flush=True)
         results.setdefault("flash_attention_f32", []).append(line)
         if not ok:
@@ -2920,6 +2936,7 @@ def main() -> int:
     kernels = []
     for name, lines in results.items():
         src, rep = replaces[name]
+        bound = "bound_3xtf32_ms" if name == "flash_attention_f32" else "bound_ms"  # the route's own arithmetic
         lib = [l["library_ms"] for l in lines if l["library_ms"] is not None]
         narrow = {}
         if name in _OOBLECK:  # the narrow route's source and its launches (all on the checkpoint_tiny path)
@@ -2928,8 +2945,8 @@ def main() -> int:
             name=name, route="cuda", source=src, **narrow, replaces=rep, launches=launches[name],
             max_abs_err=max(l["max_abs_err"] for l in lines),
             ms=sum(l["kernel_ms"] for l in lines), plain_ms=sum(l["plain_ms"] for l in lines),
-            bound_ms=sum(l["bound_ms"] for l in lines),
-            bound_by=max(lines, key=lambda l: l["bound_ms"])["bound_by"],
+            bound_ms=sum(l[bound] for l in lines),
+            bound_by=max(lines, key=lambda l: l[bound])[bound.replace("_ms", "_by")],
             library_ms=sum(lib) if lib else None,
             shapes=[l["phase"].split()[-1] for l in lines],
         ))

@@ -194,8 +194,9 @@ def _randn32(shape, seed, dev):
     return torch.randn(shape, generator=g, device=dev)
 
 
-# The fp32 route against the plain version in fp32 (TF32 off): both sum fp32
-# products, in another order, and the kernel's online softmax rescales by
+# The fp32 route against the plain version in fp32 (TF32 off): the kernel's
+# products are 3xTF32 (each operand split into two TF32 parts, about fp32's
+# accuracy), summed in another order, and its online softmax rescales by
 # exp(m_old - m_new) where the plain one takes one max. Outputs are averages
 # of unit gaussians (|out| < 5); the error is a few units in the last place
 # of the largest terms.
@@ -236,6 +237,83 @@ def test_flash_f32_matches_plain(dev, b, lq, lk, nq, nkv, kw):
     want = flash_attention_plain(q, k, v, mask, **kw)
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     assert (got - want).abs().max().item() < F32_TOL
+
+
+def _rows_with_a_key(mask, b, lq, lk, window, causal, dev):
+    """(B, Lq) bool: the query rows that have at least one valid key."""
+    from acestep_tpu_torch.ops.attention import make_attention_bias
+
+    allowed = make_attention_bias(lq, lk, kv_mask=mask, window=window, causal=causal, device=dev)
+    if allowed is None:
+        return torch.ones((b, lq), dtype=torch.bool, device=dev)
+    return allowed.any(dim=-1)[:, 0].expand(b, lq)
+
+
+@pytest.mark.parametrize(
+    "b,lq,lk,nq,nkv,kw",
+    [
+        (1, 1, 1, 4, 1, {}),  # one row and one key; 4 q heads a kv head
+        (2, 33, 33, 1, 1, {}),  # one key past a 32-key tile; one q head a kv head
+        (1, 65, 33, 4, 4, dict(window=0)),  # one row past a 64-row tile; a row sees its own key only
+        (1, 64, 65, 4, 1, dict(causal=True, window=0)),
+        (2, 128, 128, 4, 2, dict(hole=(32, 64))),  # a 32-key tile with every key masked
+        (1, 97, 97, 4, 2, dict(causal=True, hole=(0, 8))),  # rows 0-7 have no valid key
+        (2, 200, 161, 8, 2, dict(views=True, window=40)),  # batch and row strides that `_rows_ok` takes
+    ],
+)
+def test_flash_f32_tile_edges(dev, b, lq, lk, nq, nkv, kw):
+    """The fp32 route at the edges of its 64-row and 32-key tiles, against the
+    plain version on the rows that have a valid key (a row without one
+    averages the keys the kernel visits); every row finite."""
+    kw = dict(kw)
+    hole = kw.pop("hole", None)
+    views = kw.pop("views", False)
+    if views:  # q from every other batch row and past one head, k past 3 rows, v past nkv heads
+        q = _randn32((2 * b, lq, nq + 1, 128), 31, dev)[::2, :, 1:]
+        k = _randn32((b, lk + 3, nkv, 128), 32, dev)[:, 3:]
+        v = _randn32((b, lk, 2 * nkv, 128), 33, dev)[:, :, nkv:]
+        assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    else:
+        q, k, v = (_randn32((b, l, n, 128), s, dev) for l, n, s in ((lq, nq, 31), (lk, nkv, 32), (lk, nkv, 33)))
+    mask = None
+    if hole is not None:
+        mask = torch.ones((b, lk), dtype=torch.int32, device=dev)
+        mask[:, hole[0]:hole[1]] = 0
+    before = flash_attention.f32_launches
+    got = flash_attention(q, k, v, mask, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.f32_launches == before + 1
+    want = flash_attention_plain(q, k, v, mask, **kw)
+    rows = _rows_with_a_key(mask, b, lq, lk, kw.get("window"), kw.get("causal", False), dev)
+    if hole == (0, 8):
+        assert not rows.all()
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert (got - want)[rows].abs().max().item() < F32_TOL
+
+
+@pytest.mark.parametrize("kw", [dict(pad=750), dict(pad=750, window=128), dict(causal=True, window=64)])
+def test_flash_f32_repeats_bit_for_bit(dev, kw):
+    """Two launches on the same inputs give the same bits: no split over keys,
+    every sum in a fixed order (a seeded training run repeats itself)."""
+    kw = dict(kw)
+    pad = kw.pop("pad", None)
+    q, k, v = (_randn32((1, 768, n, 128), s, dev) for n, s in ((16, 41), (8, 42), (8, 43)))
+    mask = None
+    if pad is not None:
+        mask = torch.ones((1, 768), dtype=torch.int32, device=dev)
+        mask[:, pad:] = 0
+    first = flash_attention(q, k, v, mask, **kw)
+    second = flash_attention(q, k, v, mask, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_flash_f32_two_ctas_an_sm(dev):
+    """The fp32 route's occupancy: its 105 KB of shared memory lets two CTAs
+    share an SM, so a 1 x 768 layer's 192 CTAs are one wave."""
+    from acestep_tpu_torch.ops.flash_attention import f32_ctas_per_sm
+
+    assert f32_ctas_per_sm() == 2
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
