@@ -69,8 +69,7 @@
 //   rows first.
 // - Deterministic: no split over keys, a fixed order of every sum.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"  // cp.async, tf32_rna, mma_tf32
 
 namespace {
 
@@ -100,19 +99,6 @@ struct Params {
   int causal;
 };
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Rows [r0, r0 + ROWS) of one head into shared memory at pitch LD; rows at or
 // past L are zero-filled. ROWS x 32 chunks of 16 bytes.
 template <int ROWS, int LD>
@@ -128,14 +114,6 @@ __device__ __forceinline__ void load_rows(float* dst, const float* head, long lo
   }
 }
 
-// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite x: half of the 13
-// dropped bits' range added to the magnitude, then those bits cleared. On
-// sm_90a the cvt compiles to a longer sequence that also screens for inf and
-// NaN, and the splits take most of the kernel's instruction slots.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
 // x = hi + lo + O(2^-22 |x|): both parts rounded to nearest TF32.
 struct Split {
   uint32_t hi, lo;
@@ -144,14 +122,6 @@ struct Split {
 __device__ __forceinline__ Split split(float x) {
   const uint32_t hi = tf32_rna(x);
   return {hi, tf32_rna(x - __uint_as_float(hi))};
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // d += A B for one k = 8 step in 3xTF32 on the tensor cores, A = (a0, a1,

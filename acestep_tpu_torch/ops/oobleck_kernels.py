@@ -8,8 +8,11 @@ of two routes:
   wgmma);
 - the narrow route, every other width the JAX package sends to its Pallas
   kernels (C_out <= 512, chain C <= 1024) and fp32 activations at any width:
-  SIMT launches of `csrc/oobleck_generic.cu` (Snake, conv_t, k7, k1), fp32
-  weights, rounded to the activation dtype where the plain versions round.
+  `csrc/oobleck_generic.cu`, a Snake launch, then implicit-GEMM convolutions
+  on the tensor cores (`mma.sync`; bf16 activations against fp32 weights
+  split into bf16 hi and lo parts, fp32 in 3xTF32): the conv_t with the first
+  unit's Snake1, then one launch per residual unit (z in shared memory),
+  rounded to the activation dtype where the plain versions round.
 
 - `decoder_block_kernel` replaces `decoder_block_pallas`: one Oobleck decoder
   block, Snake -> ConvTranspose1d (K = 2s, pad s/2) -> 3 residual units. On
@@ -66,8 +69,8 @@ _SM90_SIGNATURES = {
 }
 _GEN_SIGNATURES = {
     "acestep_gen_snake": ([_P] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
-    "acestep_gen_conv": ([_P] * 8 + [ctypes.c_int] * 7 + [_P], ctypes.c_int),
-    "acestep_gen_upsample": ([_P] * 7 + [ctypes.c_int] * 6 + [_P], ctypes.c_int),
+    "acestep_gen_unit": ([_P] * 14 + [ctypes.c_int] * 8 + [_P], ctypes.c_int),
+    "acestep_gen_upsample": ([_P] * 8 + [ctypes.c_int] * 9 + [_P], ctypes.c_int),
 }
 SM90_CHANNELS = (128, 256, 512)  # output channels the Hopper decoder-block kernels take
 CHAIN_CHANNELS = tuple(range(128, 1025, 128))  # channels the Hopper residual-chain kernel takes
@@ -450,9 +453,79 @@ def _check_narrow(what: str, *ts: torch.Tensor) -> None:
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _w32(kernel: torch.Tensor) -> torch.Tensor:
-    """A conv kernel as the narrow route reads it: fp32 (K, C_in, C_out), contiguous."""
-    return _derived("w32", (kernel,), lambda: kernel.float().contiguous())
+def narrow_tile(n: int, pow2: bool = False) -> int:
+    """Output channels of a narrow-route tile over n columns, 32 nt for nt in
+    (1, 2, 4, 6, 8): the smallest that holds n up to 192 columns, above that
+    192 or 256, whichever pads n less (`pow2`: powers of two only)."""
+    if n <= 128 or pow2:
+        return 32 if n <= 32 else 64 if n <= 64 else 128 if n <= 128 else 256
+    return 192 if -(-n // 192) * 192 < -(-n // 256) * 256 else 256
+
+
+_SMS: Dict[int, int] = {}
+
+
+def _sms(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]
+
+
+def _upsample_tile(b: int, l: int, npad: int, device: torch.device) -> int:
+    """The upsample's CTA columns over a weight padded to npad (32-row CTAs):
+    the widest power-of-two tile up to 128 (4 warps) that still gives every
+    SM a CTA."""
+    bn = min(128, narrow_tile(npad, pow2=True))
+    while bn > 32 and -(-l // 32) * (npad // bn) * b < _sms(device):
+        bn //= 2
+    return bn
+
+
+def narrow_kstep(dtype: torch.dtype) -> int:
+    """Input channels of one K step of the narrow route: 64 bytes of them."""
+    return 16 if dtype == torch.float32 else 32
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 as `cvt.rna.tf32.f32` rounds a finite value (to
+    nearest, ties away from zero): the route's `tf32_rna`."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_weights(w: torch.Tensor, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 weights as the narrow route's two operand parts, hi + lo ~ w:
+    bf16 (hi = bf16(w), lo = bf16(w - hi)) for bf16 activations, TF32 held in
+    fp32 (hi = rna(w), lo = rna(w - hi)) for fp32 ones."""
+    w = w.float()
+    if dtype == torch.bfloat16:
+        hi = w.to(torch.bfloat16)
+        return hi, (w - hi.float()).to(torch.bfloat16)
+    hi = tf32_rna(w)
+    return hi, tf32_rna(w - hi)
+
+
+def pack_narrow(kernel: torch.Tensor, dtype: torch.dtype, pow2: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(K, C_in, N) conv kernel -> its (hi, lo) parts, each (K, N_pad, K_pad):
+    every tap K-major per output channel, zero-padded to the narrow route's
+    tile (N to `narrow_tile`, of powers of two with `pow2`, as the upsample
+    takes them; C_in to `narrow_kstep`)."""
+    k, ci, n = kernel.shape
+    tile = narrow_tile(n, pow2)
+    npad, kpad = -(-n // tile) * tile, -(-ci // narrow_kstep(dtype)) * narrow_kstep(dtype)
+    w = torch.zeros((k, npad, kpad), dtype=torch.float32, device=kernel.device)
+    w[:, :n, :ci] = kernel.float().permute(0, 2, 1)
+    hi, lo = split_weights(w, dtype)
+    return hi.contiguous(), lo.contiguous()
+
+
+def _narrow_packed(kernel: torch.Tensor, dtype: torch.dtype, stride: Optional[int] = None):
+    """pack_narrow of the kernel, or of its phase weights when `stride` is given."""
+    if stride is None:
+        return _derived(f"narrow{dtype}", (kernel,), lambda: pack_narrow(kernel, dtype))
+    return _derived(f"narrow_phase{stride}{dtype}", (kernel,),
+                    lambda: pack_narrow(phase_weights(kernel.float(), stride), dtype, pow2=True))
 
 
 def _fp32(x: torch.Tensor) -> int:
@@ -472,28 +545,26 @@ def _narrow_snake(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
 def _narrow_unit(
     h: torch.Tensor, a: torch.Tensor, p: Dict[str, Any], dilation: int, snake_next: Optional[Dict[str, torch.Tensor]]
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One residual unit from h and a = T(Snake1(h)): the k7 launch (z =
-    T(Snake2(conv_k7,d(a) + b1))), then the k1 launch (h' = T((h +
-    conv_k1(z)) + b2), and a_next = T(snake_next(h')) when given)."""
+    """One residual unit from h and a = T(Snake1(h)), one launch: h' =
+    T((h + conv_k1(z)) + b2) with z = T(Snake2(conv_k7,d(a) + b1)) kept in
+    shared memory, and a_next = T(snake_next(h')) when given."""
     b, l, c = h.shape
-    dev, lib = h.device, _generic()
+    dev = h.device
+    w1h, w1l = _narrow_packed(p["conv1"]["kernel"], h.dtype)
+    w2h, w2l = _narrow_packed(p["conv2"]["kernel"], h.dtype)
     ae2, ib2 = _snake_consts(p["snake2"])
-    z = torch.empty_like(h)
-    rc = lib.acestep_gen_conv(
-        a.data_ptr(), _w32(p["conv1"]["kernel"]).data_ptr(), _f32(p["conv1"].get("bias"), c, dev).data_ptr(),
-        None, ae2.data_ptr(), ib2.data_ptr(), z.data_ptr(), None, b, l, c, c, 7, dilation, _fp32(h), _stream(h),
-    )
-    cuda_lib.check(rc, "oobleck_generic k7")
     out = torch.empty_like(h)
     a_next = aen = ibn = None
     if snake_next is not None:
         a_next = torch.empty_like(h)
         aen, ibn = _snake_consts(snake_next)
-    rc = lib.acestep_gen_conv(
-        z.data_ptr(), _w32(p["conv2"]["kernel"]).data_ptr(), _f32(p["conv2"].get("bias"), c, dev).data_ptr(),
-        h.data_ptr(), _ptr(aen), _ptr(ibn), out.data_ptr(), _ptr(a_next), b, l, c, c, 1, 1, _fp32(h), _stream(h),
+    rc = _generic().acestep_gen_unit(
+        a.data_ptr(), h.data_ptr(), w1h.data_ptr(), w1l.data_ptr(), _f32(p["conv1"].get("bias"), c, dev).data_ptr(),
+        ae2.data_ptr(), ib2.data_ptr(), w2h.data_ptr(), w2l.data_ptr(), _f32(p["conv2"].get("bias"), c, dev).data_ptr(),
+        _ptr(aen), _ptr(ibn), out.data_ptr(), _ptr(a_next), b, l, c, w1h.shape[1], w1h.shape[2],
+        narrow_tile(c), dilation, _fp32(h), _stream(h),
     )
-    cuda_lib.check(rc, "oobleck_generic k1")
+    cuda_lib.check(rc, "oobleck_generic unit")
     return out, a_next
 
 
@@ -504,27 +575,29 @@ def _narrow_units(h: torch.Tensor, a: torch.Tensor, units: Sequence[Dict[str, An
 
 
 def res_units_narrow(x: torch.Tensor, unit_params: Sequence[Dict[str, Any]]) -> torch.Tensor:
-    """The chain on the narrow route: the Snake launch, then each unit's k7
-    and k1 (7 launches); CUDA tensors only, any C."""
+    """The chain on the narrow route: the Snake launch, then one launch per
+    unit (4 launches); CUDA tensors only, any C up to 1024."""
     _check_narrow("res_units_narrow", x)
     return _narrow_units(x, _narrow_snake(x, unit_params[0]["snake1"]), unit_params)
 
 
 def decoder_block_narrow(x: torch.Tensor, p: Dict[str, Any], stride: int) -> torch.Tensor:
     """A decoder block on the narrow route: the Snake launch, the conv_t
-    launch with the first unit's Snake1, then each unit's k7 and k1 (8
-    launches); CUDA tensors only, any widths."""
+    launch with the first unit's Snake1, then one launch per unit (5
+    launches); CUDA tensors only, any widths up to 512 output channels."""
     _check_narrow("decoder_block_narrow", x)
     b, l, ci = x.shape
     ct, units = p["conv_t1"], (p["res_unit1"], p["res_unit2"], p["res_unit3"])
     co = ct["kernel"].shape[2]
     a0 = _narrow_snake(x, p["snake1"])
     ae, ib = _snake_consts(units[0]["snake1"])
+    wh, wl = _narrow_packed(ct["kernel"], x.dtype, stride)
     y = torch.empty((b, l * stride, co), dtype=x.dtype, device=x.device)
     a1 = torch.empty_like(y)
     rc = _generic().acestep_gen_upsample(
-        a0.data_ptr(), _w32(ct["kernel"]).data_ptr(), _f32(ct.get("bias"), co, x.device).data_ptr(),
-        ae.data_ptr(), ib.data_ptr(), y.data_ptr(), a1.data_ptr(), b, l, ci, co, stride, _fp32(x), _stream(x),
+        a0.data_ptr(), wh.data_ptr(), wl.data_ptr(), _f32(ct.get("bias"), co, x.device).data_ptr(),
+        ae.data_ptr(), ib.data_ptr(), y.data_ptr(), a1.data_ptr(), b, l, ci, co, stride, wh.shape[1], wh.shape[2],
+        _upsample_tile(b, l, wh.shape[1], x.device), _fp32(x), _stream(x),
     )
     cuda_lib.check(rc, "oobleck_generic upsample")
     return _narrow_units(y, a1, units)
@@ -536,7 +609,7 @@ def res_units_kernel(x: torch.Tensor, unit_params: Sequence[Dict[str, Any]]) -> 
     unit's Snake1, then per unit one fused launch at C <= 256, else the k7
     (on the stream-K schedule at multiples of 256) and the k1 with the next
     unit's Snake1 in its epilogue (4 or 7 launches); any other C up to 1024,
-    or fp32: the narrow route (7 launches)."""
+    or fp32: the narrow route (4 launches)."""
     if x.device.type == "cpu":
         return res_units_plain(x, unit_params)
     c = x.shape[-1]
@@ -578,7 +651,7 @@ def decoder_block_kernel(x: torch.Tensor, p: Dict[str, Any], stride: int) -> tor
     """One decoder block (B, L, Ci) -> (B, L*stride, Co); stride even. On the
     card, bf16 with Co in SM90_CHANNELS and Ci a multiple of 128: the Hopper
     route (5 or 8 launches); any other Co up to 512, or fp32: the narrow route
-    (8 launches)."""
+    (5 launches)."""
     if stride % 2:
         raise ValueError("Oobleck decoder strides are even")
     if x.device.type == "cpu":

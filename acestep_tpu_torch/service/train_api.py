@@ -21,6 +21,12 @@ training run does not hold it, or it would stop serving for the whole run;
 it relies on the process-wide TF32 guard (`utils/precision.strict_fp32`)
 instead, and serving's bf16 paths compute the same beside it. The JAX
 package takes no lock here.
+
+A run's worker thread finishes a run under the service's own lock, its
+adapter path before its terminal status, and `status` / `list_runs` copy a
+run's state under that lock: a poll never sees a finished run without its
+adapter, nor a state that changes size while it is copied. The JAX package
+sets the status first and copies without the lock.
 """
 
 from __future__ import annotations
@@ -92,11 +98,15 @@ class TrainingService:
                     if state["stop_requested"]:
                         trainer.save_checkpoint()
                         break
-                state["status"] = "stopped" if state["stop_requested"] else "completed"
-                state["adapter_path"] = os.path.join(output_dir, "adapter.npz")
+                final = "stopped" if state["stop_requested"] else "completed"
+                with self._lock:  # a poll sees a finished run whole: its adapter with its status
+                    state["adapter_path"] = os.path.join(output_dir, "adapter.npz")
+                    state["status"] = final
             except Exception as e:  # noqa: BLE001 — surfaced via the status API
-                state["status"] = "failed"
-                state["error"] = f"{e}\n{traceback.format_exc()}"
+                error = f"{e}\n{traceback.format_exc()}"
+                with self._lock:
+                    state["error"] = error
+                    state["status"] = "failed"
 
         threading.Thread(target=worker, daemon=True).start()
         return {"run_id": run_id, "output_dir": output_dir}
@@ -119,11 +129,11 @@ class TrainingService:
         return {"success": True, "adapter_path": out, "step": state.get("step")}
 
     def status(self, run_id: str) -> Optional[Dict[str, Any]]:
-        with self._lock:
+        with self._lock:  # the worker adds keys under this lock: copy the state whole
             state = self._runs.get(run_id)
-        if state is None:
-            return None
-        out = {k: v for k, v in state.items() if k != "stop_requested"}
+            if state is None:
+                return None
+            out = {k: v for k, v in state.items() if k != "stop_requested"}
         metrics = os.path.join(state["output_dir"], "metrics.jsonl")
         if os.path.exists(metrics):
             with open(metrics) as f:

@@ -2,7 +2,7 @@
 
 A tool supplies a child script that runs inside one checkout (argv[1] the
 checkout, argv[2] "build" or "time") and prints, as its last line, one JSON
-object {case: {"ms": ..., optional "max_abs_err": ...}}. All checkouts are
+object {case: {"ms": ..., optional "device_ms", "max_abs_err": ...}}. All checkouts are
 built first, in parallel; then each one is timed in its own process, in
 turns (forward, then reverse order), so that two versions are compared on
 the same card in the same call.
@@ -39,10 +39,11 @@ def main(child: str, tool: str, argv: Optional[Sequence[str]] = None) -> int:
 
     def cell(d: str, case: str) -> str:
         fw, rv = runs[d][0][case], runs[d][1][case]
+        dev = f" [{fw['device_ms']:.4f}/{rv['device_ms']:.4f}]" if fw.get("device_ms") and rv.get("device_ms") else ""
         err = f" ({fw['max_abs_err']:.3g})" if "max_abs_err" in fw else ""
-        return f"{fw['ms']:9.4f}/{rv['ms']:9.4f}{err}".rjust(34)
+        return f"{fw['ms']:9.4f}/{rv['ms']:9.4f}{dev}{err}".rjust(52)
 
-    print("ms forward/reverse (max abs err)".ljust(34) + "".join(n[-20:].rjust(34) for n in names))
+    print("ms forward/reverse [device ms] (max abs err)".ljust(34) + "".join(n[-20:].rjust(52) for n in names))
     for case in runs[dirs[0]][0]:
         print(case.ljust(34) + "".join(cell(d, case) for d in dirs))
     if args.out:

@@ -19,7 +19,11 @@ Phases, each fatal on failure:
      32/8 heads) and at 1 x 7 500 DiT tokens (full, sliding w = 128, cross onto
      769 padded keys); the narrow route of kernels 2 and 3 in bf16 and fp32
      (the tiny checkpoint's 16-channel blocks, a 384 -> 192 block, the chain
-     at 64 channels; `run_narrow_phase`); the stage probe (kernel 4) in every
+     at 64 channels; in fp32 also the full-width chain and blocks 1-4 at the
+     544-frame chunk, with the 3xTF32 bound; `run_narrow_phase`), then a
+     full-width 1 x 60 s decode in fp32, the path of a handler built in fp32,
+     against the plain versions on the card (`run_fp32_decode`: wall, each
+     block's narrow-route calls); the stage probe (kernel 4) in every
      mode and K layout at seq 3840 and 7552;
   4. the whole pipeline at a narrow config on the card (bf16, kernels) against
      the same weights and noise on the CPU (fp32, plain versions), thinking
@@ -88,14 +92,16 @@ Phases, each fatal on failure:
      request on the decoder with the adapter merged in;
   9. a `{"kernels": [...]}` JSON line, then the `{"ok": true, ...}` line last.
      In it a kernel's `ms`, `plain_ms`, `library_ms` and `bound_ms` are sums
-     over its phase-3 shapes (the fp32 route's `bound_ms` sums its 3xTF32
-     bounds: the least time for fp32 products at fp32 accuracy on this card),
+     over its phase-3 shapes (for fp32 rows, kernel 1's fp32 route and the
+     Oobleck narrow route in fp32, `bound_ms` sums their 3xTF32 bounds: the
+     least time for fp32 products at fp32 accuracy on this card),
      `max_abs_err` their maximum, and `launches` the
      sum over the paths of phases 4 (checkpoint_tiny), 5 (text2music, audio
      inputs, base, serving, the serving phase's direct calls, lora, lrc), 6
      (thinking, free-form, scoring), 8 (training, the trained adapter
-     served; the fp32 route's launches are `flash_attention_f32`'s) and 7 (the
-     Oobleck kernels' narrow-route calls also in `narrow_launches`). Each
+     served; the fp32 route's launches are `flash_attention_f32`'s), 7 and
+     phase 3's fp32 decode (the Oobleck kernels' narrow-route calls also in
+     `narrow_launches`). Each
      path is driven with every launch counter set to 0 just before it and
      read just after, and fails if one of its kernels was never launched or
      its narrow-route calls differ from the expected count (0 at full
@@ -461,17 +467,46 @@ def _narrow_units(c: int, gen) -> list:
              "conv2": {"kernel": rnd(1, c, c, scale=c**-0.5), "bias": rnd(c, scale=0.3)}} for _ in range(3)]
 
 
+def _full_width_fp32_cases(dev, gen) -> list:
+    """The full-width decoder's narrow-route shapes at the 544-frame decode
+    chunk in fp32 (what a handler built in fp32 runs): block 0's chain at
+    1024 channels over 5440 rows and blocks 1-4, random weights (seed 11,
+    random Snake logs)."""
+    from acestep_tpu_torch.config import OobleckConfig
+    from acestep_tpu_torch.params import init_oobleck_params
+
+    cfg = OobleckConfig()
+    p = init_oobleck_params(cfg, seed=11, device=dev)["decoder"]
+    _perturb_snakes(p, gen)
+    strides = tuple(reversed(cfg.downsampling_ratios))
+    b0 = p["block"][0]
+    cases = [("res_units", "full_chain1024_c544", (1, 544 * strides[0], 1024),
+              [b0["res_unit1"], b0["res_unit2"], b0["res_unit3"]], None)]
+    l_in = 544 * strides[0]
+    for i, s in enumerate(strides[1:], 1):
+        bp = p["block"][i]
+        cases.append(("decoder_block", f"full_block{i}_c544", (1, l_in, bp["conv_t1"]["kernel"].shape[1]), bp, s))
+        l_in *= s
+    return cases
+
+
 def run_narrow_phase(dev, gen, results):
     """The narrow route of kernels 2 and 3 (`csrc/oobleck_generic.cu`)
     against `decoder_block_plain` / `res_units_plain` in fp32 on the same
     inputs, in bf16 and fp32: the tiny checkpoint's three 16-channel blocks
     (strides 4 / 4 / 2 over its 224-frame decode chunk), a block 384 -> 192
     channels (between 128 and 512, outside SM90_CHANNELS) and the chain at 64
-    channels (outside CHAIN_CHANNELS). Tolerance of max(1, max|ref|): bf16
-    3e-2 (the Hopper rows' bound: bf16 rounding of every intermediate), fp32
-    5e-5 (summation order only). Bounds: bytes (activations in their type,
-    fp32 weights) or operations at the bf16 tensor-core peak for bf16 inputs
-    and the 67 TFLOP/s fp32 peak for fp32 inputs."""
+    channels (outside CHAIN_CHANNELS); in fp32 also the full-width decoder at
+    the 544-frame chunk (`_full_width_fp32_cases`). Tolerance of max(1,
+    max|ref|): bf16 3e-2 (the Hopper rows' bound: bf16 rounding of every
+    intermediate), fp32 5e-5 (summation order and 3xTF32's dropped lo.lo
+    term). Bounds: bytes (activations in their type, fp32 weights) or
+    operations at the bf16 tensor-core peak for bf16 inputs and the 67
+    TFLOP/s fp32 peak for fp32 inputs (`bound_ms`); for fp32 also at the
+    3xTF32 rate, 495 / 3 TFLOP/s (`bound_3xtf32_ms`), the least time for
+    fp32 products at fp32 accuracy on the tensor cores, which the kernels
+    line sums for fp32 rows. A block is 5
+    launches (Snake, upsample, a fused launch a unit), the chain 4."""
     from acestep_tpu_torch.ops.oobleck_kernels import (
         decoder_block_kernel,
         decoder_block_plain,
@@ -494,8 +529,9 @@ def run_narrow_phase(dev, gen, results):
         l_in *= s
     cases.append(("decoder_block", "c384to192_s4", (1, 544, 384), block(384, 192, 4), 4))
     cases.append(("res_units", "chain64", (1, 2240, 64), _narrow_units(64, gen), None))
-    for dtype in (torch.bfloat16, torch.float32):
-        for kname, label, shape, prm, stride in cases:
+    full = _full_width_fp32_cases(dev, gen)
+    for dtype, rows in ((torch.bfloat16, cases), (torch.float32, cases + full)):
+        for kname, label, shape, prm, stride in rows:
             x = torch.randn(shape, generator=gen, device=dev).to(dtype)
             wrapper = decoder_block_kernel if kname == "decoder_block" else res_units_kernel
             if kname == "res_units":
@@ -503,7 +539,7 @@ def run_narrow_phase(dev, gen, results):
                 plain = lambda xx: res_units_plain(xx, prm)
                 c, l_out = shape[2], shape[1]
                 flops, w_elems = 48.0 * l_out * c * c, 3 * 8 * c * c
-                ours = {"gen_snake_kernel": 1, "gen_conv_kernel": 6}
+                ours = {"gen_snake_kernel": 1, "narrow_unit_kernel": 3}
             else:
                 run = lambda: decoder_block_kernel(x, prm, stride)
                 plain = lambda xx: decoder_block_plain(xx, prm, stride)
@@ -511,7 +547,8 @@ def run_narrow_phase(dev, gen, results):
                 l_out = shape[1] * stride
                 flops = 4.0 * l_out * ci * co + 48.0 * l_out * co * co
                 w_elems = 2 * stride * ci * co + 3 * 8 * co * co
-                ours = {"gen_snake_kernel": 1, "gen_upsample_kernel": 1, "gen_conv_kernel": 6}
+                ours = {"gen_snake_kernel": 1, "narrow_upsample_kernel": 1, "narrow_unit_kernel": 3}
+            big = label.startswith("full")
             before = wrapper.narrow_launches
             out = run()
             torch.cuda.synchronize()
@@ -521,22 +558,108 @@ def run_narrow_phase(dev, gen, results):
             err = (out.float() - ref).abs().max().item()
             tol = NARROW_TOL[dtype] * max(1.0, ref.abs().max().item())
             ok = bool(err <= tol) and bool(torch.isfinite(out).all()) and out.dtype == dtype
-            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-            t_ops, t_bytes = flops / peak, (nbytes(x, out) + 4 * w_elems) / PEAK_BYTES
-            b_ms, b_by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-            k_ms = time_ms(run, 10)
-            d_ms = device_ms(run, 10, ours)
-            p_ms = time_ms(lambda: plain(x), 2)
+            moved = nbytes(x, out) + 4 * w_elems
+            b_ms, b_by = bound_ms(flops, moved, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+            del ref, out
+            k_ms = time_ms(run, 3 if big else 10)
+            d_ms = device_ms(run, 2 if big else 10, ours)
+            p_ms = time_ms(lambda: plain(x), 1 if big else 2)
             name = f"narrow_{'bf16' if dtype == torch.bfloat16 else 'fp32'}_{label}"
             line = dict(phase=f"kernel {kname} {name}", ok=ok, max_abs_err=err, tol=tol, kernel_ms=k_ms,
                         device_ms=d_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                        shapes=dict(x=list(shape), out=list(out.shape)), dtype=str(dtype))
+                        shapes=dict(x=list(shape), out=[shape[0], l_out, shape[2] if kname == "res_units" else co]),
+                        dtype=str(dtype))
+            if dtype == torch.float32:
+                b3_ms, b3_by = bound_ms(flops, moved, PEAK_TF32_FLOPS / 3)
+                line.update(bound_3xtf32_ms=b3_ms, bound_3xtf32_by=b3_by, share_of_3xtf32_bound=b3_ms / d_ms)
             print(json.dumps(line), flush=True)
             results.setdefault(kname, []).append(line)
-            del x, out, ref
+            del x
+            torch.cuda.empty_cache()
             if not ok:
                 raise SystemExit(f"{kname} {name}: max_abs_err {err} > {tol}")
     torch.cuda.empty_cache()
+
+
+def run_fp32_decode(dev, gen, smi: str):
+    """The decode of a handler built in fp32 (`AceStepHandler(dtype=
+    torch.float32)` decodes in its own dtype): `models/vae.tiled_decode` of
+    one 1 x 60 s latent (1 500 frames) at the published `OobleckConfig`
+    widths, random weights (seed 13, random Snake logs), fp32 activations, in
+    544-frame chunks (core 512, the 240 s and 600 s requests' chunk): 3
+    chunks, each block 0's chain at 1024 channels and blocks 1-4 on the
+    narrow route (5 narrow calls a chunk). One untimed decode first (the
+    route packs each weight once), then the timed one with every launch
+    counter at 0. Checked against the same decode with the plain versions in
+    fp32 on the card (TF32 off) within NARROW_TOL[fp32] of max(1,
+    max|ref|)."""
+    from acestep_tpu_torch.config import OobleckConfig
+    from acestep_tpu_torch.models import vae
+    from acestep_tpu_torch.ops import oobleck_kernels as ok
+    from acestep_tpu_torch.params import init_oobleck_params
+
+    cfg = OobleckConfig()
+    p = init_oobleck_params(cfg, seed=13, device=dev)
+    _perturb_snakes(p, gen)
+    frames, chunk = 1500, 544
+    z = torch.randn((1, frames, cfg.decoder_input_channels), generator=gen, device=dev)
+    decode = lambda: vae.tiled_decode(p, cfg, z, chunk_frames=chunk, overlap_frames=16)
+    # Each block's narrow-route calls, counted around the wrappers the decode calls.
+    index = {id(bp): i for i, bp in enumerate(p["decoder"]["block"])}
+    per_block: dict = {}
+    saved = vae.decoder_block_kernel, vae.res_units_kernel
+
+    def counted(wrapper, key):
+        def call(x, prm, *stride):
+            before = wrapper.narrow_launches
+            y = wrapper(x, prm, *stride)
+            name = key(prm)
+            per_block[name] = per_block.get(name, 0) + wrapper.narrow_launches - before
+            return y
+
+        return call
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        decode()
+        torch.cuda.synchronize()
+        first_s = time.time() - t0
+        vae.decoder_block_kernel = counted(saved[0], lambda bp: f"block{index[id(bp)]}")
+        vae.res_units_kernel = counted(saved[1], lambda units: "block0 chain")
+        _reset_counters()
+        try:
+            t0 = time.time()
+            wav = decode()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        finally:
+            vae.decoder_block_kernel, vae.res_units_kernel = saved
+        chunks = -(-frames // (chunk - 32))
+        launches = _path_launches("fp32 decode path", ("decoder_block", "res_units"),
+                                  {"decoder_block": 4 * chunks, "res_units": chunks})
+        vae.decoder_block_kernel, vae.res_units_kernel = ok.decoder_block_plain, ok.res_units_plain
+        try:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            ref = decode()
+            torch.cuda.synchronize()
+            plain_s = time.time() - t0
+        finally:
+            vae.decoder_block_kernel, vae.res_units_kernel = saved
+    err = (wav - ref).abs().max().item()
+    tol = NARROW_TOL[torch.float32] * max(1.0, ref.abs().max().item())
+    good = (bool(err <= tol) and wav.dtype == torch.float32 and bool(torch.isfinite(wav).all())
+            and tuple(wav.shape) == (1, frames * cfg.hop_length, cfg.audio_channels))
+    print(json.dumps(dict(phase="fp32 decode 1x60s full width (narrow route) vs plain fp32 on the card", ok=good,
+                          card=smi, wall_s=wall, first_call_s=first_s, plain_s=plain_s, chunks=chunks,
+                          chunk_frames=chunk, narrow_launches_by_block=dict(sorted(per_block.items())),
+                          max_abs_err=err, tol=tol, shape=list(wav.shape))), flush=True)
+    if not good:
+        raise SystemExit(f"fp32 decode: max_abs_err {err} > {tol} or a malformed output {tuple(wav.shape)}")
+    del p, z, wav, ref
+    torch.cuda.empty_cache()
+    return launches
 
 
 LYRICS = "\n".join(
@@ -2897,6 +3020,7 @@ def main() -> int:
     _timed_phase(seconds, "run_f32_attention_phase", run_f32_attention_phase, dev, gen, results)
     _timed_phase(seconds, "run_vae_phase", run_vae_phase, dev, gen, results)
     _timed_phase(seconds, "run_narrow_phase", run_narrow_phase, dev, gen, results)
+    fp32_decode = _timed_phase(seconds, "run_fp32_decode", run_fp32_decode, dev, gen, smi)
     _timed_phase(seconds, "run_probe_phase", run_probe_phase, dev, gen, results)
     _timed_phase(seconds, "run_small_reference", run_small_reference, dev)
     _timed_phase(seconds, "run_small_thinking_reference", run_small_thinking_reference, dev)
@@ -2920,7 +3044,7 @@ def main() -> int:
     del dit
     torch.cuda.empty_cache()
     paths = (text2music, audio, base, serving, serving_direct, lora, lrc, thinking, free_form, scoring, probe,
-             checkpoint, training, trained, *rest)
+             checkpoint, fp32_decode, training, trained, *rest)
     launches = {k: sum(p[k] for p in paths) for k in text2music}
 
     narrow_src = "acestep_tpu_torch/csrc/oobleck_generic.cu"
@@ -2936,17 +3060,18 @@ def main() -> int:
     kernels = []
     for name, lines in results.items():
         src, rep = replaces[name]
-        bound = "bound_3xtf32_ms" if name == "flash_attention_f32" else "bound_ms"  # the route's own arithmetic
+        # Each row's bound at its route's own arithmetic: 3xTF32 for fp32 work on the tensor cores.
+        bound = lambda l: "bound_3xtf32" if "bound_3xtf32_ms" in l else "bound"
         lib = [l["library_ms"] for l in lines if l["library_ms"] is not None]
         narrow = {}
-        if name in _OOBLECK:  # the narrow route's source and its launches (all on the checkpoint_tiny path)
-            narrow = dict(narrow_source=narrow_src, narrow_launches=checkpoint[name] if name == "decoder_block" else 0)
+        if name in _OOBLECK:  # the narrow route's source and its launches (the checkpoint_tiny and fp32 decode paths)
+            narrow = dict(narrow_source=narrow_src, narrow_launches=checkpoint[name] + fp32_decode[name])
         kernels.append(dict(
             name=name, route="cuda", source=src, **narrow, replaces=rep, launches=launches[name],
             max_abs_err=max(l["max_abs_err"] for l in lines),
             ms=sum(l["kernel_ms"] for l in lines), plain_ms=sum(l["plain_ms"] for l in lines),
-            bound_ms=sum(l[bound] for l in lines),
-            bound_by=max(lines, key=lambda l: l[bound])[bound.replace("_ms", "_by")],
+            bound_ms=sum(l[bound(l) + "_ms"] for l in lines),
+            bound_by=(lambda l: l[bound(l) + "_by"])(max(lines, key=lambda l: l[bound(l) + "_ms"])),
             library_ms=sum(lib) if lib else None,
             shapes=[l["phase"].split()[-1] for l in lines],
         ))

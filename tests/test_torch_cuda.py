@@ -666,6 +666,12 @@ def _narrow_case(kind, c, stride, b, l, dtype, dev, seed):
     ("block", 192, 4, 1, 100), ("block", 384, 10, 2, 23),  # 128 < C_out <= 512 outside SM90_CHANNELS
     ("chain", 64, None, 2, 300), ("chain", 16, None, 1, 40),  # chain widths outside CHAIN_CHANNELS
     ("chain", 1024, None, 1, 77),  # fp32 at a Hopper width: narrow; bf16: the Hopper route
+    ("block", 24, 4, 1, 50), ("chain", 40, None, 1, 100),  # widths not a multiple of 16
+    ("chain", 20, None, 1, 45),  # bf16 rows of 40 bytes: staged element by element, not by cp.async
+    ("block", 64, 2, 3, 37), ("chain", 48, None, 3, 90),  # three batch rows
+    ("block", 32, 4, 2, 5), ("chain", 64, None, 2, 9),  # L shorter than one 32-row tile
+    ("chain", 96, None, 1, 59),  # d = 9: the k7 reads 27 rows across the tile edge at row 32
+    ("block", 512, 6, 1, 40),  # 1024 -> 512, stride 6 (block 1 at full width); fp32: narrow
 ])
 def test_narrow_route_matches_plain(dev, kind, c, stride, b, l, dtype):
     x, prm, s = _narrow_case(kind, c, stride, b, l, dtype, dev, 7 * c + l)
@@ -696,6 +702,50 @@ def test_narrow_route_repeats_bit_identical(dev):
     first, again = decoder_block_kernel(x, bp, s), decoder_block_kernel(x, bp, s)
     torch.cuda.synchronize()
     assert torch.equal(first, again)
+
+
+def _kernel_names(fn, tries=3):
+    """Names of the device kernels one call of `fn` launches, from
+    `torch.profiler` (a warm-up call first; 10 ms pauses at the window's
+    edges, as chip_smoke.py takes its windows). A window may come back short
+    of kernels: taken again, at most `tries` times, until it holds as many
+    kernels as launch calls."""
+    import time
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.01)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.01)
+        events = prof.events()
+        names = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.name.startswith(("Memcpy", "Memset"))]
+        calls = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                 and e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")]
+        if len(names) == len(calls):
+            return names
+    raise AssertionError(f"no whole profiler window in {tries} tries: {names}")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_narrow_route_launches_one_kernel_a_unit(dev, dtype):
+    """z fits shared memory at every narrow width, so a unit is one launch: a
+    block is the Snake, the upsample and 3 unit launches (5), the chain the
+    Snake and 3 (4); no other kernel runs."""
+    for kind, c, stride in (("block", 192, 4), ("block", 16, 2), ("chain", 64, None), ("chain", 1024, None)):
+        if kind == "chain" and c == 1024 and dtype == torch.bfloat16:
+            continue  # the Hopper route's width
+        x, prm, s = _narrow_case(kind, c, stride, 1, 100, dtype, dev, 3)
+        fn = (lambda: res_units_kernel(x, prm)) if kind == "chain" else (lambda: decoder_block_kernel(x, prm, s))
+        names = _kernel_names(fn)
+        count = lambda part: sum(part in n for n in names)
+        want = (1, 3, 0 if kind == "chain" else 1)
+        assert (count("gen_snake_kernel"), count("narrow_unit_kernel"), count("narrow_upsample_kernel")) == want, names
+        assert len(names) == sum(want), names
 
 
 # The serving path's decode on the card: the tiny VAE (narrow route) behind

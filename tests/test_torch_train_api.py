@@ -189,6 +189,124 @@ def test_stop_and_failed_runs(server, tmp_path):
     assert st["status"] == "failed" and "No such file or directory" in st["error"]
 
 
+class _Trainer:
+    """A trainer that takes one step, then waits for `go` before it ends."""
+
+    go = threading.Event()
+
+    def __init__(self, *a, **kw):
+        pass
+
+    def train(self, batches):
+        yield 1, 0.5, "step 1"
+        assert _Trainer.go.wait(DEADLINE_S)
+
+    def save_checkpoint(self):
+        pass
+
+
+def _is_worker(frame):
+    from acestep_tpu_torch.service import train_api
+
+    return frame.f_code.co_name == "worker" and frame.f_code.co_filename == train_api.__file__
+
+
+@pytest.mark.parametrize("interleaving", ["poll_after_status", "poll_during_copy"])
+def test_status_sees_a_finished_run_whole(monkeypatch, tmp_path, interleaving):
+    """Both races between a run's worker thread and a status poll, forced by
+    tracing rather than left to the scheduler:
+    poll_after_status: the worker is stopped at the first line it runs after
+      its run shows a terminal status, and `status` is called from another
+      thread there: the status must come with its `adapter_path`;
+    poll_during_copy: `status` is stopped while it copies the run's state (at
+      the second line event of that copy, inside its loop), and the worker
+      finishes the run then: the copy must not see the state change size.
+    A poll that has to wait for the worker's lock is let go after 0.5 s and
+    finishes when the worker has."""
+    import sys
+
+    from acestep_tpu_torch.service import train_api
+
+    monkeypatch.setattr(train_api, "PreprocessedDataset", lambda d: type("D", (), {"batches": lambda s, n: iter(())})())
+    monkeypatch.setattr(train_api, "LoRATrainer", _Trainer)
+    svc = train_api.TrainingService(type("H", (), {"params": None, "config": None})())
+    polls, errors = [], []
+
+    def poll(run_id, tracer=None):
+        def body():
+            if tracer is not None:
+                sys.settrace(tracer)
+            try:
+                polls.append(svc.status(run_id))
+            except Exception as e:  # noqa: BLE001 — the race under test
+                errors.append(e)
+            finally:
+                sys.settrace(None)
+
+        th = threading.Thread(target=body)
+        th.start()
+        return th
+
+    threads = []
+    if interleaving == "poll_after_status":
+        _Trainer.go.set()
+
+        def worker_tracer(frame, event, arg):
+            if not _is_worker(frame):
+                return None
+
+            def local(frame, event, arg):
+                state = frame.f_locals.get("state")  # the worker's run, a variable of its closure
+                if event in ("line", "return") and state and state["status"] == "completed" and not threads:
+                    rid = next(k for k, v in list(svc._runs.items()) if v is state)
+                    threads.append(poll(rid))
+                    threads[0].join(0.5)
+                return local
+
+            return local
+
+        threading.settrace(worker_tracer)
+        try:
+            run_id = [svc.start_run({"dataset_dir": str(tmp_path), "output_dir": str(tmp_path / "run")})["run_id"]]
+        finally:
+            threading.settrace(None)
+        _poll(lambda: list(threads), bool, "a poll at the terminal status")
+    else:
+        _Trainer.go.clear()
+        run_id = [svc.start_run({"dataset_dir": str(tmp_path), "output_dir": str(tmp_path / "run")})["run_id"]]
+        _poll(lambda: svc.status(run_id[0]), lambda st: st["step"] == 1, "first step")
+        seen = []
+
+        def copy_tracer(frame, event, arg):
+            if frame.f_code.co_name != "status" or frame.f_code.co_filename != train_api.__file__:
+                return None
+
+            def local(frame, event, arg):
+                if event == "line":
+                    seen.append(frame.f_lineno)
+                    if len(seen) >= 2 and seen[-1] == seen[-2] and not _Trainer.go.is_set():
+                        _Trainer.go.set()  # the copy's loop has begun: let the worker finish the run now
+                        deadline = time.time() + 0.5
+                        while "adapter_path" not in svc._runs[run_id[0]] and time.time() < deadline:
+                            time.sleep(0.001)
+                return local
+
+            return local
+
+        threads.append(poll(run_id[0], copy_tracer))
+        threads[0].join(DEADLINE_S)
+        assert _Trainer.go.is_set(), "the copy's loop was never traced"
+    for th in threads:
+        th.join(DEADLINE_S)
+    assert not errors, errors
+    assert polls, "no poll ran"
+    if interleaving == "poll_after_status":
+        st = polls[0]
+        assert st["status"] == "completed" and st["adapter_path"] == str(tmp_path / "run" / "adapter.npz"), st
+    st = _poll(lambda: svc.status(run_id[0]), lambda st: st["status"] == "completed", "completed")
+    assert st["adapter_path"] == str(tmp_path / "run" / "adapter.npz")
+
+
 @pytest.fixture(scope="module")
 def both(pairs, tmp_path_factory):
     """The JAX package's server and the port's, on the paired handlers."""
