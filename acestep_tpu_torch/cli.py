@@ -3,10 +3,19 @@
 `profile`.
 
 Port of those subcommands of `acestep_tpu/cli.py`, with their flags, plus
-`--device` (the card unless `cpu` is asked for); the mesh flags (`--dp`,
-`--sp`, `--tp`) come with multi-GPU (ROADMAP A.11). The JAX package's
+`--device` (the card unless `cpu` is asked for). The JAX package's
 persistent XLA compile cache has no counterpart: the port compiles only its
 CUDA and C++ libraries, which it caches under `acestep_tpu_torch/_build/`.
+
+`generate` and `serve` take the mesh flags `--dp`, `--sp` and `--tp`
+(defaults `ACESTEP_TPU_DP` / `_SP` / `_TP`, else 1). Above 1 x 1 x 1 the
+command runs on dp·sp·tp ranks (`parallel.mesh.launch`): it spawns them
+itself, or runs as one rank of the group torchrun started. Rank r takes
+`cuda:{r % device_count}` (two ranks may share a card), or the CPU with
+`--device cpu` (gloo either way). Rank 0 loads the planner, prints, saves and
+serves HTTP; the other ranks compute their rows of each request
+(`AceStepHandler.serve_followers`) until rank 0 stops them. Only dp runs:
+sp or tp above 1 raises (ROADMAP A.11b).
 
 - `generate` runs the port's `service.inference.generate_music`;
   `--thinking` runs the 5 Hz LM planner (`LLMHandler()`, the 0.6B size)
@@ -61,43 +70,98 @@ import sys
 import time
 
 
-def cmd_generate(args) -> int:
-    from acestep_tpu_torch.lm.handler import LLMHandler
+def _mesh_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--dp", type=int, default=int(os.environ.get("ACESTEP_TPU_DP", 1)),
+                   help="data-parallel mesh axis (shards the request batch)")
+    p.add_argument("--sp", type=int, default=int(os.environ.get("ACESTEP_TPU_SP", 1)),
+                   help="sequence-parallel mesh axis (not ported yet)")
+    p.add_argument("--tp", type=int, default=int(os.environ.get("ACESTEP_TPU_TP", 1)),
+                   help="tensor-parallel mesh axis (not ported yet)")
+
+
+def _on_ranks(run, args) -> int:
+    """`run(args, leader)` here at 1 x 1 x 1; else on every rank of the
+    mesh, returning rank 0's exit code. Refuses sp and tp, and a run without
+    a card and without `--device cpu`, before any rank starts."""
+    n = args.dp * args.sp * args.tp
+    if n <= 1:
+        return run(args, True)
+    from acestep_tpu_torch.device import resolve_device
+    from acestep_tpu_torch.parallel.mesh import launch, refuse_sp_tp
+
+    refuse_sp_tp(args.sp, args.tp)
+    resolve_device(args.device)
+    return launch(_rank, n, run, args)
+
+
+def _rank(run, args) -> int:
+    import torch.distributed as dist
+
+    return run(args, dist.get_rank() == 0)
+
+
+def _load_dit(args):
+    """The DiT handler on this rank's device, loaded, with the mesh flags
+    applied (rank 0 prints its load line)."""
+    from acestep_tpu_torch.parallel.mesh import rank_device
     from acestep_tpu_torch.pipeline.handler import AceStepHandler
+
+    mesh = args.dp * args.sp * args.tp > 1
+    dit = AceStepHandler(device=rank_device(args.device) if mesh else args.device)
+    msg = dit.initialize_service(args.checkpoint_dir, random_init=args.random_init or None)
+    dit.enable_mesh(dp=args.dp, sp=args.sp, tp=args.tp)
+    if dit.mesh is None or dit.mesh.is_leader:
+        print(msg, flush=True)
+        if dit.mesh is not None:
+            print(f"mesh enabled: dp={args.dp} sp={args.sp} tp={args.tp}", flush=True)
+    return dit
+
+
+def cmd_generate(args) -> int:
+    return _on_ranks(_generate, args)
+
+
+def _generate(args, leader: bool) -> int:
+    from acestep_tpu_torch.lm.handler import LLMHandler
     from acestep_tpu_torch.service.inference import generate_music
     from acestep_tpu_torch.service.params import GenerationConfig, GenerationParams
 
-    dit = AceStepHandler(device=args.device)
-    print(dit.initialize_service(args.checkpoint_dir, random_init=args.random_init or None))
-    llm = None
-    if args.thinking:
-        llm = LLMHandler(device=args.device)
-        print(llm.initialize(args.lm_checkpoint_dir, random_init=args.random_init or None))
-    params = GenerationParams(
-        caption=args.caption,
-        lyrics=args.lyrics,
-        duration=args.duration,
-        task_type=args.task,
-        thinking=args.thinking,
-        seed=args.seed,
-        inference_steps=args.steps,
-        shift=args.shift,
-    )
-    cfg = GenerationConfig(
-        batch_size=args.batch_size,
-        audio_format=args.format,
-        output_dir=args.output_dir,
-        use_random_seed=args.seed < 0,
-    )
-    result = generate_music(dit, llm, params, cfg)
-    print(result.status_message)
-    if not result.success:
-        print(result.error, file=sys.stderr)
-        return 1
-    for a in result.audios:
-        print("  ", a["path"])
-    print({k: round(v, 3) for k, v in result.extra_outputs["time_costs"].items()})
-    return 0
+    dit = _load_dit(args)
+    if not leader:
+        dit.serve_followers()
+        return 0
+    try:
+        llm = None
+        if args.thinking:
+            llm = LLMHandler(device=dit.device)
+            print(llm.initialize(args.lm_checkpoint_dir, random_init=args.random_init or None))
+        params = GenerationParams(
+            caption=args.caption,
+            lyrics=args.lyrics,
+            duration=args.duration,
+            task_type=args.task,
+            thinking=args.thinking,
+            seed=args.seed,
+            inference_steps=args.steps,
+            shift=args.shift,
+        )
+        cfg = GenerationConfig(
+            batch_size=args.batch_size,
+            audio_format=args.format,
+            output_dir=args.output_dir,
+            use_random_seed=args.seed < 0,
+        )
+        result = generate_music(dit, llm, params, cfg)
+        print(result.status_message)
+        if not result.success:
+            print(result.error, file=sys.stderr)
+            return 1
+        for a in result.audios:
+            print("  ", a["path"])
+        print({k: round(v, 3) for k, v in result.extra_outputs["time_costs"].items()})
+        return 0
+    finally:
+        dit.stop_followers()
 
 
 def cmd_generate_examples(args) -> int:
@@ -163,10 +227,6 @@ def run_warmup(dit, warmup_spec: str, llm=None) -> None:
 
 
 def cmd_serve(args) -> int:
-    from acestep_tpu_torch.lm.handler import LLMHandler
-    from acestep_tpu_torch.pipeline.handler import AceStepHandler
-    from acestep_tpu_torch.service.api_server import serve
-
     # A named checkpoint must be complete before the port binds: abort with
     # the missing components named (the port has no downloader yet).
     if args.checkpoint_dir and not args.random_init:
@@ -177,29 +237,57 @@ def cmd_serve(args) -> int:
         if missing:
             print(f"checkpoint {args.checkpoint_dir} incomplete — missing: {', '.join(missing)}", file=sys.stderr)
             return 1
+    return _on_ranks(_serve, args)
 
-    dit = AceStepHandler(device=args.device)
-    print(dit.initialize_service(args.checkpoint_dir, random_init=args.random_init or None), flush=True)
-    llm = LLMHandler(device=args.device)
-    print(llm.initialize(args.lm_checkpoint_dir, random_init=args.random_init or None), flush=True)
-    # More DiT models (ACESTEP_CONFIG_PATH2/3), chosen by a request's "model".
-    extra = {}
-    for n in (2, 3):
-        path = os.environ.get(f"ACESTEP_CONFIG_PATH{n}")
-        if path and os.path.isdir(path):
-            h = AceStepHandler(device=args.device)
-            print(f"[model {n}] " + h.initialize_service(path))
-            extra[os.path.basename(os.path.normpath(path))] = h
-    if args.warmup:
-        run_warmup(dit, args.warmup, llm=llm)
 
-    server = serve(dit, llm, args.host, args.port, args.api_key, args.output_dir, extra_dit_handlers=extra or None)
-    print(f"listening on {args.host}:{server.server_address[1]}", flush=True)
+def _serve(args, leader: bool) -> int:
+    """One rank of `serve`: rank 0 (or the only process) loads the planner
+    and the extra DiT models and serves HTTP until an interrupt (SIGTERM too
+    under a mesh) or `shutdown()`, then stops its followers."""
+    import signal
+
+    from acestep_tpu_torch.lm.handler import LLMHandler
+    from acestep_tpu_torch.pipeline.handler import AceStepHandler
+    from acestep_tpu_torch.service.api_server import serve
+
+    dit = _load_dit(args)
+    if not leader:
+        dit.serve_followers()
+        return 0
     try:
-        server.serve_forever()
+        if dit.mesh is not None:
+            signal.signal(signal.SIGTERM, _interrupt)
+        llm = LLMHandler(device=dit.device)
+        print(llm.initialize(args.lm_checkpoint_dir, random_init=args.random_init or None), flush=True)
+        # More DiT models (ACESTEP_CONFIG_PATH2/3), chosen by a request's "model".
+        extra = {}
+        for n in (2, 3):
+            path = os.environ.get(f"ACESTEP_CONFIG_PATH{n}")
+            if path and os.path.isdir(path):
+                h = AceStepHandler(device=dit.device)
+                print(f"[model {n}] " + h.initialize_service(path))
+                extra[os.path.basename(os.path.normpath(path))] = h
+        if args.warmup:
+            run_warmup(dit, args.warmup, llm=llm)
+
+        server = serve(dit, llm, args.host, args.port, args.api_key, args.output_dir,
+                       extra_dit_handlers=extra or None)
+        print(f"listening on {args.host}:{server.server_address[1]}", flush=True)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            print("interrupted: stopping the server", flush=True)
+        finally:
+            server.server_close()
     finally:
-        server.server_close()
+        if dit.mesh is not None:
+            signal.signal(signal.SIGINT, signal.SIG_IGN)  # the followers' stop must not be cut short
+            dit.stop_followers()
     return 0
+
+
+def _interrupt(signum, frame):
+    raise KeyboardInterrupt
 
 
 def cmd_train(args) -> int:
@@ -478,6 +566,7 @@ def main(argv=None) -> int:
     g.add_argument("--batch-size", type=int, default=1)
     g.add_argument("--format", default="flac", help="flac (default), wav, wav16, wav32, or any format ffmpeg writes")
     g.add_argument("--output-dir", default="./outputs")
+    _mesh_args(g)
     g.set_defaults(fn=cmd_generate)
 
     ge = sub.add_parser("generate-examples", help="batch-generate example params via the LM")
@@ -502,6 +591,7 @@ def main(argv=None) -> int:
     s.add_argument("--warmup", default=os.environ.get("ACESTEP_WARMUP"),
                    help="request shapes to run before binding the port, e.g. '1x30,2x60' "
                         "(batch x duration-seconds); the token 'lm' runs one planner draft")
+    _mesh_args(s)
     s.set_defaults(fn=cmd_serve)
 
     t = sub.add_parser("train", help="LoRA fine-tune from preprocessed tensors")

@@ -683,6 +683,7 @@ def generate_audio(
     return_condition: bool = False,
     noise: Optional[torch.Tensor] = None,  # injection hook (tests)
     sde_noise: Optional[Sequence[torch.Tensor]] = None,  # injection hook: step i's SDE noise
+    sde_rows: Optional[Tuple[int, int, int, int]] = None,
 ) -> Dict[str, Any]:
     """Turbo or base generation: prepare_condition, cross K/V once per
     segment, the denoise loop (ODE or SDE).
@@ -696,7 +697,11 @@ def generate_audio(
     (`null_condition_emb` broadcast to its encoder states, its own mask) for
     CFG. SDE noise comes from a `torch.Generator` on the latents' device,
     seeded per segment from seeds[0] and the segment's first step, unless
-    `sde_noise` gives each step's noise (indexed over the whole schedule)."""
+    `sde_noise` gives each step's noise (indexed over the whole schedule).
+    `sde_rows = (first, stop, batch, seed)` says that these inputs are rows
+    first:stop of a request of `batch` rows whose first seed is `seed` (a
+    rank's share under data parallelism): each SDE step's noise, drawn from
+    that seed or injected, is the whole request's, and these rows are kept."""
     if infer_method not in ("ode", "sde"):
         raise ValueError(f"infer_method must be 'ode' or 'sde', not {infer_method!r}")
     if cfg.model_version == "turbo" and infer_steps is None:
@@ -769,12 +774,13 @@ def generate_audio(
             null_kvs = precompute_cross_kv(dec, cfg, null_states)
         step_noise = None
         if infer_method == "sde":
+            first, stop, batch, seed = sde_rows or (0, b, b, seeds[0])
             if sde_noise is not None:
-                step_noise = lambda i, s0=s0: sde_noise[s0 + i]
+                step_noise = lambda i, s0=s0: sde_noise[s0 + i][first:stop]
             else:
-                gen = torch.Generator(device=xt.device).manual_seed(_sde_seed(seeds[0], s0))
-                step_noise = lambda i, gen=gen, shape=tuple(xt.shape), dev=xt.device: torch.randn(
-                    shape, generator=gen, dtype=torch.float32, device=dev)
+                gen = torch.Generator(device=xt.device).manual_seed(_sde_seed(seed, s0))
+                step_noise = lambda i, gen=gen, shape=(batch, *xt.shape[1:]), dev=xt.device: torch.randn(
+                    shape, generator=gen, dtype=torch.float32, device=dev)[first:stop]
         xt = denoise(dec, cfg, xt, schedule[s0:s1], seg_ctx, kvs, seg_mask, attention_mask,
                      t_after=schedule[s1] if s1 < num_steps else 0.0,
                      null_cross_kvs=null_kvs, null_encoder_mask=seg_mask if use_cfg else None,

@@ -34,7 +34,20 @@ post-pass (`get_lyric_timestamps`) re-runs one decoder step with the
 cross-attention captured and aligns it to the lyric tokens: LRC text, token
 and sentence stamps and a lyric-quality score.
 
-Not ported yet: meshes (the handler has no parameters for them).
+Data parallelism (`enable_mesh`, `enable_data_parallel`; JAX's mesh methods)
+runs one handler a rank, each holding the same weights. Rank 0 takes the
+requests: its `generate_music` sends the request to the other ranks, which
+wait in `serve_followers`, and every rank computes its rows of the DiT and
+the decode (`parallel.mesh.shard_batch`), then rank 0 gathers them in row
+order. The host-side preparation and the text encoder cover the whole
+batch on every rank; seeds, references, hints and the SDE noise follow
+their rows. Each rank decodes its rows in the chunks of the whole request,
+so a request's PCM does not depend on dp; as in JAX's mesh branch, the
+decode is not deferred across requests and a `chunk_sink` gets the whole
+PCM once. A batch that does not divide by dp runs on rank 0 alone.
+LoRA changes and a reload reach every rank the same way; the planner, the
+lyric post-pass, the scorers and training run on rank 0 alone. Sequence and
+tensor parallelism refuse (ROADMAP A.11b).
 """
 
 from __future__ import annotations
@@ -45,8 +58,10 @@ import os
 import queue
 import random
 import re
+import sys
 import threading
 import time
+import traceback
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -64,6 +79,7 @@ from acestep_tpu_torch.config import (
 from acestep_tpu_torch.device import resolve_device
 from acestep_tpu_torch.models import dit, qwen3, vae
 from acestep_tpu_torch.lm.constrained import _encode
+from acestep_tpu_torch.parallel.mesh import DEFAULT_TIMEOUT_S, Mesh, make_mesh, refuse_sp_tp, shard_batch, shard_params_dp
 from acestep_tpu_torch.params import (
     convert_torch_state_dict,
     init_acestep_params,
@@ -204,22 +220,27 @@ class AceStepHandler:
         # the decode at smaller chunks: a throughput cost to be seen).
         self._decode_retries = 0
         self.lora = LoRARegistry(self.device)
+        self.mesh: Optional[Mesh] = None
+        # Rank 0's exchanges with its followers, one at a time across threads.
+        self._mesh_lock = threading.Lock()
+        # Set when a change reached some ranks and failed on others.
+        self._out_of_step: Optional[str] = None
 
     # ------------------------------------------------------------------
-    # LoRA lifecycle
+    # LoRA lifecycle (on every rank under a mesh)
     # ------------------------------------------------------------------
 
     def load_lora(self, name: str, path: str) -> Dict[str, Any]:
-        return self.lora.load(name, path)
+        return self._everywhere("load_lora", name=name, path=path)
 
     def unload_lora(self, name: str) -> bool:
-        return self.lora.unload(name)
+        return self._everywhere("unload_lora", name=name)
 
     def toggle_lora(self, name: str, enabled: Optional[bool] = None) -> bool:
-        return self.lora.toggle(name, enabled)
+        return self._everywhere("toggle_lora", name=name, enabled=enabled)
 
     def set_lora_scale(self, name: str, scale: float) -> None:
-        self.lora.set_scale(name, scale)
+        self._everywhere("set_lora_scale", name=name, scale=scale)
 
     def lora_status(self) -> Dict[str, Any]:
         return self.lora.status()
@@ -237,7 +258,16 @@ class AceStepHandler:
         """Load the reference checkpoint layout from `checkpoint_dir`, or
         random weights from `seed` (dev mode, the JAX package's
         `--random-init`), as the JAX handler decides: random when no
-        directory is given or found, unless `random_init` says otherwise."""
+        directory is given or found, unless `random_init` says otherwise.
+        Under a mesh, rank 0 reloads every rank and then checks that they
+        hold the same weights."""
+        msg = self._everywhere("initialize_service", checkpoint_dir=checkpoint_dir, random_init=random_init,
+                               seed=seed)
+        if self.mesh is not None:
+            self._everywhere("replicate")
+        return msg
+
+    def _initialize(self, checkpoint_dir: Optional[str], *, random_init: Optional[bool], seed: int) -> str:
         t0 = time.time()
         if random_init is None:
             random_init = checkpoint_dir is None or not os.path.isdir(checkpoint_dir)
@@ -778,29 +808,32 @@ class AceStepHandler:
         return np.concatenate([tl, pad], axis=1)
 
     def _reference_latents(
-        self, reference_audios, b: int, silence_tiled: np.ndarray
+        self, reference_audios, b: int, silence_tiled: np.ndarray, rows: Optional[slice] = None
     ) -> Tuple[np.ndarray, np.ndarray, int]:
         """Reference audio -> packed timbre latents (N, timbre_fix_frame, 64),
         the batch row of each packed row, and the most references of a row.
         A row may carry one array or a list; a row without any gets one
         silence row; each distinct array is encoded once and cut or
-        zero-padded to timbre_fix_frame frames."""
+        zero-padded to timbre_fix_frame frames. With `rows`, only those rows
+        of the batch are packed and numbered from 0; the most references is
+        still the whole batch's."""
         tf = self.config.timbre_fix_frame
         silence_ref = silence_tiled[:tf] if silence_tiled.shape[0] >= tf else self._silence_tiled(tf)
-        packed, order, cache = [], [], {}
-        max_count = 1
+        per_row = []
         for i in range(b):
             refs = reference_audios[i] if reference_audios else None
             if refs is None:
                 refs = []
             elif isinstance(refs, np.ndarray):
                 refs = [refs]
-            refs = [r for r in refs if r is not None]
+            per_row.append([r for r in refs if r is not None])
+        max_count = max([1] + [len(refs) for refs in per_row])
+        packed, order, cache = [], [], {}
+        for i, refs in enumerate(per_row[rows or slice(0, b)]):
             if not refs:
                 packed.append(silence_ref)
                 order.append(i)
                 continue
-            max_count = max(max_count, len(refs))
             for ref in refs:
                 z = cache.get(id(ref))
                 if z is None:
@@ -810,6 +843,160 @@ class AceStepHandler:
                 packed.append(z)
                 order.append(i)
         return np.stack(packed), np.asarray(order, np.int32), max_count
+
+    # ------------------------------------------------------------------
+    # Data parallelism over ranks (JAX handler.py:886-957)
+    # ------------------------------------------------------------------
+
+    def enable_mesh(self, dp: int = 1, sp: int = 1, tp: int = 1, *, timeout: float = DEFAULT_TIMEOUT_S) -> None:
+        """Build one dp x sp x tp mesh over the ranks and shard the serving
+        path over it; every rank calls it. Nothing at 1 x 1 x 1; sp or tp
+        above 1 raises (ROADMAP A.11b)."""
+        if dp * sp * tp <= 1:
+            return
+        refuse_sp_tp(sp, tp)
+        self.enable_data_parallel(make_mesh(dp=dp, sp=sp, tp=tp, timeout=timeout))
+
+    def enable_data_parallel(self, mesh: Optional[Mesh] = None) -> None:
+        """Split request batches over the mesh's dp axis (by default every
+        rank's): the weights stay whole on every rank, checked equal across
+        them (`shard_params_dp`)."""
+        mesh = mesh if mesh is not None else make_mesh(tp=1)
+        refuse_sp_tp(mesh.shape["sp"], mesh.shape["tp"])
+        self.mesh = mesh
+        self._replicate()
+
+    def _replicate(self) -> None:
+        """Check that every rank holds the same DiT, VAE and text weights; a
+        rank that does not is no longer initialised."""
+        try:
+            for tree in (self.params, self.vae_params, self.text_params):
+                shard_params_dp(self.mesh, tree)
+        except ValueError:
+            self.initialized = False
+            raise
+
+    def _shard_batch_array(self, x):
+        """This rank's rows of a batch-leading array under a mesh (the whole
+        array when its batch does not divide by dp, or without a mesh). JAX's
+        also shards a latent-time axis over sp, which waits for A.11b."""
+        if self.mesh is None:
+            return x
+        return shard_batch(self.mesh, x)
+
+    def serve_followers(self) -> None:
+        """A follower rank's loop: run each request or change rank 0 sends,
+        until rank 0 calls `stop_followers`. A failure goes back to rank 0,
+        which raises it; the loop goes on."""
+        while True:
+            command = self.mesh.receive_command()
+            if command is None:
+                return
+            self._run(*command)
+
+    def stop_followers(self) -> None:
+        """Rank 0: end every follower's `serve_followers`."""
+        if self.mesh is not None and self.mesh.is_leader:
+            with self._mesh_lock:
+                self.mesh.send_command(None)
+
+    def _local(self, op: str, kwargs: Dict[str, Any]) -> Any:
+        """`op` on this rank alone."""
+        if op == "generate_music":
+            return self.generate_music(**kwargs, _shard=True)
+        return {
+            "load_lora": self.lora.load,
+            "unload_lora": self.lora.unload,
+            "toggle_lora": self.lora.toggle,
+            "set_lora_scale": self.lora.set_scale,
+            "initialize_service": self._initialize,
+            "replicate": self._replicate,
+        }[op](**kwargs)
+
+    def _everywhere(self, op: str, **kwargs) -> Any:
+        """`op` here without a mesh; under one, on every rank (`_lead`).
+        Returns this rank's value."""
+        if self.mesh is None:
+            return self._local(op, kwargs)
+        return self._lead(op, kwargs)[0]
+
+    def _lead(self, op: str, kwargs: Dict[str, Any]) -> List[Any]:
+        """Rank 0: send `op` to the followers, run it here, and return every
+        rank's value in rank order (`_run`)."""
+        if not self.mesh.is_leader:
+            raise RuntimeError(f"rank {self.mesh.rank} follows rank 0: run serve_followers() on it")
+        with self._mesh_lock:
+            if self._out_of_step is not None:
+                raise RuntimeError(self._out_of_step)
+            self.mesh.send_command((op, kwargs))
+            return self._run(op, kwargs)
+
+    def _run(self, op: str, kwargs: Dict[str, Any]) -> Optional[List[Any]]:
+        """`op` on this rank, then every rank's outcome gathered on rank 0,
+        which raises its own error, or else a follower's with that rank's
+        traceback. A change that failed on some ranks and not on others
+        leaves the ranks out of step: every later request raises."""
+        try:
+            value, error = self._local(op, kwargs), None
+        except Exception as e:  # noqa: BLE001 — every rank reaches the gather; rank 0 raises
+            value, error = None, e
+        report = None if error is None else "".join(traceback.format_exception(error))
+        outcomes = self.mesh.gather((report, value))
+        if outcomes is None:
+            if report is not None:
+                print(f"rank {self.mesh.rank}: {op} failed\n{report}", file=sys.stderr, flush=True)
+            return None
+        failed = [r for r, (rep, _) in enumerate(outcomes) if rep is not None]
+        if op != "generate_music" and 0 < len(failed) < len(outcomes):
+            self._out_of_step = (f"{op} failed on ranks {failed} and not on the others, so the ranks no "
+                                 "longer hold the same model: restart them")
+        if error is not None:
+            raise error
+        if failed:
+            raise RuntimeError(f"rank {failed[0]} failed in {op}:\n{outcomes[failed[0]][0]}")
+        return [v for _, v in outcomes]
+
+    def _lead_generate(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        """Rank 0's `generate_music` under a mesh. The seeds are fixed here,
+        so every rank draws the same ones; each rank computes its rows and
+        returns them as int16 PCM, gathered here in row order. A batch that
+        does not divide by dp runs here alone. Then, as JAX's mesh branch:
+        the whole PCM to `chunk_sink` once, the float conversion, and with
+        `async_finish` both deferred to `finish`. `time_costs` are rank 0's."""
+        t_start = time.time()
+        if self._out_of_step is not None:
+            raise RuntimeError(self._out_of_step)
+        captions = request["captions"]
+        b = request["batch_size"] or (1 if isinstance(captions, str) else len(captions))
+        seeds, _ = self.prepare_seeds(b, request["seeds"], request["use_random_seed"] and request["seeds"] is None)
+        sink, int16, deferred = request["chunk_sink"], request["return_int16"], request["async_finish"]
+        request.update(seeds=seeds, use_random_seed=False, chunk_sink=None, return_int16=True, async_finish=False)
+        if b % self.mesh.shape["dp"]:
+            result = self.generate_music(**request, _shard=True)
+        else:
+            parts = self._lead("generate_music", request)
+            result = parts[0]
+            for key in ("latents", "audios"):
+                if key in result:
+                    result[key] = np.concatenate([p[key] for p in parts])
+            if "condition" in result:
+                result["condition"] = {k: np.concatenate([p["condition"][k] for p in parts])
+                                       for k in result["condition"]}
+        pcm = result.pop("audios", None)
+
+        def _finish():
+            if sink is not None:
+                sink(0, pcm, pcm.shape[-1])
+            result["audios"] = pcm if int16 else pcm.astype(np.float32) / 32767.0
+            return result["audios"]
+
+        if pcm is not None:
+            if deferred:
+                result["finish"] = _finish
+            else:
+                _finish()
+        result["time_costs"]["total_time_cost"] = time.time() - t_start
+        return result
 
     # ------------------------------------------------------------------
     # LRC lyric timestamps and the lyric score
@@ -987,6 +1174,7 @@ class AceStepHandler:
         sde_noise: Optional[Sequence[torch.Tensor]] = None,
         async_finish: bool = False,
         chunk_sink: Optional[Any] = None,
+        _shard: bool = False,
     ) -> Dict[str, Any]:
         """Run the DiT side of any task: `task_type` picks the default
         instruction; source latents (`target_latents`), repaint spans, code
@@ -998,9 +1186,14 @@ class AceStepHandler:
         and its host copies are enqueued: `result["finish"]()` gathers the
         audio later (a serving loop calls it after dispatching the next
         request). `chunk_sink(pos, pcm_i16, total)` streams the int16 PCM
-        chunk by chunk (see `decode_latents`)."""
+        chunk by chunk (see `decode_latents`).
+
+        Under a mesh rank 0 runs the request on every rank (`_lead_generate`);
+        `_shard` marks a rank's own share of it, which returns its rows."""
         if not self.initialized:
             raise RuntimeError("call initialize_service() first")
+        if self.mesh is not None and not _shard:
+            return self._lead_generate({k: v for k, v in locals().items() if k not in ("self", "_shard")})
         time_costs: Dict[str, float] = {}
         t_start = time.time()
         if chunk_sink is not None and not isinstance(chunk_sink, StreamCursor):
@@ -1039,11 +1232,15 @@ class AceStepHandler:
         text_ids, text_mask = tokenize_padded(self.text_tokenizer, text_prompts, 256, buckets=TEXT_BUCKETS)
         lyric_ids, lyric_mask = tokenize_padded(self.text_tokenizer, lyric_texts, 2048, buckets=LYRIC_BUCKETS)
 
+        # Under a mesh this rank's rows (every row for a batch that does not
+        # divide by dp): the DiT's inputs, seeds, references and hints.
+        rows = self.mesh.rows(b) if self.mesh is not None else slice(0, b)
+        sb = self._shard_batch_array
         t0 = time.time()
         text_hidden = self.infer_text_embeddings(text_ids)
         lyric_hidden = self.infer_lyric_embeddings(lyric_ids)
         t_enc = time.time()
-        packed, order, max_refs = self._reference_latents(reference_audios, b, silence_tiled)
+        packed, order, max_refs = self._reference_latents(reference_audios, b, silence_tiled, rows)
         if reference_audios and any(r is not None for r in reference_audios):
             time_costs["vae_encode_time_cost"] = time.time() - t_enc
         refer_packed = self._tensor(packed, self.dtype)
@@ -1054,31 +1251,31 @@ class AceStepHandler:
         t0 = time.time()
         t0_mark = self._mark()
         silence_dev = self._tensor(silence_tiled[None], self.dtype)
-        if not any(has_code_hints) and target_latents is None:
-            src = silence_dev.expand(b, -1, -1)  # every row's source is the tiled silence
+        if not any(has_code_hints[rows]) and target_latents is None:
+            src = silence_dev.expand(rows.stop - rows.start, -1, -1)  # every row's source is the tiled silence
         else:
-            src = self._tensor(src_latents, self.dtype)
-        if any(has_code_hints):
-            hints = self._code_hints(code_hints, t_latent, silence_dev[0])
-        elif not is_covers.any():
+            src = self._tensor(sb(src_latents), self.dtype)
+        if any(has_code_hints[rows]):
+            hints = self._code_hints(code_hints[rows], t_latent, silence_dev[0])
+        elif not is_covers[rows].any():
             hints = src  # no cover row: the hints go unused, so no tokenizer chain runs
         else:
             hints = None  # cover rows without codes: hints from the source latents
         outputs = dit.generate_audio(
             self._effective_params(),
             self.config,
-            text_hidden_states=text_hidden.to(self.dtype),
-            text_attention_mask=self._tensor(text_mask),
-            lyric_hidden_states=lyric_hidden.to(self.dtype),
-            lyric_attention_mask=self._tensor(lyric_mask),
+            text_hidden_states=sb(text_hidden.to(self.dtype)),
+            text_attention_mask=self._tensor(sb(text_mask)),
+            lyric_hidden_states=sb(lyric_hidden.to(self.dtype)),
+            lyric_attention_mask=self._tensor(sb(lyric_mask)),
             refer_packed=refer_packed,
             refer_order_mask=refer_order,
             src_latents=src,
-            chunk_masks=self._tensor(chunk_masks),
-            is_covers=self._tensor(is_covers.astype(np.int32)),
+            chunk_masks=self._tensor(sb(chunk_masks)),
+            is_covers=self._tensor(sb(is_covers.astype(np.int32))),
             silence_latent=silence_dev,
-            attention_mask=self._tensor(latent_mask),
-            seeds=seed_list,
+            attention_mask=self._tensor(sb(latent_mask)),
+            seeds=seed_list[rows],
             shift=shift,
             timesteps=timesteps,
             infer_method=infer_method,
@@ -1093,6 +1290,7 @@ class AceStepHandler:
             max_refs=max_refs,
             return_condition=return_condition,
             sde_noise=sde_noise,
+            sde_rows=(rows.start, rows.stop, b, seed_list[0]),
         )
         pred = outputs["target_latents"]
         if latent_shift != 0.0 or latent_rescale != 1.0:
@@ -1142,8 +1340,8 @@ class AceStepHandler:
             result["lyric_token_ids"] = lyric_ids
             result["lyric_mask"] = np.asarray(lyric_mask)
         if decode_audio:
-            fallback = None
-            fallback_s = 0.0
+            decoded = None
+            decoded_s = 0.0
             if decode_job is None:
                 # A CUDA out-of-memory is raised at allocation, in dispatch:
                 # the JAX handler's finish-time fallback to 128-frame chunks
@@ -1151,18 +1349,18 @@ class AceStepHandler:
                 # compute, before finish.
                 self._after_oom(dec_timings)
                 t1 = time.time()
-                fallback = self.decode_latents(pred, chunk_frames=128, normalize_db=normalize_db,
-                                               return_int16=return_int16, timings=dec_timings, chunk_sink=chunk_sink)
-                fallback_s = time.time() - t1
+                decoded = self.decode_latents(pred, chunk_frames=128, normalize_db=normalize_db,
+                                              return_int16=return_int16, timings=dec_timings, chunk_sink=chunk_sink)
+                decoded_s = time.time() - t1
 
             def _finish():
                 t1 = time.time()
-                if fallback is not None:
-                    wavs = fallback
+                if decoded is not None:
+                    wavs = decoded
                 else:
                     wavs = self._decode_latents_finish(decode_job, return_int16=return_int16, timings=dec_timings,
                                                        chunk_sink=chunk_sink)
-                time_costs["vae_decode_time_cost"] = fallback_s + time.time() - t1
+                time_costs["vae_decode_time_cost"] = decoded_s + time.time() - t1
                 # compute_wait: decode compute still outstanding when finish
                 # ran; transfer: the copies to the host and the gather.
                 time_costs["vae_decode_compute_wait_time_cost"] = dec_timings.get("compute_wait_s", 0.0)

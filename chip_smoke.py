@@ -63,7 +63,13 @@ Phases, each fatal on failure:
      base's), and auto LRC with the lyric score (`run_lrc`: 1 x 60 s and
      1 x 240 s requests with 8 and 24 lyric lines; the capture forward's
      and the host alignment's times; the 60 s capture against the CPU in
-     fp32 within `LRC_CAPTURE_TOL`);
+     fp32 within `LRC_CAPTURE_TOL`); then data parallelism
+     (`run_data_parallel`: two ranks from the port's launcher on the one
+     card, each with the full-width handler, a 4 x 60 s request at dp = 2
+     through the service and the handler, each rank's launches of kernels
+     1-3, device and peak memory; rows within `DP_REL_L2_TOL` of the same
+     requests at dp = 1 and `DP_SEPARATION` from other seeds; `cli generate
+     --dp 2` and `cli serve --dp 2` in subprocesses, no rank left);
   6. requests with thinking on through `service.inference.generate_music` and
      the 4B planner (`LLMHandler(LM_CONFIGS["4B"])`), 1 x 60 s and 2 x 60 s
      after an untimed warm-up, and a profile of the planner's decode step;
@@ -97,7 +103,8 @@ Phases, each fatal on failure:
      least time for fp32 products at fp32 accuracy on this card),
      `max_abs_err` their maximum, and `launches` the
      sum over the paths of phases 4 (checkpoint_tiny), 5 (text2music, audio
-     inputs, base, serving, the serving phase's direct calls, lora, lrc), 6
+     inputs, base, serving, the serving phase's direct calls, lora, lrc, the
+     two data-parallel ranks), 6
      (thinking, free-form, scoring), 8 (training, the trained adapter
      served; the fp32 route's launches are `flash_attention_f32`'s), 7 and
      phase 3's fp32 decode (the Oobleck kernels' narrow-route calls also in
@@ -1803,6 +1810,230 @@ def run_lrc(h):
     return launches
 
 
+# Data parallelism on the card (`run_data_parallel`): two ranks share the one
+# H100, so the phase proves the multi-process path, not a speed-up. Its
+# 4 x 60 s rows at dp = 2 (2 rows a rank) against the same request at dp = 1
+# (4 rows, the script's handler, the same seed-0 weights): bf16 products at
+# another M round differently, and 8 steps carry the difference. The serving
+# phase's merged batch (rows at batch 4 against batch 1) read a same-seed PCM
+# relative L2 of at most 0.048 (on an H100 80GB HBM3 at 700 W), so both
+# the latents and the PCM must lie within twice that, and the largest
+# same-seed distance DP_SEPARATION times below the smallest other-seed one.
+DP_REL_L2_TOL = 0.1
+DP_SEPARATION = MERGE_SEPARATION
+DP_SEEDS = [71, 72, 73, 74]
+DP_SECONDS = 60.0
+
+
+def _rel_l2_rows(got: np.ndarray, want: np.ndarray) -> list:
+    """[i][j]: relative L2 of row i of `got` against row j of `want`."""
+    g, w = got.astype(np.float64), want.astype(np.float64)
+    return [[float(np.linalg.norm(g[i] - w[j]) / np.linalg.norm(w[j])) for j in range(len(w))]
+            for i in range(len(g))]
+
+
+def _separated(dist: list) -> tuple:
+    same = max(dist[i][i] for i in range(len(dist)))
+    other = min(dist[i][j] for i in range(len(dist)) for j in range(len(dist)) if i != j)
+    return same, other, same <= DP_REL_L2_TOL and other >= DP_SEPARATION * same
+
+
+def _dp_rank():
+    """One of the two ranks of `run_data_parallel`, spawned by the port's
+    launcher: the full-width handler (seed 0, bf16) on this rank's card,
+    `enable_mesh(dp=2)` (its replication check timed), then rank 0 runs the
+    4 x 60 s request through the service and the handler while rank 1
+    follows. Every rank reads its launch counters, peak memory and device;
+    rank 0 returns them with the results."""
+    from acestep_tpu_torch.parallel.mesh import rank_device
+    from acestep_tpu_torch.pipeline.handler import AceStepHandler
+    from acestep_tpu_torch.service.inference import generate_music
+    from acestep_tpu_torch.service.params import GenerationConfig, GenerationParams
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the script's own process
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device()
+    t0 = time.time()
+    h = AceStepHandler(device=dev)
+    h.initialize_service(random_init=True, seed=0)
+    init_s = time.time() - t0
+    t0 = time.time()
+    h.enable_mesh(dp=2)
+    replicate_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counters()
+    out = {}
+    if h.mesh.is_leader:
+        try:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            r = generate_music(h, None, GenerationParams(caption=CAPTION, lyrics=LYRICS, duration=DP_SECONDS,
+                                                         thinking=False),
+                               GenerationConfig(batch_size=4, seeds=DP_SEEDS), save_audio=False)
+            out["service_s"] = time.time() - t0
+            if not r.success:
+                raise RuntimeError(f"dp = 2 service request failed: {r.error}")
+            out["service_pcm"] = np.stack([a["audio"] for a in r.audios])
+            out["time_costs"] = r.extra_outputs["time_costs"]
+            torch.cuda.synchronize()
+            t0 = time.time()
+            d = h.generate_music(CAPTION, LYRICS, batch_size=4, audio_duration=DP_SECONDS, seeds=DP_SEEDS,
+                                 use_random_seed=False, normalize_db=-1.0, return_int16=True)
+            out["direct_s"] = time.time() - t0
+            out["latents"], out["pcm"] = d["latents"], d["audios"]
+        finally:
+            h.stop_followers()
+    else:
+        h.serve_followers()
+    counters = _counters()
+    mine = dict(device=str(dev), name=torch.cuda.get_device_name(dev), init_s=init_s, replicate_s=replicate_s,
+                launches={k: fn.launches for k, fn in counters.items()},
+                narrow_launches={k: counters[k].narrow_launches for k in _OOBLECK},
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    mine["launches"]["flash_attention_f32"] = counters["flash_attention"].f32_launches
+    out["ranks"] = h.mesh.gather(mine)
+    return out
+
+
+def _spawned_ranks(pid: int) -> list:
+    """Pids of the ranks (`spawn_main`) whose parent is `pid`."""
+    pids = []
+    for d in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read()
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == pid and b"spawn_main" in cmd:
+            pids.append(int(d))
+    return pids
+
+
+def _dp_cli(tmp: str) -> dict:
+    """`cli generate --dp 2` (2 x 30 s), then `cli serve --dp 2` (one 2 x 10 s
+    job over loopback HTTP, then SIGTERM), each in a subprocess: walls, exit
+    codes, files, and whether any of the server's ranks was left."""
+    import signal
+
+    from acestep_tpu_torch.utils import native_audio
+
+    out = {}
+    t0 = time.time()
+    gen = _cli("generate", "--random-init", "--dp", "2", "--batch-size", "2", "--duration", "30", "--seed", "5",
+               "--caption", CAPTION, "--output-dir", os.path.join(tmp, "gen"))
+    try:
+        text, _ = gen.communicate(timeout=300)
+    finally:
+        if gen.poll() is None:
+            gen.kill()
+            gen.wait()
+    out["generate_s"] = time.time() - t0
+    out["generate_exit_code"] = gen.returncode
+    files = sorted(f for f in os.listdir(os.path.join(tmp, "gen")) if f.endswith(".flac")) \
+        if os.path.isdir(os.path.join(tmp, "gen")) else []
+    shapes = [native_audio.flac_decode(open(os.path.join(tmp, "gen", f), "rb").read())[0].shape for f in files]
+    out["generate_files_ok"] = shapes == [(2, 30 * 48000)] * 2
+    out["generate_tail"] = text.splitlines()[-4:]
+
+    log_path = os.path.join(tmp, "serve.log")
+    t0 = time.time()
+    with open(log_path, "w") as log:
+        srv = subprocess.Popen([sys.executable, "-m", "acestep_tpu_torch.cli", "serve", "--random-init", "--dp", "2",
+                                "--host", "127.0.0.1", "--port", "0", "--output-dir", os.path.join(tmp, "serve")],
+                               cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log, stderr=subprocess.STDOUT)
+    try:
+        port = None
+        while port is None:
+            for ln in open(log_path).read().splitlines():
+                if ln.startswith("listening on 127.0.0.1:"):
+                    port = int(ln.rsplit(":", 1)[1])
+            if port is None:
+                if srv.poll() is not None or time.time() - t0 > 300:
+                    raise SystemExit(f"cli serve --dp 2 did not start:\n{open(log_path).read()[-3000:]}")
+                time.sleep(0.2)
+        out["serve_startup_s"] = time.time() - t0
+        ranks = _spawned_ranks(srv.pid)
+        t1 = time.time()
+        job = list(_wait_jobs(port, [_release(port, duration=10.0, batch_size=2, seed=9)]).values())[0]
+        out["serve_job_2x10s_s"] = time.time() - t1
+        shapes = [native_audio.flac_decode(open(p, "rb").read())[0].shape for p in job["result"]["audio_paths"]]
+        srv.send_signal(signal.SIGTERM)
+        out["serve_exit_code"] = srv.wait(timeout=120)
+        out["serve_ranks"] = len(ranks)
+        out["serve_ranks_left"] = [p for p in ranks if os.path.exists(f"/proc/{p}")]
+        out["serve_files_ok"] = shapes == [(2, 10 * 48000)] * 2
+    finally:
+        if srv.poll() is None:
+            srv.kill()
+            srv.wait()
+    out["serve_log"] = [ln for ln in open(log_path).read().splitlines()
+                        if ln.startswith(("initialized", "mesh enabled", "listening", "interrupted"))]
+    return out
+
+
+def run_data_parallel(h, smi: str):
+    """Data parallelism on the card: two ranks spawned through the port's
+    launcher (`parallel.mesh.launch`), both on the one H100, each with the
+    full-width handler (`_dp_rank`); a 4 x 60 s text2music request at dp = 2
+    through `service.inference.generate_music`, and the same through the
+    handler for its latents. Each rank's device, launches of kernels 1, 2 and
+    3 (each > 0, no narrow-route call), peak memory; the rows held against
+    the same requests at dp = 1 on the script's handler `h` (DP_REL_L2_TOL
+    and DP_SEPARATION); then `cli generate --dp 2` and `cli serve --dp 2` in
+    subprocesses (`_dp_cli`). Returns the two ranks' launches summed."""
+    import shutil
+    import tempfile
+
+    from acestep_tpu_torch.parallel.mesh import launch
+    from acestep_tpu_torch.service.inference import generate_music
+    from acestep_tpu_torch.service.params import GenerationConfig, GenerationParams
+
+    torch.cuda.empty_cache()
+    if h.lora_status():
+        raise SystemExit(f"data parallel: the dp = 1 handler still has adapters {h.lora_status()}")
+    t0 = time.time()
+    got = launch(_dp_rank, 2, deadline_s=600.0)
+    launch_s = time.time() - t0
+    ranks = got["ranks"]
+    need = ("flash_attention", "decoder_block", "res_units")
+    ranks_ok = (len(ranks) == 2 and all(r["device"] == "cuda:0" for r in ranks)
+                and all(r["launches"][k] > 0 for r in ranks for k in need)
+                and all(not any(r["narrow_launches"].values()) for r in ranks))
+
+    r1 = generate_music(h, None, GenerationParams(caption=CAPTION, lyrics=LYRICS, duration=DP_SECONDS, thinking=False),
+                        GenerationConfig(batch_size=4, seeds=DP_SEEDS), save_audio=False)
+    if not r1.success:
+        raise SystemExit(f"data parallel: the dp = 1 request failed: {r1.error}")
+    d1 = h.generate_music(CAPTION, LYRICS, batch_size=4, audio_duration=DP_SECONDS, seeds=DP_SEEDS,
+                          use_random_seed=False, normalize_db=-1.0, return_int16=True)
+    checks = {}
+    for name, a, b in (("service_pcm", got["service_pcm"], np.stack([x["audio"] for x in r1.audios])),
+                       ("latents", got["latents"], d1["latents"]), ("pcm", got["pcm"], d1["audios"])):
+        finite = bool(np.isfinite(a.astype(np.float64)).all()) and a.shape == b.shape
+        dist = _rel_l2_rows(a, b) if finite else None
+        same, other, ok = _separated(dist) if finite else (None, None, False)
+        checks[name] = dict(ok=ok, shape=list(a.shape), largest_same_seed=same, smallest_other_seed=other,
+                            rel_l2=dist)
+    rows_ok = all(c["ok"] for c in checks.values())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        cli = _dp_cli(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cli_ok = (cli["generate_exit_code"] == 0 and cli["generate_files_ok"] and cli["serve_exit_code"] == 0
+              and cli["serve_files_ok"] and cli["serve_ranks"] == 2 and not cli["serve_ranks_left"])
+    ok = ranks_ok and rows_ok and cli_ok
+    print(json.dumps(dict(phase="data parallel dp = 2, two ranks on one card (proves the path, not a speed-up)",
+                          ok=ok, card=smi, launch_wall_s=launch_s, ranks=ranks, service_s=got["service_s"],
+                          direct_s=got["direct_s"], rank0_time_costs=got["time_costs"], tol=DP_REL_L2_TOL,
+                          separation=DP_SEPARATION, rows_vs_dp1=checks, cli=cli)), flush=True)
+    if not ok:
+        raise SystemExit(f"data parallel: ranks {ranks_ok}, rows {rows_ok}, cli {cli_ok}")
+    return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+
+
 # The narrow planner's sequence log-prob on the card (bf16) against the CPU
 # (fp32): relative difference of the total at most this, twice the reading
 # (2.3e-6) of the first run on an H100 80GB HBM3 (seeded inputs).
@@ -3032,6 +3263,7 @@ def main() -> int:
     serving, serving_direct = _timed_phase(seconds, "run_serving", run_serving, dit, smi)
     lora = _timed_phase(seconds, "run_lora", run_lora, dit)
     lrc = _timed_phase(seconds, "run_lrc", run_lrc, dit)
+    data_parallel = _timed_phase(seconds, "run_data_parallel", run_data_parallel, dit, smi)
     thinking, llm, codes = _timed_phase(seconds, "run_thinking_requests", run_thinking_requests, dev, dit)
     free_form = _timed_phase(seconds, "run_free_form", run_free_form, dit, llm, codes)
     scoring = _timed_phase(seconds, "run_scoring", run_scoring, dev, llm, codes)
@@ -3043,8 +3275,8 @@ def main() -> int:
     training, trained = _timed_phase(seconds, "run_lora_training", run_lora_training, dit, smi)
     del dit
     torch.cuda.empty_cache()
-    paths = (text2music, audio, base, serving, serving_direct, lora, lrc, thinking, free_form, scoring, probe,
-             checkpoint, fp32_decode, training, trained, *rest)
+    paths = (text2music, audio, base, serving, serving_direct, lora, lrc, data_parallel, thinking, free_form, scoring,
+             probe, checkpoint, fp32_decode, training, trained, *rest)
     launches = {k: sum(p[k] for p in paths) for k in text2music}
 
     narrow_src = "acestep_tpu_torch/csrc/oobleck_generic.cu"
