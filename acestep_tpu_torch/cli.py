@@ -12,10 +12,14 @@ CUDA and C++ libraries, which it caches under `acestep_tpu_torch/_build/`.
 command runs on dp·sp·tp ranks (`parallel.mesh.launch`): it spawns them
 itself, or runs as one rank of the group torchrun started. Rank r takes
 `cuda:{r % device_count}` (two ranks may share a card), or the CPU with
-`--device cpu` (gloo either way). Rank 0 loads the planner, prints, saves and
-serves HTTP; the other ranks compute their rows of each request
-(`AceStepHandler.serve_followers`) until rank 0 stops them. Only dp runs:
-sp or tp above 1 raises (ROADMAP A.11b).
+`--device cpu`. The host exchanges run on gloo; the device collectives of sp
+and tp on NCCL when every rank has a card of its own, else on gloo. Rank 0
+loads the planner, prints, saves and serves HTTP; the other ranks compute
+their share of each request (`AceStepHandler.serve_followers`) until rank 0
+stops them. dp splits a request's rows, sp the DiT's latent frames and tp
+its attention heads and MLP width (`AceStepHandler.enable_mesh`); a tp that
+does not divide the heads or the MLP width raises on every rank. The planner
+stays whole on rank 0 (its tensor parallelism is ROADMAP A.11c).
 
 - `generate` runs the port's `service.inference.generate_music`;
   `--thinking` runs the 5 Hz LM planner (`LLMHandler()`, the 0.6B size)
@@ -74,22 +78,21 @@ def _mesh_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--dp", type=int, default=int(os.environ.get("ACESTEP_TPU_DP", 1)),
                    help="data-parallel mesh axis (shards the request batch)")
     p.add_argument("--sp", type=int, default=int(os.environ.get("ACESTEP_TPU_SP", 1)),
-                   help="sequence-parallel mesh axis (not ported yet)")
+                   help="sequence-parallel mesh axis (splits the DiT's latent frames)")
     p.add_argument("--tp", type=int, default=int(os.environ.get("ACESTEP_TPU_TP", 1)),
-                   help="tensor-parallel mesh axis (not ported yet)")
+                   help="tensor-parallel mesh axis (splits the DiT's heads and MLP width)")
 
 
 def _on_ranks(run, args) -> int:
     """`run(args, leader)` here at 1 x 1 x 1; else on every rank of the
-    mesh, returning rank 0's exit code. Refuses sp and tp, and a run without
-    a card and without `--device cpu`, before any rank starts."""
+    mesh, returning rank 0's exit code. Refuses a run without a card and
+    without `--device cpu` before any rank starts."""
     n = args.dp * args.sp * args.tp
     if n <= 1:
         return run(args, True)
     from acestep_tpu_torch.device import resolve_device
-    from acestep_tpu_torch.parallel.mesh import launch, refuse_sp_tp
+    from acestep_tpu_torch.parallel.mesh import launch
 
-    refuse_sp_tp(args.sp, args.tp)
     resolve_device(args.device)
     return launch(_rank, n, run, args)
 
@@ -113,8 +116,20 @@ def _load_dit(args):
     if dit.mesh is None or dit.mesh.is_leader:
         print(msg, flush=True)
         if dit.mesh is not None:
-            print(f"mesh enabled: dp={args.dp} sp={args.sp} tp={args.tp}", flush=True)
+            print(f"mesh enabled: dp={args.dp} sp={args.sp} tp={args.tp} "
+                  f"(device collectives on {dit.mesh.backend})", flush=True)
     return dit
+
+
+def _load_planner(args, dit):
+    """The planner on rank 0's card, whole: at tp above 1 it says so once."""
+    from acestep_tpu_torch.lm.handler import LLMHandler
+
+    if args.tp > 1:
+        print(f"planner: whole on rank 0 at tp={args.tp} (its tensor parallelism is ROADMAP A.11c)", flush=True)
+    llm = LLMHandler(device=dit.device)
+    print(llm.initialize(args.lm_checkpoint_dir, random_init=args.random_init or None), flush=True)
+    return llm
 
 
 def cmd_generate(args) -> int:
@@ -122,7 +137,6 @@ def cmd_generate(args) -> int:
 
 
 def _generate(args, leader: bool) -> int:
-    from acestep_tpu_torch.lm.handler import LLMHandler
     from acestep_tpu_torch.service.inference import generate_music
     from acestep_tpu_torch.service.params import GenerationConfig, GenerationParams
 
@@ -131,10 +145,7 @@ def _generate(args, leader: bool) -> int:
         dit.serve_followers()
         return 0
     try:
-        llm = None
-        if args.thinking:
-            llm = LLMHandler(device=dit.device)
-            print(llm.initialize(args.lm_checkpoint_dir, random_init=args.random_init or None))
+        llm = _load_planner(args, dit) if args.thinking else None
         params = GenerationParams(
             caption=args.caption,
             lyrics=args.lyrics,
@@ -246,7 +257,6 @@ def _serve(args, leader: bool) -> int:
     under a mesh) or `shutdown()`, then stops its followers."""
     import signal
 
-    from acestep_tpu_torch.lm.handler import LLMHandler
     from acestep_tpu_torch.pipeline.handler import AceStepHandler
     from acestep_tpu_torch.service.api_server import serve
 
@@ -257,8 +267,7 @@ def _serve(args, leader: bool) -> int:
     try:
         if dit.mesh is not None:
             signal.signal(signal.SIGTERM, _interrupt)
-        llm = LLMHandler(device=dit.device)
-        print(llm.initialize(args.lm_checkpoint_dir, random_init=args.random_init or None), flush=True)
+        llm = _load_planner(args, dit)
         # More DiT models (ACESTEP_CONFIG_PATH2/3), chosen by a request's "model".
         extra = {}
         for n in (2, 3):

@@ -216,6 +216,14 @@ class LLMHandler:
         ids, mask = tokenize_padded(self.tokenizer, prompts, self.max_model_len - budget, buckets=PROMPT_BUCKETS)
         return ids, mask, ids.shape[1]
 
+    def enable_tensor_parallel(self, mesh=None) -> None:
+        """Not ported: the planner's tensor parallelism needs rank 0's
+        sampling loop and the other ranks in lockstep at every forward
+        (ROADMAP A.11c). Until then the planner runs whole on one card."""
+        raise NotImplementedError(
+            "the planner's tensor parallelism is not ported yet (ROADMAP A.11c); it runs whole on rank 0"
+        )
+
     def _tensor(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device, dtype=dtype)
 

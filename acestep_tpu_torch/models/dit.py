@@ -21,6 +21,16 @@ parameter tree (tensors; layers as per-layer lists, see `params.py`):
   schedule), cover strength (the non-cover segment), the null condition per
   segment, and the `noise=` and `sde_noise=` injection hooks.
 
+Under a mesh (`parallel.tensor.Shards`, ROADMAP A.11b) the decoder runs on
+this rank's tensor-parallel heads and MLP features, its rowwise products
+summed over the tp ranks (`ops.basic.linear_rowwise`); heads come from a
+weight's width, not from the config. With sequence parallelism each rank
+denoises a contiguous slice of the latent-time axis: full-attention layers
+gather K and V, sliding layers take a halo of `window` rows on each side,
+APG sums its norms' squares over the sp ranks, noise is drawn for the whole
+sequence and sliced, and the final latents are gathered. The condition
+(`prepare_condition`) is computed whole on every rank.
+
 The bf16 rounding points follow the JAX package: modulation in fp32 then cast
 (`dit_layer`), rope in fp32, the ODE step size cast to the latent dtype; APG
 and ADG compute in fp32 and cast once (APG adds its cast update to the
@@ -39,11 +49,12 @@ import torch.nn.functional as F
 
 from acestep_tpu_torch.config import AceStepConfig
 from acestep_tpu_torch.ops.attention import attention
-from acestep_tpu_torch.ops.basic import linear, mlp_swiglu, rms_norm
+from acestep_tpu_torch.ops.basic import linear, linear_rowwise, mlp_swiglu, rms_norm
 from acestep_tpu_torch.ops.conv import conv1d, conv_transpose1d
 from acestep_tpu_torch.ops.fsq import residual_fsq_decode_indices, residual_fsq_forward
 from acestep_tpu_torch.ops.packing import pack_sequences
 from acestep_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from acestep_tpu_torch.parallel.tensor import Shards, halo_edges, halo_extend, halo_mask, halo_rows
 
 Params = Dict[str, Any]
 
@@ -56,9 +67,11 @@ SHIFT_TIMESTEPS = {
 VALID_TIMESTEPS = sorted({t for v in SHIFT_TIMESTEPS.values() for t in v}, reverse=True)
 
 
-def _split_heads(x: torch.Tensor, num_heads: int, head_dim: int) -> torch.Tensor:
+def _split_heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """(B, L, N·head_dim) -> (B, L, N, head_dim): N from the width, so a
+    tensor-parallel shard gives its local heads."""
     b, l, _ = x.shape
-    return x.reshape(b, l, num_heads, head_dim)
+    return x.reshape(b, l, -1, head_dim)
 
 
 def _window(cfg: AceStepConfig, i: int) -> Optional[int]:
@@ -74,10 +87,21 @@ def _window(cfg: AceStepConfig, i: int) -> Optional[int]:
 
 def cross_attention_kv(p: Params, cfg: AceStepConfig, enc: torch.Tensor):
     """Cross-attention K/V, computed once per trajectory."""
-    k = _split_heads(linear(p["k_proj"], enc), cfg.num_key_value_heads, cfg.head_dim)
+    k = _split_heads(linear(p["k_proj"], enc), cfg.head_dim)
     k = rms_norm(p["k_norm"]["weight"], k, cfg.rms_norm_eps)
-    v = _split_heads(linear(p["v_proj"], enc), cfg.num_key_value_heads, cfg.head_dim)
+    v = _split_heads(linear(p["v_proj"], enc), cfg.head_dim)
     return k, v
+
+
+def _self_qkv(p: Params, cfg: AceStepConfig, x: torch.Tensor, cos, sin):
+    """Self-attention q, k, v of x, normed, with rope when cos is given."""
+    q = rms_norm(p["q_norm"]["weight"], _split_heads(linear(p["q_proj"], x), cfg.head_dim), cfg.rms_norm_eps)
+    k = rms_norm(p["k_norm"]["weight"], _split_heads(linear(p["k_proj"], x), cfg.head_dim), cfg.rms_norm_eps)
+    v = _split_heads(linear(p["v_proj"], x), cfg.head_dim)
+    if cos is not None:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return q, k, v
 
 
 def attention_block(
@@ -90,21 +114,18 @@ def attention_block(
     kv_mask: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
     kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    tp_sum: Optional[Callable] = None,
 ) -> torch.Tensor:
-    """Self-attention (kv None) or cross-attention on precomputed kv."""
-    q = _split_heads(linear(p["q_proj"], x), cfg.num_attention_heads, cfg.head_dim)
-    q = rms_norm(p["q_norm"]["weight"], q, cfg.rms_norm_eps)
+    """Self-attention (kv None) or cross-attention on precomputed kv; under
+    tensor parallelism on local heads, `tp_sum` summing o_proj's partials."""
     if kv is not None:
+        q = _split_heads(linear(p["q_proj"], x), cfg.head_dim)
+        q = rms_norm(p["q_norm"]["weight"], q, cfg.rms_norm_eps)
         k, v = kv
     else:
-        k = _split_heads(linear(p["k_proj"], x), cfg.num_key_value_heads, cfg.head_dim)
-        k = rms_norm(p["k_norm"]["weight"], k, cfg.rms_norm_eps)
-        v = _split_heads(linear(p["v_proj"], x), cfg.num_key_value_heads, cfg.head_dim)
-        if cos is not None:
-            q = apply_rope(q, cos, sin)
-            k = apply_rope(k, cos, sin)
+        q, k, v = _self_qkv(p, cfg, x, cos, sin)
     out = attention(q, k, v, kv_mask=kv_mask, window=window, scale=cfg.head_dim**-0.5)
-    return linear(p["o_proj"], out.reshape(x.shape[0], x.shape[1], -1))
+    return linear_rowwise(p["o_proj"], out.reshape(x.shape[0], x.shape[1], -1), tp_sum)
 
 
 def encoder_layer(p, cfg, x, cos, sin, kv_mask, window=None) -> torch.Tensor:
@@ -315,21 +336,58 @@ def dit_layer(
     window: Optional[int],
     cross_kv_mask: Optional[torch.Tensor],
     cross_kv: Tuple[torch.Tensor, torch.Tensor],
+    shards: Optional[Shards] = None,
 ) -> torch.Tensor:
-    """AdaLN-zero DiT layer (ref AceStepDiTLayer)."""
+    """AdaLN-zero DiT layer (ref AceStepDiTLayer). `cos`, `sin` and
+    `self_kv_mask` are the whole sequence's; x is this rank's slice of it
+    under sequence parallelism (`self_attention`)."""
+    tp_sum = shards.tp_sum if shards is not None else None
     mod = p["scale_shift_table"].float() + tproj.float()
     shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = [
         m.to(x.dtype) for m in torch.chunk(mod, 6, dim=1)
     ]
     h = rms_norm(p["self_attn_norm"]["weight"], x, cfg.rms_norm_eps)
     h = h * (1 + scale_msa) + shift_msa
-    h = attention_block(p["self_attn"], cfg, h, cos=cos, sin=sin, kv_mask=self_kv_mask, window=window)
+    h = self_attention(p["self_attn"], cfg, h, cos, sin, self_kv_mask, window, shards)
     x = x + h * gate_msa
     h = rms_norm(p["cross_attn_norm"]["weight"], x, cfg.rms_norm_eps)
-    x = x + attention_block(p["cross_attn"], cfg, h, kv_mask=cross_kv_mask, kv=cross_kv)
+    x = x + attention_block(p["cross_attn"], cfg, h, kv_mask=cross_kv_mask, kv=cross_kv, tp_sum=tp_sum)
     h = rms_norm(p["mlp_norm"]["weight"], x, cfg.rms_norm_eps)
     h = h * (1 + c_scale) + c_shift
-    return x + mlp_swiglu(p["mlp"], h) * c_gate
+    return x + mlp_swiglu(p["mlp"], h, tp_sum) * c_gate
+
+
+def self_attention(
+    p: Params,
+    cfg: AceStepConfig,
+    x: torch.Tensor,  # (B, L_local, D)
+    cos: torch.Tensor,  # (L, head_dim), the whole sequence's
+    sin: torch.Tensor,
+    kv_mask: Optional[torch.Tensor],  # (B, L), the whole sequence's
+    window: Optional[int],
+    shards: Optional[Shards] = None,
+) -> torch.Tensor:
+    """A DiT layer's self-attention on this rank's rows. Over sp ranks a
+    full layer gathers K and V of the whole sequence (after rope, at global
+    positions) for its local queries; a sliding layer extends x by `window`
+    rows of its neighbours on each side (zeros, masked, past the ends), runs
+    the band on the extended rows and keeps the middle ones."""
+    tp_sum = shards.tp_sum if shards is not None else None
+    if shards is None or shards.sp == 1:
+        return attention_block(p, cfg, x, cos=cos, sin=sin, kv_mask=kv_mask, window=window, tp_sum=tp_sum)
+    b, l = x.shape[:2]
+    start, total = shards.sp_rank * l, shards.sp * l
+    if window is None:
+        q, k, v = _self_qkv(p, cfg, x, cos[start:start + l], sin[start:start + l])
+        kv = shards.sp_gather(torch.stack([k, v]), dim=2)  # (2, B, L, Nkv, head_dim)
+        out = attention(q, kv[0], kv[1], kv_mask=kv_mask, scale=cfg.head_dim**-0.5)
+    else:
+        xe = halo_extend(x, shards.sp_list(halo_edges(x, window)), shards.sp_rank, window)
+        rows, inside = halo_rows(start, l, window, total, device=x.device)
+        q, k, v = _self_qkv(p, cfg, xe, cos[rows], sin[rows])
+        out = attention(q, k, v, kv_mask=halo_mask(kv_mask, inside, start, window, b), window=window,
+                        scale=cfg.head_dim**-0.5)[:, window:window + l]
+    return linear_rowwise(p["o_proj"], out.reshape(b, l, -1), tp_sum)
 
 
 def precompute_cross_kv(p_decoder: Params, cfg: AceStepConfig, encoder_hidden_states):
@@ -349,8 +407,12 @@ def dit_forward(
     *,
     encoder_mask: Optional[torch.Tensor] = None,  # (B, L_enc)
     latent_mask: Optional[torch.Tensor] = None,  # (B, T)
+    shards: Optional[Shards] = None,
 ) -> torch.Tensor:
-    """One denoise forward pass -> velocity (B, T, 64)."""
+    """One denoise forward pass -> velocity (B, T, 64). Under sequence
+    parallelism xt and context_latents are this rank's frames (a multiple of
+    patch_size) and latent_mask is the whole sequence's; the velocity is
+    this rank's frames."""
     temb_t, proj_t = timestep_embedding(p["time_embed"], timestep)
     temb_r, proj_r = timestep_embedding(p["time_embed_r"], timestep - timestep_r)
     temb = temb_t + temb_r
@@ -362,18 +424,17 @@ def dit_forward(
     if pad:
         h = F.pad(h, (0, 0, 0, pad))
     h = conv1d(h, p["proj_in"]["kernel"], p["proj_in"].get("bias"), stride=cfg.patch_size)
-    l = h.shape[1]
-    cos, sin = rope_cos_sin(l, cfg.head_dim, cfg.rope_theta, device=h.device)
+    total = h.shape[1] * (shards.sp if shards is not None else 1)
+    cos, sin = rope_cos_sin(total, cfg.head_dim, cfg.rope_theta, device=h.device)
 
     patched_mask = None
     if latent_mask is not None:
-        pm = latent_mask
-        if pad:
-            pm = F.pad(pm, (0, pad))
-        patched_mask = pm.reshape(pm.shape[0], l, cfg.patch_size).amax(dim=-1)
+        pm = F.pad(latent_mask, (0, (-latent_mask.shape[1]) % cfg.patch_size))
+        patched_mask = pm.reshape(pm.shape[0], total, cfg.patch_size).amax(dim=-1)
 
     for i, lp in enumerate(p["layers"]):
-        h = dit_layer(lp, cfg, h, cos, sin, tproj, patched_mask, _window(cfg, i), encoder_mask, cross_kvs[i])
+        h = dit_layer(lp, cfg, h, cos, sin, tproj, patched_mask, _window(cfg, i), encoder_mask, cross_kvs[i],
+                      shards)
 
     mod = p["scale_shift_table"].float() + temb.float()[:, None]
     shift, scale = [m.to(h.dtype) for m in torch.chunk(mod, 2, dim=1)]
@@ -396,10 +457,13 @@ def dit_cross_attention_capture(
     encoder_hidden_states: torch.Tensor,  # (B, L_enc, D), the condition encoder's output
     encoder_mask: Optional[torch.Tensor],
     capture_layers: Sequence[int],
+    shards: Optional[Shards] = None,
 ) -> Dict[int, torch.Tensor]:
     """Run the decoder up to max(capture_layers) and return the cross-attention
     probabilities {layer: (B, heads, L_enc, L_patched)} for the LRC alignment,
-    in (text, audio) orientation.
+    in (text, audio) orientation. Under tensor parallelism (`shards`, whose
+    time axis is whole) each rank computes its local heads, gathered over
+    the tp ranks into the global order.
 
     At a captured layer the pre-cross hidden state is recomputed: AdaLN
     modulation, the self-attention through `attention_block` (the flash
@@ -429,10 +493,11 @@ def dit_cross_attention_capture(
             shift_msa, scale_msa, gate_msa = [m.to(h.dtype) for m in torch.chunk(mod, 6, dim=1)[:3]]
             hn = rms_norm(lp["self_attn_norm"]["weight"], h, cfg.rms_norm_eps)
             hn = hn * (1 + scale_msa) + shift_msa
-            attn_out = attention_block(lp["self_attn"], cfg, hn, cos=cos, sin=sin, window=_window(cfg, i))
+            attn_out = attention_block(lp["self_attn"], cfg, hn, cos=cos, sin=sin, window=_window(cfg, i),
+                                       tp_sum=shards.tp_sum if shards is not None else None)
             hq = rms_norm(lp["cross_attn_norm"]["weight"], h + attn_out * gate_msa, cfg.rms_norm_eps)
             ca = lp["cross_attn"]
-            q = _split_heads(linear(ca["q_proj"], hq), cfg.num_attention_heads, cfg.head_dim)
+            q = _split_heads(linear(ca["q_proj"], hq), cfg.head_dim)
             q = rms_norm(ca["q_norm"]["weight"], q, cfg.rms_norm_eps)
             k, _ = cross_attention_kv(ca, cfg, enc)
             kq = k.repeat_interleave(cfg.num_attention_heads // cfg.num_key_value_heads, dim=2)
@@ -440,9 +505,10 @@ def dit_cross_attention_capture(
             if encoder_mask is not None:
                 keep = encoder_mask.to(torch.bool)[:, None, None, :]
                 scores = scores.masked_fill(~keep, torch.finfo(torch.float32).min)
-            captured[i] = torch.softmax(scores, dim=-1).transpose(2, 3)  # (B, heads, L_enc, L_audio)
+            probs = torch.softmax(scores, dim=-1).transpose(2, 3)  # (B, heads, L_enc, L_audio)
+            captured[i] = probs if shards is None else shards.tp_gather(probs.contiguous(), dim=1)
         kv = cross_attention_kv(lp["cross_attn"], cfg, enc)
-        h = dit_layer(lp, cfg, h, cos, sin, tproj, None, _window(cfg, i), encoder_mask, kv)
+        h = dit_layer(lp, cfg, h, cos, sin, tproj, None, _window(cfg, i), encoder_mask, kv, shards)
     return captured
 
 
@@ -455,8 +521,12 @@ def cfg_forward(cond: torch.Tensor, uncond: torch.Tensor, scale: float) -> torch
     return uncond + scale * (cond - uncond)
 
 
-def _norm(x: torch.Tensor, dim: int) -> torch.Tensor:
-    return torch.linalg.vector_norm(x, dim=dim, keepdim=True)
+def _norm(x: torch.Tensor, dim: int, seq_sum: Optional[Callable] = None) -> torch.Tensor:
+    """The L2 norm over `dim`; with `seq_sum`, of a slice of that axis: the
+    fp32 sum of squares is summed over the ranks that hold the others."""
+    if seq_sum is None:
+        return torch.linalg.vector_norm(x, dim=dim, keepdim=True)
+    return torch.sqrt(seq_sum((x * x).sum(dim=dim, keepdim=True)))
 
 
 def apg_forward(
@@ -469,17 +539,22 @@ def apg_forward(
     eta: float = 0.0,
     norm_threshold: float = 2.5,
     dim: int = 1,
+    seq_sum: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """APG with the momentum buffer (fp32) carried by the caller; the norms
-    run over `dim` 1, the time axis of (B, T, 64). Returns (guided, new_avg)."""
+    run over `dim` 1, the time axis of (B, T, 64). Under sequence
+    parallelism the inputs are this rank's frames and `seq_sum` sums the
+    norms' squares and the dot product over the sp ranks. Returns (guided,
+    new_avg)."""
     diff = (pred_cond - pred_uncond).float()
     new_avg = diff + momentum * running_avg
     diff = new_avg
     if norm_threshold > 0:
-        diff = diff * torch.clamp(norm_threshold / torch.clamp(_norm(diff, dim), min=1e-12), max=1.0)
+        diff = diff * torch.clamp(norm_threshold / torch.clamp(_norm(diff, dim, seq_sum), min=1e-12), max=1.0)
     v1 = pred_cond.float()
-    v1n = v1 / torch.clamp(_norm(v1, dim), min=1e-12)
-    parallel = (diff * v1n).sum(dim=dim, keepdim=True) * v1n
+    v1n = v1 / torch.clamp(_norm(v1, dim, seq_sum), min=1e-12)
+    dot = (diff * v1n).sum(dim=dim, keepdim=True)
+    parallel = (dot if seq_sum is None else seq_sum(dot)) * v1n
     update = (diff - parallel) + eta * parallel
     scale = float(np.float32(guidance_scale) - np.float32(1.0))
     return pred_cond + (scale * update).to(pred_cond.dtype), new_avg
@@ -591,8 +666,11 @@ def denoise(
     cfg_interval_start: float = 0.0,
     cfg_interval_end: float = 1.0,
     sde_noise: Optional[Callable[[int], torch.Tensor]] = None,
+    shards: Optional[Shards] = None,
 ) -> torch.Tensor:
-    """One segment of a trajectory over `schedule` (it goes on at `t_after`).
+    """One segment of a trajectory over `schedule` (it goes on at `t_after`);
+    under sequence parallelism xt, context_latents and each step's noise
+    are this rank's frames (`shards`).
 
     ODE: x <- x - v(x, t) * (t - t_next). SDE: x <- t_next * noise +
     (1 - t_next) * (x - v * t) while t_next > 0, the clean prediction at the
@@ -611,7 +689,7 @@ def denoise(
         tvec = torch.full((b,), float(t_curr), dtype=torch.float32, device=dev)
         return dit_forward(
             decoder_params, cfg, xt, tvec, tvec, context_latents, kvs,
-            encoder_mask=mask, latent_mask=latent_mask,
+            encoder_mask=mask, latent_mask=latent_mask, shards=shards,
         )
 
     def scalar(v) -> float:
@@ -621,6 +699,7 @@ def denoise(
         return float(torch.tensor(float(v), dtype=torch.float32).to(dtype))
 
     momentum = torch.zeros(xt.shape, dtype=torch.float32, device=dev) if null_cross_kvs is not None else None
+    seq_sum = shards.sp_sum if shards is not None and shards.sp > 1 else None
     for i, (t_curr, t_nxt) in enumerate(zip(t_sched, t_next)):
         vt = fwd(t_curr, cross_kvs, encoder_mask)
         if null_cross_kvs is not None:
@@ -629,7 +708,7 @@ def denoise(
                 if use_adg:
                     vt = adg_forward(xt, vt, vt_null, t_curr, guidance_scale)
                 else:
-                    vt, momentum = apg_forward(vt, vt_null, guidance_scale, momentum)
+                    vt, momentum = apg_forward(vt, vt_null, guidance_scale, momentum, seq_sum=seq_sum)
         if infer_method == "sde":
             pred_clean = xt - vt * scalar(t_curr)
             if t_nxt > 0:
@@ -684,6 +763,7 @@ def generate_audio(
     noise: Optional[torch.Tensor] = None,  # injection hook (tests)
     sde_noise: Optional[Sequence[torch.Tensor]] = None,  # injection hook: step i's SDE noise
     sde_rows: Optional[Tuple[int, int, int, int]] = None,
+    shards: Optional[Shards] = None,
 ) -> Dict[str, Any]:
     """Turbo or base generation: prepare_condition, cross K/V once per
     segment, the denoise loop (ODE or SDE).
@@ -701,7 +781,11 @@ def generate_audio(
     `sde_rows = (first, stop, batch, seed)` says that these inputs are rows
     first:stop of a request of `batch` rows whose first seed is `seed` (a
     rank's share under data parallelism): each SDE step's noise, drawn from
-    that seed or injected, is the whole request's, and these rows are kept."""
+    that seed or injected, is the whole request's, and these rows are kept.
+    Under a mesh (`shards`) the decoder runs on this rank's tp shard and,
+    where the length divides by sp·patch_size, on its slice of the latent
+    frames: the noise, the source mix and the context are drawn or built
+    whole and sliced, and the final latents are gathered whole again."""
     if infer_method not in ("ode", "sde"):
         raise ValueError(f"infer_method must be 'ode' or 'sde', not {infer_method!r}")
     if cfg.model_version == "turbo" and infer_steps is None:
@@ -734,13 +818,17 @@ def generate_audio(
     if noise is None:
         noise = prepare_noise((b, t, d), seeds, src_latents.dtype, src_latents.device)
     noise = noise.to(device=src_latents.device, dtype=src_latents.dtype)
+    if shards is not None:
+        shards = shards.for_length(t, cfg.patch_size)
+    split = shards is not None and shards.sp > 1
+    frames = shards.frames(t) if split else slice(0, t)
 
     if cover_noise_strength > 0.0:
         nearest = min(schedule, key=lambda v: abs(v - (1.0 - cover_noise_strength)))
         schedule = schedule[schedule.index(nearest):]
-        xt = nearest * noise + (1.0 - nearest) * src_latents
+        xt = nearest * noise[:, frames] + (1.0 - nearest) * src_latents[:, frames]
     else:
-        xt = noise
+        xt = noise[:, frames]
 
     num_steps = len(schedule)
     segments = [(0, num_steps, enc, enc_mask, context_latents)]
@@ -776,17 +864,19 @@ def generate_audio(
         if infer_method == "sde":
             first, stop, batch, seed = sde_rows or (0, b, b, seeds[0])
             if sde_noise is not None:
-                step_noise = lambda i, s0=s0: sde_noise[s0 + i][first:stop]
+                step_noise = lambda i, s0=s0: sde_noise[s0 + i][first:stop, frames]
             else:
                 gen = torch.Generator(device=xt.device).manual_seed(_sde_seed(seed, s0))
-                step_noise = lambda i, gen=gen, shape=(batch, *xt.shape[1:]), dev=xt.device: torch.randn(
-                    shape, generator=gen, dtype=torch.float32, device=dev)[first:stop]
-        xt = denoise(dec, cfg, xt, schedule[s0:s1], seg_ctx, kvs, seg_mask, attention_mask,
+                step_noise = lambda i, gen=gen, shape=(batch, t, d), dev=xt.device: torch.randn(
+                    shape, generator=gen, dtype=torch.float32, device=dev)[first:stop, frames]
+        xt = denoise(dec, cfg, xt, schedule[s0:s1], seg_ctx[:, frames], kvs, seg_mask, attention_mask,
                      t_after=schedule[s1] if s1 < num_steps else 0.0,
                      null_cross_kvs=null_kvs, null_encoder_mask=seg_mask if use_cfg else None,
                      infer_method=infer_method, guidance_scale=guidance_scale, use_adg=use_adg,
                      cfg_interval_start=cfg_interval_start, cfg_interval_end=cfg_interval_end,
-                     sde_noise=step_noise)
+                     sde_noise=step_noise, shards=shards)
+    if split:
+        xt = shards.sp_gather(xt)
     out = {"target_latents": xt, "num_steps": num_steps}
     if return_condition:
         out["condition"] = {

@@ -3,10 +3,14 @@
 Port of `acestep_tpu/ops/basic.py`. A linear layer is a dict
 ``{"kernel": (in, out)[, "bias": (out,)]}`` applied as ``x @ kernel``, the
 JAX package's layout. RMSNorm statistics are float32, the output is cast back
-to the input dtype.
+to the input dtype. Under tensor parallelism a rowwise layer (o_proj,
+down_proj) holds this rank's input rows, and `linear_rowwise` sums its fp32
+partials over the ranks before the one rounding.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +45,21 @@ def linear(params, x: torch.Tensor) -> torch.Tensor:
     if bias is None:
         return torch.matmul(x, params["kernel"].to(x.dtype))
     return (matmul_f32(x, params["kernel"]) + bias.float()).to(x.dtype)
+
+
+def linear_rowwise(params, x: torch.Tensor, tp_sum: Optional[Callable] = None) -> torch.Tensor:
+    """`linear` of a rowwise tensor-parallel shard: the local product in
+    fp32, summed in fp32 over the tp ranks by `tp_sum` (in place), the bias
+    added once and the sum rounded once to x's dtype: the single device's
+    one rounding point (bf16 partials are never summed). Without `tp_sum`,
+    `linear`."""
+    if tp_sum is None:
+        return linear(params, x)
+    y = tp_sum(matmul_f32(x, params["kernel"]))
+    bias = params.get("bias")
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
 
 
 def rms_norm(weight: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -80,8 +99,10 @@ def sin2_f32(u: torch.Tensor) -> torch.Tensor:
     return 0.5 - 0.5 * c
 
 
-def mlp_swiglu(params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP: down(silu(gate(x)) * up(x)) — Qwen3MLP semantics."""
+def mlp_swiglu(params, x: torch.Tensor, tp_sum: Optional[Callable] = None) -> torch.Tensor:
+    """SwiGLU MLP: down(silu(gate(x)) * up(x)) — Qwen3MLP semantics. Under
+    tensor parallelism gate and up hold local features and `tp_sum` sums
+    down's partials (`linear_rowwise`)."""
     g = linear(params["gate_proj"], x)
     u = linear(params["up_proj"], x)
-    return linear(params["down_proj"], F.silu(g) * u)
+    return linear_rowwise(params["down_proj"], F.silu(g) * u, tp_sum)

@@ -5,9 +5,11 @@ from acestep_tpu_torch.parallel.mesh import (
     launch,
     make_mesh,
     rank_device,
-    refuse_sp_tp,
     shard_batch,
     shard_params_dp,
+    shard_params_tp,
 )
+from acestep_tpu_torch.parallel.tensor import Shards
 
-__all__ = ["Mesh", "launch", "make_mesh", "rank_device", "refuse_sp_tp", "shard_batch", "shard_params_dp"]
+__all__ = ["Mesh", "Shards", "launch", "make_mesh", "rank_device", "shard_batch", "shard_params_dp",
+           "shard_params_tp"]

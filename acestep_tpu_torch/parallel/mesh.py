@@ -1,20 +1,30 @@
 """The (dp, sp, tp) mesh on `torch.distributed`: the port of
-`acestep_tpu/parallel/mesh.py` (`make_mesh`, `shard_batch`, `shard_params_dp`).
+`acestep_tpu/parallel/mesh.py` (`make_mesh`, `shard_batch`, `shard_params_dp`,
+the tensor-parallel plan `_tp_spec_for` and `shard_params_tp`).
 
-JAX lays the mesh over the devices of one process and lets XLA move the data
-between them. The port runs one process a rank, and a rank's coordinate on
+JAX lays the mesh over the devices of one process and lets XLA insert the
+collectives. The port runs one process a rank, and a rank's coordinate on
 each axis follows its rank as JAX's devices follow their index
 (`np.arange(world).reshape(dp, sp, tp)`).
 
-Data parallelism needs no device collective. Every rank holds the same
-weights (`shard_params_dp` checks a digest of every leaf across the ranks),
-takes its contiguous rows of a batch (`shard_batch`), and what ranks
-exchange are host objects on gloo groups: rank 0's commands
-(`Mesh.send_command` / `receive_command`) and each rank's rows of a result
-(`Mesh.gather`). Every exchange runs under the mesh's `timeout`, except a
-follower's wait for rank 0's next command: a server's followers wait between
-requests for as long as it stays up, and a rank 0 that exits closes its
-connections, which ends the wait.
+Host exchanges run on gloo groups: rank 0's commands (`Mesh.send_command` /
+`receive_command`), each rank's result (`Mesh.gather`), and the digest of
+every weight that `shard_params_dp` compares across the ranks. Every
+exchange runs under the mesh's `timeout`, except a follower's wait for rank
+0's next command: a server's followers wait between requests for as long as
+it stays up, and a rank 0 that exits closes its connections, which ends the
+wait.
+
+The port's kernels take local tensors, so every collective of sequence and
+tensor parallelism is written out, on the device groups: the tp group (the
+ranks that share dp and sp) sums a rowwise product's fp32 partials
+(`reduce_sum`), and the sp group (the ranks that share dp and tp) gathers
+rows along the latent-time axis (`gather_tensors`). Their backend follows one
+rule (`device_backend`): NCCL when every rank has a card of its own, gloo
+otherwise (on the CPU, and when ranks share a card: NCCL refuses two ranks of
+one communicator on one card). Over gloo a CUDA tensor is staged through
+pinned host memory. Each rank counts its device collectives and the host
+clock spent in them (`Mesh.collective_s`).
 
 `launch(fn, nprocs, *args)` runs `fn(*args)` on `nprocs` ranks: it spawns
 them itself (`torch.multiprocessing`, a `file://` rendezvous in a temporary
@@ -22,11 +32,6 @@ directory) when this process belongs to no group, or joins the group that
 torchrun describes (`RANK`, `WORLD_SIZE`, `MASTER_ADDR`, `MASTER_PORT`).
 `rank_device` gives a rank its device, `cuda:{local_rank % device_count}`,
 so two ranks may share one card.
-
-Not ported yet (ROADMAP A.11b): sequence and tensor parallelism, with the
-tensor-parallel plan (`_tp_spec_for`, `shard_params_tp`). Their collectives
-run on the device, and the port's kernels take local tensors, so each has to
-be written out; `refuse_sp_tp` says so.
 """
 
 from __future__ import annotations
@@ -35,7 +40,9 @@ import datetime
 import hashlib
 import os
 import pickle
+import re
 import signal
+import socket
 import tempfile
 import threading
 import time
@@ -52,28 +59,48 @@ _IDLE_TIMEOUT = datetime.timedelta(days=365)
 _AXES = ("dp", "sp", "tp")
 
 
-def refuse_sp_tp(sp: int, tp: int) -> None:
-    """Raise while sequence or tensor parallelism is asked for: only dp is ported."""
-    if sp > 1 or tp > 1:
-        raise ValueError(
-            f"sp={sp}, tp={tp}: sequence and tensor parallelism are not ported yet "
-            "(ROADMAP A.11b); only data parallelism (dp) runs"
-        )
+
+
+def device_backend(places: List[tuple]) -> str:
+    """The device groups' backend from every rank's (host, device): NCCL
+    when each rank has a card of its own (and torch has NCCL), gloo
+    otherwise."""
+    own_cards = all(dev.startswith("cuda") for _, dev in places) and len(set(places)) == len(places)
+    return "nccl" if own_cards and dist.is_nccl_available() else "gloo"
 
 
 class Mesh:
     """This rank's place in a (dp, sp, tp) mesh over the ranks of the
-    default process group, with the gloo groups its exchanges run on."""
+    default process group, with the gloo groups of its host exchanges and
+    the device groups of its tp and sp axes (those above 1)."""
 
-    def __init__(self, dp: int, sp: int, tp: int, timeout: float):
+    def __init__(self, dp: int, sp: int, tp: int, timeout: float, device: Optional[torch.device] = None):
         self.shape: Dict[str, int] = {"dp": dp, "sp": sp, "tp": tp}
         self.rank = dist.get_rank()
         self.size = dp * sp * tp
         self.coord: Dict[str, int] = dict(zip(_AXES, (int(c) for c in np.unravel_index(self.rank, (dp, sp, tp)))))
         self.timeout = timeout
-        # Every rank creates both groups, in the same order (a collective call).
-        self.group = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=timeout))
+        self.device = torch.device("cpu" if device is None else device)
+        # Every rank creates every group, in the same order (a collective call).
+        delta = datetime.timedelta(seconds=timeout)
+        self.group = dist.new_group(backend="gloo", timeout=delta)
         self.command_group = dist.new_group(backend="gloo", timeout=_IDLE_TIMEOUT)
+        place = (socket.gethostname(), str(self.device) if self.device.type == "cpu" else
+                 f"cuda:{self.device.index if self.device.index is not None else torch.cuda.current_device()}")
+        self.backend = device_backend(self.all_gather(place))
+        grid = np.arange(self.size).reshape(dp, sp, tp)
+        self._groups: Dict[str, Any] = {}
+        lines = {"tp": [grid[d, s, :] for d in range(dp) for s in range(sp)],
+                 "sp": [grid[d, :, t] for d in range(dp) for t in range(tp)]}
+        for axis, ranks_of in lines.items():
+            if self.shape[axis] <= 1:
+                continue
+            for ranks in ranks_of:
+                g = dist.new_group([int(r) for r in ranks], backend=self.backend, timeout=delta)
+                if self.rank in ranks:
+                    self._groups[axis] = g
+        self.collective_s = 0.0  # host clock in device collectives
+        self.collectives = 0
 
     @property
     def is_leader(self) -> bool:
@@ -109,10 +136,49 @@ class Mesh:
         dist.all_gather_object(out, obj, group=self.group)
         return out
 
+    def _staged(self, x: torch.Tensor) -> torch.Tensor:
+        """x where the device group takes it: a pinned host copy of a CUDA
+        tensor under gloo."""
+        if self.backend == "nccl" or x.device.type == "cpu":
+            return x.contiguous()
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x)
+        return host
 
-def make_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1, *, timeout: float = DEFAULT_TIMEOUT_S) -> Mesh:
+    def reduce_sum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """x summed over the ranks of this rank's `axis` line, in x's dtype
+        (the callers pass fp32), into x."""
+        t0 = time.time()
+        buf = self._staged(x)
+        dist.all_reduce(buf, group=self._groups[axis])
+        if buf is not x:
+            x.copy_(buf)
+        self.collective_s += time.time() - t0
+        self.collectives += 1
+        return x
+
+    def gather_tensors(self, x: torch.Tensor, axis: str) -> List[torch.Tensor]:
+        """Every rank's x along this rank's `axis` line, in coordinate order,
+        on x's device."""
+        t0 = time.time()
+        buf = self._staged(x)
+        pinned = buf.is_pinned() and buf is not x
+        out = [torch.empty(buf.shape, dtype=buf.dtype, device=buf.device, pin_memory=pinned)
+               for _ in range(self.shape[axis])]
+        dist.all_gather(out, buf, group=self._groups[axis])
+        if out[0].device != x.device:
+            out = [o.to(x.device) for o in out]
+        self.collective_s += time.time() - t0
+        self.collectives += 1
+        return out
+
+
+def make_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1, *, timeout: float = DEFAULT_TIMEOUT_S,
+              device=None) -> Mesh:
     """A (dp, sp, tp) mesh over the ranks of the default process group; dp
-    defaults to world_size // (sp·tp). Every rank calls it."""
+    defaults to world_size // (sp·tp). `device` is this rank's (the CPU by
+    default): the device groups' backend follows every rank's. Every rank
+    calls it."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: run under mesh.launch or torchrun")
     n = dist.get_world_size()
@@ -120,7 +186,7 @@ def make_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1, *, timeout: fl
         dp = n // (tp * sp)
     if dp * tp * sp != n:
         raise ValueError(f"dp({dp}) * sp({sp}) * tp({tp}) != devices({n})")
-    return Mesh(dp, sp, tp, timeout)
+    return Mesh(dp, sp, tp, timeout, device)
 
 
 def _tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
@@ -185,6 +251,81 @@ def shard_params_dp(mesh: Mesh, params: Any) -> Any:
                 raise ValueError(f"weights differ across ranks: leaf {path!r} of rank {r} is not rank 0's")
         raise ValueError(f"weights differ across ranks: rank {r} holds other leaves than rank 0")
     return params
+
+
+# The tensor-parallel plan of the reference's base_model_tp_plan, as in JAX:
+# colwise splits the output features (a kernel's last axis, and the bias),
+# rowwise the input features (axis 0). A 3-D kernel (stacked layers) shifts
+# the plan one axis right. Specs are tuples of axis names, as JAX's P().
+_TP_COLWISE = re.compile(r"(q_proj|k_proj|v_proj|gate_proj|up_proj)$")
+_TP_ROWWISE = re.compile(r"(o_proj|down_proj)$")
+
+
+def _tp_spec_for(path: str, ndim: int) -> tuple:
+    """The tp spec of the leaf at `path` ("/a/b/kernel"): where "tp" stands,
+    that axis splits; () is whole."""
+    parts = path.split("/")
+    owner = parts[-2] if len(parts) >= 2 else ""
+    leaf = parts[-1]
+    if leaf == "kernel" and ndim in (2, 3):
+        lead = (None,) * (ndim - 2)
+        if _TP_COLWISE.search(owner):
+            return (*lead, None, "tp")
+        if _TP_ROWWISE.search(owner):
+            return (*lead, "tp", None)
+    if leaf == "bias" and ndim in (1, 2) and _TP_COLWISE.search(owner):
+        return (*((None,) * (ndim - 1)), "tp")
+    return ()
+
+
+def tp_slice(x: torch.Tensor, spec: tuple, index: int, count: int) -> torch.Tensor:
+    """Part `index` of `count` of x along the axis where `spec` says "tp",
+    as a tensor of its own (the whole one can be freed); x itself when the
+    spec is whole."""
+    if "tp" not in spec or count == 1:
+        return x
+    axis = spec.index("tp")
+    n = x.shape[axis]
+    if n % count:
+        raise ValueError(f"axis {axis} of {n} does not divide by tp = {count}")
+    return x.narrow(axis, index * (n // count), n // count).clone()
+
+
+def shard_params_tp(mesh: Mesh, params: Any) -> Any:
+    """This rank's slice of every leaf of `params` by the tp plan
+    (`_tp_spec_for` of its path), by its tp coordinate."""
+    index, count = mesh.coord["tp"], mesh.shape["tp"]
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, f"{path}/{i}") for i, v in enumerate(tree))
+        if not isinstance(tree, torch.Tensor):
+            return tree
+        return tp_slice(tree, _tp_spec_for(path, tree.ndim), index, count)
+
+    return walk(params, "")
+
+
+def unshard_params_tp(mesh: Mesh, params: Any) -> Any:
+    """The whole tree from every tp rank's `shard_params_tp` slice of it:
+    each split leaf gathered over this rank's tp line (every rank of the
+    line calls it, in the same order)."""
+    if mesh.shape["tp"] == 1:
+        return params
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, f"{path}/{i}") for i, v in enumerate(tree))
+        spec = _tp_spec_for(path, tree.ndim) if isinstance(tree, torch.Tensor) else ()
+        if "tp" not in spec:
+            return tree
+        return torch.cat(mesh.gather_tensors(tree, "tp"), dim=spec.index("tp"))
+
+    return walk(params, "")
 
 
 def rank_device(device: Optional[str] = None) -> torch.device:

@@ -34,20 +34,27 @@ post-pass (`get_lyric_timestamps`) re-runs one decoder step with the
 cross-attention captured and aligns it to the lyric tokens: LRC text, token
 and sentence stamps and a lyric-quality score.
 
-Data parallelism (`enable_mesh`, `enable_data_parallel`; JAX's mesh methods)
-runs one handler a rank, each holding the same weights. Rank 0 takes the
-requests: its `generate_music` sends the request to the other ranks, which
-wait in `serve_followers`, and every rank computes its rows of the DiT and
-the decode (`parallel.mesh.shard_batch`), then rank 0 gathers them in row
-order. The host-side preparation and the text encoder cover the whole
-batch on every rank; seeds, references, hints and the SDE noise follow
-their rows. Each rank decodes its rows in the chunks of the whole request,
-so a request's PCM does not depend on dp; as in JAX's mesh branch, the
-decode is not deferred across requests and a `chunk_sink` gets the whole
-PCM once. A batch that does not divide by dp runs on rank 0 alone.
-LoRA changes and a reload reach every rank the same way; the planner, the
-lyric post-pass, the scorers and training run on rank 0 alone. Sequence and
-tensor parallelism refuse (ROADMAP A.11b).
+The mesh (`enable_mesh`, `enable_data_parallel`, `enable_sequence_parallel`;
+JAX's mesh methods) runs one handler a rank over dp x sp x tp ranks. Rank 0
+takes the requests: its `generate_music` sends the request to the other
+ranks, which wait in `serve_followers`. The ranks of one dp group (the same
+dp coordinate) compute the same rows of the batch (`parallel.mesh.shard_batch`);
+a batch that does not divide by dp runs on dp group 0. Within a group the
+DiT is split (`parallel.tensor.Shards`): over tp each rank holds its slice
+of the decoder's attention and MLP kernels (`shard_params_tp`, after the
+digest check of the whole weights), over sp its slice of the latent frames;
+the condition encoders, the tokenizer chain, the text encoder and the VAE
+stay whole on every rank. The group's representative (sp = 0, tp = 0)
+decodes the gathered latents, and rank 0 gathers the representatives' rows
+in row order. The host-side preparation and the text encoder cover the
+whole batch on every rank; seeds, references, hints and the SDE noise follow
+their rows. Each representative decodes its rows in the chunks of the whole
+request, so a request's PCM does not depend on dp; as in JAX's mesh branch,
+the decode is not deferred across requests and a `chunk_sink` gets the whole
+PCM once. LoRA changes and a reload reach every rank the same way, and the
+lyric capture runs on dp group 0's first tp line (tp-sharded, the whole
+sequence); the planner, the lyric alignment, the scorers and training run on
+rank 0 alone, training on the decoder gathered whole (`training_params`).
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from acestep_tpu_torch.config import (
@@ -79,7 +87,16 @@ from acestep_tpu_torch.config import (
 from acestep_tpu_torch.device import resolve_device
 from acestep_tpu_torch.models import dit, qwen3, vae
 from acestep_tpu_torch.lm.constrained import _encode
-from acestep_tpu_torch.parallel.mesh import DEFAULT_TIMEOUT_S, Mesh, make_mesh, refuse_sp_tp, shard_batch, shard_params_dp
+from acestep_tpu_torch.parallel.mesh import (
+    DEFAULT_TIMEOUT_S,
+    Mesh,
+    make_mesh,
+    shard_batch,
+    shard_params_dp,
+    shard_params_tp,
+    unshard_params_tp,
+)
+from acestep_tpu_torch.parallel.tensor import Shards
 from acestep_tpu_torch.params import (
     convert_torch_state_dict,
     init_acestep_params,
@@ -99,6 +116,8 @@ TEXT_BUCKETS = (64, 128, 256)
 LYRIC_BUCKETS = (64, 128, 256, 512, 1024, 2048)
 DECODE_OVERLAP = 16  # latent frames on each side of a decode chunk
 AUDIO_CODE_RE = re.compile(r"<\|audio_code_(\d+)\|>")
+# Mesh ops that change no rank's model: one that fails on some ranks leaves them in step.
+_READ_ONLY_OPS = ("generate_music", "capture_lyric_attention", "gather_decoder")
 
 
 class StreamCursor:
@@ -845,41 +864,86 @@ class AceStepHandler:
         return np.stack(packed), np.asarray(order, np.int32), max_count
 
     # ------------------------------------------------------------------
-    # Data parallelism over ranks (JAX handler.py:886-957)
+    # The mesh over ranks (JAX handler.py:886-957)
     # ------------------------------------------------------------------
 
     def enable_mesh(self, dp: int = 1, sp: int = 1, tp: int = 1, *, timeout: float = DEFAULT_TIMEOUT_S) -> None:
         """Build one dp x sp x tp mesh over the ranks and shard the serving
-        path over it; every rank calls it. Nothing at 1 x 1 x 1; sp or tp
-        above 1 raises (ROADMAP A.11b)."""
+        path over it; every rank calls it. Nothing at 1 x 1 x 1. A shape the
+        model cannot take raises on every rank before the mesh is built
+        (`check_mesh_shape`)."""
         if dp * sp * tp <= 1:
             return
-        refuse_sp_tp(sp, tp)
-        self.enable_data_parallel(make_mesh(dp=dp, sp=sp, tp=tp, timeout=timeout))
+        self.check_mesh_shape(sp, tp)  # before make_mesh, whose groups every rank must enter
+        self.mesh = make_mesh(dp=dp, sp=sp, tp=tp, timeout=timeout, device=self.device)
+        self._replicate()
 
     def enable_data_parallel(self, mesh: Optional[Mesh] = None) -> None:
         """Split request batches over the mesh's dp axis (by default every
-        rank's): the weights stay whole on every rank, checked equal across
-        them (`shard_params_dp`)."""
-        mesh = mesh if mesh is not None else make_mesh(tp=1)
-        refuse_sp_tp(mesh.shape["sp"], mesh.shape["tp"])
+        rank's), and over its sp and tp axes as `enable_mesh` does."""
+        self._use_mesh(mesh if mesh is not None else make_mesh(tp=1, device=self.device))
+
+    def enable_sequence_parallel(self, mesh: Optional[Mesh] = None, sp: Optional[int] = None) -> None:
+        """Split the DiT's latent-time axis over the mesh's sp axis (by
+        default every rank's), composed with its dp and tp axes; the mesh
+        needs sp above 1. JAX replicates the weights here even on a tp axis;
+        the port slices the decoder by the tp plan on any mesh with tp above
+        1 (the same numbers, less memory)."""
+        if mesh is None:
+            if not dist.is_initialized():
+                raise RuntimeError("enable_sequence_parallel needs a process group: run under mesh.launch")
+            mesh = make_mesh(sp=sp or dist.get_world_size(), device=self.device)
+        if mesh.shape["sp"] <= 1:
+            raise ValueError(f"the mesh {mesh.shape} needs an sp axis above 1")
+        self._use_mesh(mesh)
+
+    def check_mesh_shape(self, sp: int, tp: int) -> None:
+        """Raise ValueError for a tp that does not divide the DiT's attention
+        heads, key-value heads and MLP width, and for an sp that splits no
+        latent bucket (no bucket divides by sp·patch_size)."""
+        cfg = self.config
+        for name in ("num_attention_heads", "num_key_value_heads", "intermediate_size"):
+            if getattr(cfg, name) % tp:
+                raise ValueError(f"tp={tp} does not divide the DiT's {name} ({getattr(cfg, name)})")
+        if sp > 1 and not any(t % (sp * cfg.patch_size) == 0 for t in LATENT_BUCKETS):
+            raise ValueError(f"sp={sp}: no latent bucket of {LATENT_BUCKETS} divides by sp * patch_size "
+                             f"({sp * cfg.patch_size}), so no request could split over it")
+
+    def _use_mesh(self, mesh: Mesh) -> None:
+        self.check_mesh_shape(mesh.shape["sp"], mesh.shape["tp"])
         self.mesh = mesh
         self._replicate()
 
     def _replicate(self) -> None:
-        """Check that every rank holds the same DiT, VAE and text weights; a
-        rank that does not is no longer initialised."""
+        """Check that every rank holds the same DiT, VAE and text weights,
+        whole; a rank that does not is no longer initialised. Then, on a tp
+        axis above 1, keep this rank's slice of the decoder (the tp plan);
+        the rest stays whole."""
         try:
             for tree in (self.params, self.vae_params, self.text_params):
                 shard_params_dp(self.mesh, tree)
         except ValueError:
             self.initialized = False
             raise
+        if self.mesh.shape["tp"] > 1:
+            self.lora.invalidate_cache()
+            self.params = {**self.params, "decoder": shard_params_tp(self.mesh, self.params["decoder"])}
+            self.lora.tp = (self.mesh.coord["tp"], self.mesh.shape["tp"])
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()  # the whole decoder's blocks, for the ranks that share the card
+
+    def training_params(self) -> Dict[str, Any]:
+        """The weights a trainer takes on rank 0: `params`, with the decoder
+        gathered whole from the tp ranks under a mesh whose tp axis is above
+        1 (a copy the trainer holds for its run)."""
+        if self.mesh is None or self.mesh.shape["tp"] == 1:
+            return self.params
+        return {**self.params, "decoder": self._lead("gather_decoder", {})[0]}
 
     def _shard_batch_array(self, x):
         """This rank's rows of a batch-leading array under a mesh (the whole
-        array when its batch does not divide by dp, or without a mesh). JAX's
-        also shards a latent-time axis over sp, which waits for A.11b."""
+        array when its batch does not divide by dp, or without a mesh). The
+        latent-time axis is split inside `dit.generate_audio`."""
         if self.mesh is None:
             return x
         return shard_batch(self.mesh, x)
@@ -904,6 +968,15 @@ class AceStepHandler:
         """`op` on this rank alone."""
         if op == "generate_music":
             return self.generate_music(**kwargs, _shard=True)
+        if op == "gather_decoder":
+            whole = unshard_params_tp(self.mesh, self.params["decoder"])
+            return whole if self.mesh.is_leader else None
+        if op == "capture_lyric_attention":
+            # dp group 0's first tp line computes; rank 0 alone returns the maps.
+            if self.mesh.coord["dp"] or self.mesh.coord["sp"]:
+                return None
+            out = self._capture_lyric_attention(**kwargs, shards=Shards(self.mesh, split_time=False))
+            return out if self.mesh.is_leader else None
         return {
             "load_lora": self.lora.load,
             "unload_lora": self.lora.unload,
@@ -947,7 +1020,7 @@ class AceStepHandler:
                 print(f"rank {self.mesh.rank}: {op} failed\n{report}", file=sys.stderr, flush=True)
             return None
         failed = [r for r, (rep, _) in enumerate(outcomes) if rep is not None]
-        if op != "generate_music" and 0 < len(failed) < len(outcomes):
+        if op not in _READ_ONLY_OPS and 0 < len(failed) < len(outcomes):
             self._out_of_step = (f"{op} failed on ranks {failed} and not on the others, so the ranks no "
                                  "longer hold the same model: restart them")
         if error is not None:
@@ -958,11 +1031,12 @@ class AceStepHandler:
 
     def _lead_generate(self, request: Dict[str, Any]) -> Dict[str, Any]:
         """Rank 0's `generate_music` under a mesh. The seeds are fixed here,
-        so every rank draws the same ones; each rank computes its rows and
-        returns them as int16 PCM, gathered here in row order. A batch that
-        does not divide by dp runs here alone. Then, as JAX's mesh branch:
-        the whole PCM to `chunk_sink` once, the float conversion, and with
-        `async_finish` both deferred to `finish`. `time_costs` are rank 0's."""
+        so every rank draws the same ones; each dp group computes its rows,
+        and its representative (sp = 0, tp = 0) returns them as int16 PCM,
+        gathered here in row order. A batch that does not divide by dp runs
+        on dp group 0. Then, as JAX's mesh branch: the whole PCM to
+        `chunk_sink` once, the float conversion, and with `async_finish`
+        both deferred to `finish`. `time_costs` are rank 0's."""
         t_start = time.time()
         if self._out_of_step is not None:
             raise RuntimeError(self._out_of_step)
@@ -971,11 +1045,12 @@ class AceStepHandler:
         seeds, _ = self.prepare_seeds(b, request["seeds"], request["use_random_seed"] and request["seeds"] is None)
         sink, int16, deferred = request["chunk_sink"], request["return_int16"], request["async_finish"]
         request.update(seeds=seeds, use_random_seed=False, chunk_sink=None, return_int16=True, async_finish=False)
-        if b % self.mesh.shape["dp"]:
-            result = self.generate_music(**request, _shard=True)
-        else:
-            parts = self._lead("generate_music", request)
-            result = parts[0]
+        group = self.mesh.shape["sp"] * self.mesh.shape["tp"]
+        groups = 1 if b % self.mesh.shape["dp"] else self.mesh.shape["dp"]
+        every = self._lead("generate_music", request)
+        parts = [every[g * group] for g in range(groups)]
+        result = parts[0]
+        if groups > 1:
             for key in ("latents", "audios"):
                 if key in result:
                     result[key] = np.concatenate([p[key] for p in parts])
@@ -1033,7 +1108,6 @@ class AceStepHandler:
         )
         return self.align_lyrics(captured, lyrics_text, total_duration_seconds)
 
-    @torch.inference_mode()
     def capture_lyric_attention(
         self,
         pred_latents: np.ndarray,
@@ -1052,9 +1126,9 @@ class AceStepHandler:
         capture forward on the base decoder (as in the JAX handler, not the
         LoRA-adapted one), and the configured heads' maps cut to the lyric
         rows. Returns {"attn": (n_maps, n_lyric, L_audio) float32, "ids":
-        the lyric token ids} or, with no map, {"attn": None}."""
-        cfgmap = custom_layers_config or self.custom_layers_config
-        t_last = 1.0 / max(inference_steps, 1)
+        the lyric token ids} or, with no map, {"attn": None}. Under a mesh
+        rank 0 sends the row to every rank, and the capture runs tp-sharded
+        on dp group 0's first tp line."""
         i = sample_idx
         pred_latents = pred_latents[i : i + 1]
         condition = {
@@ -1067,7 +1141,20 @@ class AceStepHandler:
                 # Each row keeps its own lyric length: pad ids at the tail
                 # would shift the attention rows cut below.
                 lyric_token_ids = lyric_token_ids[:, : int(np.asarray(lyric_mask[i]).sum())]
-        xt_np = pred_latents[:1]
+        kwargs = dict(pred_latents=pred_latents[:1], condition={k: condition[k] for k in (
+            "context_latents", "encoder_hidden_states", "encoder_attention_mask")},
+            lyric_token_ids=lyric_token_ids, vocal_language=vocal_language, inference_steps=inference_steps,
+            seed=seed, cfgmap=custom_layers_config or self.custom_layers_config)
+        if self.mesh is None:
+            return self._capture_lyric_attention(**kwargs)
+        return self._lead("capture_lyric_attention", kwargs)[0]
+
+    @torch.inference_mode()
+    def _capture_lyric_attention(self, pred_latents, condition, lyric_token_ids, *, vocal_language: str,
+                                 inference_steps: int, seed: int, cfgmap: Dict[int, List[int]],
+                                 shards: Optional[Shards] = None) -> Dict[str, Any]:
+        t_last = 1.0 / max(inference_steps, 1)
+        xt_np = pred_latents
         # The latents were cropped to the duration; pad back to the bucketed
         # context length for the capture forward.
         t_ctx = condition["context_latents"].shape[1]
@@ -1085,6 +1172,7 @@ class AceStepHandler:
             self._tensor(condition["encoder_hidden_states"][:1], self.dtype),
             self._tensor(condition["encoder_attention_mask"][:1]),
             sorted(cfgmap.keys()),
+            shards=shards,
         )
         maps = []
         for layer, heads in cfgmap.items():
@@ -1189,7 +1277,10 @@ class AceStepHandler:
         chunk by chunk (see `decode_latents`).
 
         Under a mesh rank 0 runs the request on every rank (`_lead_generate`);
-        `_shard` marks a rank's own share of it, which returns its rows."""
+        `_shard` marks a rank's own share of it, which returns its dp group's
+        rows on the group's representative (sp = 0, tp = 0) and None on the
+        other ranks, and on every rank outside dp group 0 for a batch that
+        does not divide by dp."""
         if not self.initialized:
             raise RuntimeError("call initialize_service() first")
         if self.mesh is not None and not _shard:
@@ -1202,6 +1293,8 @@ class AceStepHandler:
         captions = [captions] if isinstance(captions, str) else list(captions)
         lyrics = [lyrics] if isinstance(lyrics, str) else list(lyrics)
         b = batch_size or len(captions)
+        if self.mesh is not None and b % self.mesh.shape["dp"] and self.mesh.coord["dp"]:
+            return None  # the batch runs on dp group 0
         captions = (captions * b)[:b]
         lyrics = (lyrics * b)[:b]
         parsed_metas = self.parse_metas(metas, b)
@@ -1291,7 +1384,10 @@ class AceStepHandler:
             return_condition=return_condition,
             sde_noise=sde_noise,
             sde_rows=(rows.start, rows.stop, b, seed_list[0]),
+            shards=Shards(self.mesh) if self.mesh is not None else None,
         )
+        if self.mesh is not None and (self.mesh.coord["sp"] or self.mesh.coord["tp"]):
+            return None  # the group's representative decodes and answers
         pred = outputs["target_latents"]
         if latent_shift != 0.0 or latent_rescale != 1.0:
             pred = pred * latent_rescale + latent_shift

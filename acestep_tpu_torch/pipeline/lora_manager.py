@@ -11,15 +11,22 @@ kernel's dtype, times the scale in that dtype, added in that dtype). A layer
 the adapter lacks would add a zero delta there, which changes nothing, so it
 is left out. Paths outside ``layers/`` take the product in the factors'
 dtype, as in JAX.
+
+Under tensor parallelism (`LoRARegistry.tp`) the decoder holds this rank's
+slice of each kernel (`parallel.mesh.shard_params_tp`), and the factors are
+cut by the same plan: B's columns for a colwise target, A's rows for a
+rowwise one. Each element of A @ B is the same sum either way, so a merged
+shard equals the shard of the merged kernel.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from acestep_tpu_torch.parallel.mesh import _tp_spec_for, tp_slice
 from acestep_tpu_torch.training.lora import add_delta, get_path, set_path
 
 _LAYER_RE = re.compile(r"^layers/(\d+)/(.+)$")
@@ -32,15 +39,21 @@ def apply_lora_layers(
     alpha: float,
     rank: int,
     scale: float = 1.0,
+    tp: Tuple[int, int] = (0, 1),
 ) -> Dict[str, Any]:
     """The decoder with one adapter's factors applied (see the module
-    docstring for the rounding points)."""
+    docstring for the rounding points); `tp` = (index, count) cuts the
+    factors to the decoder's tensor-parallel slice."""
     s = scale * (alpha / rank)
     out = decoder_params
     for path, ab in lora.items():
         parts = path.split("/")
         kern = get_path(out, parts)
         a, b = ab["a"].to(kern.device), ab["b"].to(kern.device)
+        spec = _tp_spec_for("/" + path, 2)
+        if spec:  # (None, "tp"): B's columns; ("tp", None): A's rows
+            a = tp_slice(a, (spec[0], None), *tp)
+            b = tp_slice(b, (None, spec[1]), *tp)
         delta = a.float() @ b.float() if _LAYER_RE.match(path) else a @ b
         out = set_path(out, parts, add_delta(kern, delta, s))
     return out
@@ -52,6 +65,7 @@ class LoRARegistry:
 
     def __init__(self, device=None):
         self.device = device
+        self.tp: Tuple[int, int] = (0, 1)  # this rank's tensor-parallel (index, count)
         self._adapters: Dict[str, Dict[str, Any]] = {}
         self._dirty = True
         self._cache: Optional[Dict[str, Any]] = None
@@ -108,7 +122,7 @@ class LoRARegistry:
                 continue
             meta = a["meta"]
             out = apply_lora_layers(out, a["lora"], alpha=float(meta.get("alpha", 32.0)),
-                                    rank=int(meta.get("rank", 32)), scale=a["scale"])
+                                    rank=int(meta.get("rank", 32)), scale=a["scale"], tp=self.tp)
         self._cache = out
         self._dirty = False
         return out

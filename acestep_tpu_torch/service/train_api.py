@@ -8,9 +8,10 @@ the interactive explorer: scan or load labels, read and edit samples, save,
 auto-label, preprocess, the last two also as background tasks with status
 polling.
 
-The trainer takes `dit_handler.params` as they are: the port's decoder
-layers are already the per-layer list it trains, so the JAX package's
-`unstack_decoder_params` has no counterpart.
+The trainer takes `dit_handler.training_params()`, the weights as they are
+(under a tensor-parallel mesh with the whole decoder gathered from its tp
+ranks): the port's decoder layers are already the per-layer list it trains,
+so the JAX package's `unstack_decoder_params` has no counterpart.
 
 Which work holds `model_lock` (the server passes its own, the lock its job
 worker holds across each dispatch): the dataset work that runs the handlers
@@ -91,7 +92,7 @@ class TrainingService:
         def worker():
             try:
                 ds = PreprocessedDataset(dataset_dir)
-                trainer = LoRATrainer(self.dit_handler.params, self.dit_handler.config, lcfg, tcfg)
+                trainer = LoRATrainer(self.dit_handler.training_params(), self.dit_handler.config, lcfg, tcfg)
                 state["status"] = "running"
                 for step, loss, _msg in trainer.train(ds.batches(tcfg.batch_size)):
                     state["step"], state["loss"] = step, loss

@@ -17,7 +17,8 @@ Phases, each fatal on failure:
      data-sheet rates). Attention also at the 4B
      planner's prefill (causal + right-padded prompt, 2 x 1024 and 2 x 2048,
      32/8 heads) and at 1 x 7 500 DiT tokens (full, sliding w = 128, cross onto
-     769 padded keys); the narrow route of kernels 2 and 3 in bf16 and fp32
+     769 padded keys), whole and on one rank of dp1 x sp2 x tp2 (8/4 heads,
+     3 750 local queries, 4 006 halo'd sliding rows); the narrow route of kernels 2 and 3 in bf16 and fp32
      (the tiny checkpoint's 16-channel blocks, a 384 -> 192 block, the chain
      at 64 channels; in fp32 also the full-width chain and blocks 1-4 at the
      544-frame chunk, with the 3xTF32 bound; `run_narrow_phase`), then a
@@ -69,7 +70,14 @@ Phases, each fatal on failure:
      through the service and the handler, each rank's launches of kernels
      1-3, device and peak memory; rows within `DP_REL_L2_TOL` of the same
      requests at dp = 1 and `DP_SEPARATION` from other seeds; `cli generate
-     --dp 2` and `cli serve --dp 2` in subprocesses, no rank left);
+     --dp 2` and `cli serve --dp 2` in subprocesses, no rank left); then
+     sequence and tensor parallelism (`run_sequence_tensor_parallel`: four
+     ranks at dp1 x sp2 x tp2 on the one card, a 1 x 600 s request through
+     the service and the handler, each rank's kernel 1 launches, kernels 2
+     and 3 on the decoding rank, the device group's backend, collectives and
+     peak memory; rows within `SP_TP_REL_L2_TOL` of dp = 1 and
+     `SP_TP_SEPARATION` from another seed; `cli generate --sp 2 --tp 2`, no
+     rank left);
   6. requests with thinking on through `service.inference.generate_music` and
      the 4B planner (`LLMHandler(LM_CONFIGS["4B"])`), 1 x 60 s and 2 x 60 s
      after an untimed warm-up, and a profile of the planner's decode step;
@@ -104,7 +112,7 @@ Phases, each fatal on failure:
      `max_abs_err` their maximum, and `launches` the
      sum over the paths of phases 4 (checkpoint_tiny), 5 (text2music, audio
      inputs, base, serving, the serving phase's direct calls, lora, lrc, the
-     two data-parallel ranks), 6
+     two data-parallel ranks, the four sp / tp ranks), 6
      (thinking, free-form, scoring), 8 (training, the trained adapter
      served; the fp32 route's launches are `flash_attention_f32`'s), 7 and
      phase 3's fp32 decode (the Oobleck kernels' narrow-route calls also in
@@ -251,7 +259,11 @@ def attention_cases(dev, gen):
     encoder's causal 256-token bucket, the 4B planner's prefill buckets
     (32 q / 8 kv heads, causal plus a right-padded prompt mask) and the three
     DiT attention layers of a 600 s request (7 500 tokens): full, sliding
-    (w = 128) and cross onto the padded 769-key condition."""
+    (w = 128) and cross onto the padded 769-key condition; and the same
+    three on one rank of dp1 x sp2 x tp2 (8 / 4 heads): 3 750 local queries
+    against the 7 500 gathered keys, the sliding layer's 4 006 halo'd rows
+    (rank 0's: its first 128 rows lie before the sequence, masked), and the
+    cross-attention's local queries."""
 
     def qkv(b, lq, lk, nq=16, nkv=8):
         mk = lambda l, n: torch.randn((b, l, n, 128), generator=gen, device=dev).to(torch.bfloat16)
@@ -268,6 +280,8 @@ def attention_cases(dev, gen):
     enc_mask[1, 600:] = 0
     lat_mask = torch.ones((2, 750), dtype=torch.int32, device=dev)
     lat_600 = torch.ones((1, 7500), dtype=torch.int32, device=dev)
+    halo_600 = torch.ones((1, 3750 + 256), dtype=torch.int32, device=dev)
+    halo_600[:, :128] = 0
     return [
         ("dit_self_sliding_60s_b2", qkv(2, 750, 750), dict(kv_mask=lat_mask, window=128)),
         ("dit_self_full_60s_b2", qkv(2, 750, 750), dict(kv_mask=lat_mask)),
@@ -280,6 +294,9 @@ def attention_cases(dev, gen):
         ("dit_self_full_600s_b1", qkv(1, 7500, 7500), dict(kv_mask=lat_600)),
         ("dit_self_sliding_600s_b1", qkv(1, 7500, 7500), dict(kv_mask=lat_600, window=128)),
         ("dit_cross_600s_b1", qkv(1, 7500, 769), dict(kv_mask=enc_mask[:1])),
+        ("dit_self_full_600s_sp2tp2", qkv(1, 3750, 7500, 8, 4), dict(kv_mask=lat_600)),
+        ("dit_self_sliding_600s_sp2tp2", qkv(1, 4006, 4006, 8, 4), dict(kv_mask=halo_600, window=128)),
+        ("dit_cross_600s_sp2tp2", qkv(1, 3750, 769, 8, 4), dict(kv_mask=enc_mask[:1])),
     ]
 
 
@@ -1728,10 +1745,10 @@ def run_lrc(h):
     timings: dict = {"capture_s": [], "align_s": [], "dtw_s": []}
     kept: dict = {}
 
-    def capture_spy(*a):
+    def capture_spy(*a, **kw):
         torch.cuda.synchronize()
         t0 = time.time()
-        out = real_capture(*a)
+        out = real_capture(*a, **kw)
         torch.cuda.synchronize()
         timings["capture_s"].append(time.time() - t0)
         kept.setdefault("args", a)
@@ -2031,6 +2048,202 @@ def run_data_parallel(h, smi: str):
                           separation=DP_SEPARATION, rows_vs_dp1=checks, cli=cli)), flush=True)
     if not ok:
         raise SystemExit(f"data parallel: ranks {ranks_ok}, rows {rows_ok}, cli {cli_ok}")
+    return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+
+
+# Sequence and tensor parallelism on the card (`run_sequence_tensor_parallel`):
+# four ranks (dp1 x sp2 x tp2) share the one H100, so the phase proves the
+# path, not a speed-up. One 1 x 600 s request (7 500 patched tokens, 3 750 a
+# rank, 4 006 rows on the sliding layers with their halos) against the same
+# request at dp = 1 on the script's handler: tp sums each rowwise product's
+# fp32 partials before its one rounding, as one card's GEMM does, and kernel 1
+# runs at 8 / 4 heads on local queries; the bf16 sums differ in order only.
+# The tolerance is dp's (the latents and the PCM within 0.1), and the
+# distance to the same request at another seed must be SP_TP_SEPARATION times
+# the same-seed one.
+SP_TP_REL_L2_TOL = DP_REL_L2_TOL
+SP_TP_SEPARATION = DP_SEPARATION
+SP_TP_SEEDS = (81, 82)  # the request's seed; the other seed of the separation
+SP_TP_SECONDS = 600.0
+
+
+def _sp_tp_rank():
+    """One of the four ranks of `run_sequence_tensor_parallel`, spawned by
+    the port's launcher: the full-width handler (seed 0, bf16) on this rank's
+    card, `enable_mesh(dp=1, sp=2, tp=2)` (its digest check and the tp plan
+    timed), then rank 0 runs the 1 x 600 s request through the service and
+    through the handler while the others follow. Every rank reads its launch
+    counters, peak memory, device, the device group's backend and its
+    collectives (count, host clock); rank 0 returns them with the results."""
+    from acestep_tpu_torch.parallel.mesh import rank_device
+    from acestep_tpu_torch.pipeline.handler import AceStepHandler
+    from acestep_tpu_torch.service.inference import generate_music
+    from acestep_tpu_torch.service.params import GenerationConfig, GenerationParams
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the script's own process
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device()
+    t0 = time.time()
+    h = AceStepHandler(device=dev)
+    h.initialize_service(random_init=True, seed=0)
+    init_s = time.time() - t0
+    t0 = time.time()
+    h.enable_mesh(dp=1, sp=2, tp=2)
+    mesh_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counters()
+    h.mesh.collective_s, h.mesh.collectives = 0.0, 0
+    out = {}
+    if h.mesh.is_leader:
+        try:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            r = generate_music(h, None, GenerationParams(caption=CAPTION, lyrics=LYRICS, duration=SP_TP_SECONDS,
+                                                         thinking=False),
+                               GenerationConfig(batch_size=1, seeds=[SP_TP_SEEDS[0]]), save_audio=False)
+            out["service_s"] = time.time() - t0
+            if not r.success:
+                raise RuntimeError(f"sp = 2, tp = 2 service request failed: {r.error}")
+            out["service_pcm"] = np.stack([a["audio"] for a in r.audios])
+            out["time_costs"] = r.extra_outputs["time_costs"]
+            torch.cuda.synchronize()
+            t0 = time.time()
+            d = h.generate_music(CAPTION, LYRICS, batch_size=1, audio_duration=SP_TP_SECONDS,
+                                 seeds=[SP_TP_SEEDS[0]], use_random_seed=False, normalize_db=-1.0,
+                                 return_int16=True)
+            out["direct_s"] = time.time() - t0
+            out["latents"], out["pcm"] = d["latents"], d["audios"]
+        finally:
+            h.stop_followers()
+    else:
+        h.serve_followers()
+    counters = _counters()
+    dec = h.params["decoder"]["layers"][0]
+    mine = dict(device=str(dev), coord=h.mesh.coord, backend=h.mesh.backend, init_s=init_s, enable_mesh_s=mesh_s,
+                q_proj=list(dec["self_attn"]["q_proj"]["kernel"].shape),
+                down_proj=list(dec["mlp"]["down_proj"]["kernel"].shape),
+                collectives=h.mesh.collectives, collective_s=h.mesh.collective_s,
+                launches={k: fn.launches for k, fn in counters.items()},
+                narrow_launches={k: counters[k].narrow_launches for k in _OOBLECK},
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    mine["launches"]["flash_attention_f32"] = counters["flash_attention"].f32_launches
+    out["ranks"] = h.mesh.gather(mine)
+    return out
+
+
+def _sp_tp_cli(tmp: str) -> dict:
+    """`cli generate --sp 2 --tp 2` (1 x 30 s) in a subprocess: its wall,
+    exit code, file, mesh line, and whether any of its four ranks was left."""
+    from acestep_tpu_torch.utils import native_audio
+
+    out = {}
+    log_path = os.path.join(tmp, "generate.log")
+    t0 = time.time()
+    with open(log_path, "w") as log:
+        gen = subprocess.Popen([sys.executable, "-m", "acestep_tpu_torch.cli", "generate", "--random-init", "--sp",
+                                "2", "--tp", "2", "--duration", "30", "--seed", "5", "--caption", CAPTION,
+                                "--output-dir", os.path.join(tmp, "gen")],
+                               cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log, stderr=subprocess.STDOUT)
+    ranks: list = []
+    try:
+        while gen.poll() is None and time.time() - t0 < 300:
+            if len(ranks) < 4:
+                ranks = _spawned_ranks(gen.pid)
+            time.sleep(0.2)
+        if gen.poll() is None:
+            raise SystemExit(f"cli generate --sp 2 --tp 2 ran past 300 s:\n{open(log_path).read()[-3000:]}")
+    finally:
+        if gen.poll() is None:
+            gen.kill()
+            gen.wait()
+    out["generate_s"] = time.time() - t0
+    out["generate_exit_code"] = gen.returncode
+    gen_dir = os.path.join(tmp, "gen")
+    files = sorted(f for f in os.listdir(gen_dir) if f.endswith(".flac")) if os.path.isdir(gen_dir) else []
+    shapes = [native_audio.flac_decode(open(os.path.join(gen_dir, f), "rb").read())[0].shape for f in files]
+    out["generate_files_ok"] = shapes == [(2, 30 * 48000)]
+    out["generate_ranks"] = len(ranks)
+    out["generate_ranks_left"] = [p for p in ranks if os.path.exists(f"/proc/{p}")]
+    text = open(log_path).read()
+    out["generate_log"] = [ln for ln in text.splitlines() if ln.startswith(("initialized", "mesh enabled"))]
+    if gen.returncode:
+        out["generate_tail"] = text.splitlines()[-20:]
+    return out
+
+
+def run_sequence_tensor_parallel(h, smi: str):
+    """Sequence and tensor parallelism on the card: four ranks spawned
+    through the port's launcher (`parallel.mesh.launch`), all on the one
+    H100, each with the full-width handler (`_sp_tp_rank`) at dp1 x sp2 x
+    tp2; a 1 x 600 s text2music request through
+    `service.inference.generate_music`, and the same through the handler for
+    its latents. Each rank's device, coordinate, decoder slice, launches of
+    kernel 1 (> 0 on every rank), kernels 2 and 3 on the decoding rank 0 (and
+    none elsewhere), no narrow-route call, the device group's backend, peak
+    memory, and its collectives (count, host clock: over gloo a call
+    includes the wait for the slowest rank); the rows held against the same
+    request at dp = 1 on the script's handler `h` (SP_TP_REL_L2_TOL) and
+    SP_TP_SEPARATION from the request at another seed; then `cli generate
+    --sp 2 --tp 2` in a subprocess (`_sp_tp_cli`). Returns the four ranks'
+    launches summed."""
+    import shutil
+    import tempfile
+
+    from acestep_tpu_torch.parallel.mesh import launch
+    from acestep_tpu_torch.service.inference import generate_music
+    from acestep_tpu_torch.service.params import GenerationConfig, GenerationParams
+
+    torch.cuda.empty_cache()
+    if h.lora_status():
+        raise SystemExit(f"sp / tp: the dp = 1 handler still has adapters {h.lora_status()}")
+    t0 = time.time()
+    got = launch(_sp_tp_rank, 4, deadline_s=600.0)
+    launch_s = time.time() - t0
+    ranks = got["ranks"]
+    full_heads = h.config.num_attention_heads * h.config.head_dim
+    ranks_ok = (len(ranks) == 4 and all(r["device"] == "cuda:0" for r in ranks)
+                and [r["coord"] for r in ranks] == [dict(dp=0, sp=s, tp=t) for s in range(2) for t in range(2)]
+                and all(r["q_proj"] == [h.config.hidden_size, full_heads // 2] for r in ranks)
+                and all(r["launches"]["flash_attention"] > 0 and r["collectives"] > 0 for r in ranks)
+                and all((r["launches"][k] > 0) == (i == 0) for i, r in enumerate(ranks)
+                        for k in ("decoder_block", "res_units"))
+                and all(not any(r["narrow_launches"].values()) for r in ranks))
+
+    checks = {}
+    outs = []
+    for seed in SP_TP_SEEDS:
+        r1 = generate_music(h, None, GenerationParams(caption=CAPTION, lyrics=LYRICS, duration=SP_TP_SECONDS,
+                                                      thinking=False),
+                            GenerationConfig(batch_size=1, seeds=[seed]), save_audio=False)
+        if not r1.success:
+            raise SystemExit(f"sp / tp: the dp = 1 request failed: {r1.error}")
+        d1 = h.generate_music(CAPTION, LYRICS, batch_size=1, audio_duration=SP_TP_SECONDS, seeds=[seed],
+                              use_random_seed=False, normalize_db=-1.0, return_int16=True)
+        outs.append(dict(service_pcm=np.stack([x["audio"] for x in r1.audios]), latents=d1["latents"],
+                         pcm=d1["audios"]))
+    for name in ("service_pcm", "latents", "pcm"):
+        a = got[name]
+        finite = bool(np.isfinite(a.astype(np.float64)).all()) and a.shape == outs[0][name].shape
+        same = _rel_l2_rows(a, outs[0][name])[0][0] if finite else None
+        other = _rel_l2_rows(a, outs[1][name])[0][0] if finite else None
+        ok = finite and same <= SP_TP_REL_L2_TOL and other >= SP_TP_SEPARATION * same
+        checks[name] = dict(ok=ok, shape=list(a.shape), same_seed=same, other_seed=other)
+    rows_ok = all(c["ok"] for c in checks.values())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sp_tp_")
+    try:
+        cli = _sp_tp_cli(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cli_ok = (cli["generate_exit_code"] == 0 and cli["generate_files_ok"] and cli["generate_ranks"] == 4
+              and not cli["generate_ranks_left"])
+    ok = ranks_ok and rows_ok and cli_ok
+    print(json.dumps(dict(phase="sequence and tensor parallel dp1 x sp2 x tp2, four ranks on one card (proves the "
+                                "path, not a speed-up)", ok=ok, card=smi, launch_wall_s=launch_s, ranks=ranks,
+                          service_s=got["service_s"], direct_s=got["direct_s"], rank0_time_costs=got["time_costs"],
+                          tol=SP_TP_REL_L2_TOL, separation=SP_TP_SEPARATION, rows_vs_dp1=checks, cli=cli)),
+          flush=True)
+    if not ok:
+        raise SystemExit(f"sequence / tensor parallel: ranks {ranks_ok}, rows {rows_ok}, cli {cli_ok}")
     return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
 
 
@@ -3264,6 +3477,7 @@ def main() -> int:
     lora = _timed_phase(seconds, "run_lora", run_lora, dit)
     lrc = _timed_phase(seconds, "run_lrc", run_lrc, dit)
     data_parallel = _timed_phase(seconds, "run_data_parallel", run_data_parallel, dit, smi)
+    sp_tp = _timed_phase(seconds, "run_sequence_tensor_parallel", run_sequence_tensor_parallel, dit, smi)
     thinking, llm, codes = _timed_phase(seconds, "run_thinking_requests", run_thinking_requests, dev, dit)
     free_form = _timed_phase(seconds, "run_free_form", run_free_form, dit, llm, codes)
     scoring = _timed_phase(seconds, "run_scoring", run_scoring, dev, llm, codes)
@@ -3275,8 +3489,8 @@ def main() -> int:
     training, trained = _timed_phase(seconds, "run_lora_training", run_lora_training, dit, smi)
     del dit
     torch.cuda.empty_cache()
-    paths = (text2music, audio, base, serving, serving_direct, lora, lrc, data_parallel, thinking, free_form, scoring,
-             probe, checkpoint, fp32_decode, training, trained, *rest)
+    paths = (text2music, audio, base, serving, serving_direct, lora, lrc, data_parallel, sp_tp, thinking, free_form,
+             scoring, probe, checkpoint, fp32_decode, training, trained, *rest)
     launches = {k: sum(p[k] for p in paths) for k in text2music}
 
     narrow_src = "acestep_tpu_torch/csrc/oobleck_generic.cu"

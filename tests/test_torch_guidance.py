@@ -258,7 +258,7 @@ def _jax_stand_in(params, cfg, xt, t, t_r, context, kvs, encoder_mask=None, late
     return (kvs - xt.astype(jnp.float32)).astype(xt.dtype)
 
 
-def _torch_stand_in(params, cfg, xt, t, t_r, context, kvs, encoder_mask=None, latent_mask=None):
+def _torch_stand_in(params, cfg, xt, t, t_r, context, kvs, encoder_mask=None, latent_mask=None, shards=None):
     return (kvs - xt.float()).to(xt.dtype)
 
 

@@ -48,7 +48,8 @@ need = {"acestep_tpu_torch.lm.handler", "acestep_tpu_torch.lm.sampling", "aceste
         "acestep_tpu_torch.scoring.alignment", "acestep_tpu_torch.scoring.lyric_score",
         "acestep_tpu_torch.scoring.lm_score", "acestep_tpu_torch.training.dataset_builder",
         "acestep_tpu_torch.service.train_api", "acestep_tpu_torch.utils.debug",
-        "acestep_tpu_torch.utils.precision", "acestep_tpu_torch.parallel", "acestep_tpu_torch.parallel.mesh"}
+        "acestep_tpu_torch.utils.precision", "acestep_tpu_torch.parallel", "acestep_tpu_torch.parallel.mesh",
+        "acestep_tpu_torch.parallel.tensor"}
 missing = sorted(need - set(names))
 print(missing)
 sys.exit(1 if bad or missing or len(names) < 25 else 0)

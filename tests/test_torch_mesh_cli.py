@@ -2,10 +2,12 @@
 CPU: `tests/torch_tiny_cli.py` runs the port's command line at the tiny
 configs, and `--dp 2` spawns two gloo ranks of it.
 
-`generate --dp 2` writes the PCM of `--dp 1` (within the pipeline tests'
-2.5 PCM steps), and `ACESTEP_TPU_DP=2` without the flag does what `--dp 2`
-does; `serve --dp 2` answers a batch-2 job over loopback HTTP, then stops on
-SIGTERM with every rank gone. Every wait is bounded.
+`generate --dp 2` and `generate --sp 2 --tp 2` (four ranks) write the PCM of
+`--dp 1` (within the pipeline tests' 2.5 PCM steps), and `ACESTEP_TPU_DP=2`
+without the flag does what `--dp 2` does; a `--tp` that does not divide the
+DiT's heads fails on every rank; `serve --dp 2` and `serve --tp 2` answer a
+batch-2 job over loopback HTTP, then stop on SIGTERM with every rank gone.
+Every wait is bounded.
 """
 
 import http.client
@@ -69,10 +71,11 @@ def _alive(pid: int) -> bool:
 
 @pytest.fixture(scope="module")
 def generated(tmp_path_factory):
-    """`generate` at --dp 1, at --dp 2, and with ACESTEP_TPU_DP=2, all at once:
-    {name: (exit code, stdout, stderr, output dir)}."""
+    """`generate` at --dp 1, at --dp 2, with ACESTEP_TPU_DP=2, and at
+    --sp 2 --tp 2, all at once: {name: (exit code, stdout, stderr, output dir)}."""
     d = tmp_path_factory.mktemp("cli")
-    runs = {"dp1": (["--dp", "1"], {}), "dp2": (["--dp", "2"], {}), "env": ([], {"ACESTEP_TPU_DP": "2"})}
+    runs = {"dp1": (["--dp", "1"], {}), "dp2": (["--dp", "2"], {}), "env": ([], {"ACESTEP_TPU_DP": "2"}),
+            "sp2tp2": (["--sp", "2", "--tp", "2"], {})}
     procs = {name: subprocess.Popen(CLI + GENERATE + ["--output-dir", str(d / name)] + flags, env=_env(**env),
                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for name, (flags, env) in runs.items()}
@@ -113,11 +116,27 @@ def test_generate_takes_dp_from_the_environment(generated):
         np.testing.assert_array_equal(got[name], want[name])
 
 
+def test_generate_sp2_tp2_writes_the_pcm_of_dp1(generated):
+    rc1, _, err1, d1 = generated["dp1"]
+    rc, out, err, d = generated["sp2tp2"]
+    assert rc1 == 0, err1
+    assert rc == 0, err
+    assert "mesh enabled: dp=1 sp=2 tp=2" in out and "device collectives on gloo" in out
+    assert out.count("Generated 2 audio(s)") == 1
+    want, got = _wavs(d1), _wavs(d)
+    assert len(want) == 2 and sorted(got) == sorted(want)
+    for name, pcm in want.items():
+        assert got[name].shape == pcm.shape
+        assert np.abs(got[name].astype(int) - pcm.astype(int)).max() <= 2, name
+
+
 def test_generate_refuses_sp_and_tp():
-    for flag in ("--sp", "--tp"):
-        r = subprocess.run(CLI + GENERATE + ["--dp", "1", flag, "2"], env=_env(), capture_output=True, text=True,
-                           timeout=DEADLINE_S)
-        assert r.returncode != 0 and "A.11b" in r.stderr, r.stderr
+    """The refusal that remains on the command line: a tp that does not
+    divide the DiT's 4 heads fails on every rank, before any request."""
+    r = subprocess.run(CLI + GENERATE + ["--tp", "3"], env=_env(), capture_output=True, text=True,
+                       timeout=DEADLINE_S)
+    assert r.returncode != 0 and "tp=3 does not divide the DiT's num_attention_heads (4)" in r.stderr, r.stderr
+    assert "Generated" not in r.stdout
 
 
 def _lines(stream, q):
@@ -134,8 +153,10 @@ def _call(port, path, body):
     return r.status, out
 
 
-def test_serve_dp2_answers_and_stops_clean(tmp_path):
-    p = subprocess.Popen(CLI + ["serve", "--device", "cpu", "--random-init", "--dp", "2", "--host", "127.0.0.1",
+def _serve_round(tmp_path, flags) -> list:
+    """`serve` with `flags` on two ranks: one batch-2 job over loopback HTTP,
+    then SIGTERM; every rank gone. Returns the server's output lines."""
+    p = subprocess.Popen(CLI + ["serve", "--device", "cpu", "--random-init", *flags, "--host", "127.0.0.1",
                                 "--port", "0", "--output-dir", str(tmp_path)],
                          env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     lines: queue.Queue = queue.Queue()
@@ -171,6 +192,20 @@ def test_serve_dp2_answers_and_stops_clean(tmp_path):
         if p.poll() is None:
             p.kill()
             p.wait()
+    return seen
+
+
+def test_serve_dp2_answers_and_stops_clean(tmp_path):
+    _serve_round(tmp_path, ["--dp", "2"])
+
+
+def test_serve_tp2_answers_and_stops_clean(tmp_path):
+    """`serve --tp 2`: the decoder split over two ranks, the planner whole
+    on rank 0, which says so once."""
+    seen = _serve_round(tmp_path, ["--tp", "2"])
+    assert any(ln.startswith("mesh enabled: dp=1 sp=1 tp=2") for ln in seen), seen
+    assert [ln for ln in seen if "A.11c" in ln] == ["planner: whole on rank 0 at tp=2 (its tensor parallelism "
+                                                    "is ROADMAP A.11c)\n"]
 
 
 def test_dp2_without_a_card_needs_device_cpu(monkeypatch):

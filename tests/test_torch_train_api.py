@@ -229,7 +229,8 @@ def test_status_sees_a_finished_run_whole(monkeypatch, tmp_path, interleaving):
 
     monkeypatch.setattr(train_api, "PreprocessedDataset", lambda d: type("D", (), {"batches": lambda s, n: iter(())})())
     monkeypatch.setattr(train_api, "LoRATrainer", _Trainer)
-    svc = train_api.TrainingService(type("H", (), {"params": None, "config": None})())
+    svc = train_api.TrainingService(type("H", (), {"params": None, "config": None,
+                                                   "training_params": lambda self: None})())
     polls, errors = [], []
 
     def poll(run_id, tracer=None):

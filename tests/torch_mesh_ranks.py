@@ -126,9 +126,11 @@ def _fault_on_rank_1(h: TH.AceStepHandler) -> None:
 def dp2_cases(weights_path: str, adapter_path: str):
     """Rank 0 runs every request of REQUESTS at dp = 2 (the LoRA one with the
     adapter on, then toggled off), a streamed one, one that fails on rank 1
-    and one after it, the sp / tp refusals, a reload of every rank, then an
-    adapter that fails to load on rank 1 alone and the request after it;
-    returns them with each rank's pid and device."""
+    and one after it, the mesh shapes refused before a mesh is built (a tp
+    that does not divide the DiT's heads, an sp that splits no latent
+    bucket), a reload of every rank, then an adapter that fails to load on
+    rank 1 alone and the request after it; returns them with each rank's pid
+    and device."""
     torch.set_num_threads(1)
     tdit.prepare_noise = prepare_noise
     h = tiny_handler(weights_path)
@@ -158,7 +160,7 @@ def dp2_cases(weights_path: str, adapter_path: str):
                 out["fault"] = str(e)
             out["after_fault"] = h.generate_music(**REQUESTS["lora"])
             mesh = h.mesh
-            for kw in (dict(dp=1, sp=2), dict(dp=1, tp=2)):
+            for kw in (dict(dp=1, tp=3), dict(dp=1, sp=3)):
                 try:
                     h.enable_mesh(**kw)
                 except ValueError as e:
