@@ -14,12 +14,15 @@ itself, or runs as one rank of the group torchrun started. Rank r takes
 `cuda:{r % device_count}` (two ranks may share a card), or the CPU with
 `--device cpu`. The host exchanges run on gloo; the device collectives of sp
 and tp on NCCL when every rank has a card of its own, else on gloo. Rank 0
-loads the planner, prints, saves and serves HTTP; the other ranks compute
-their share of each request (`AceStepHandler.serve_followers`) until rank 0
-stops them. dp splits a request's rows, sp the DiT's latent frames and tp
-its attention heads and MLP width (`AceStepHandler.enable_mesh`); a tp that
-does not divide the heads or the MLP width raises on every rank. The planner
-stays whole on rank 0 (its tensor parallelism is ROADMAP A.11c).
+prints, saves and serves HTTP; the other ranks compute their share of each
+request (`AceStepHandler.serve_followers`) until rank 0 stops them. dp
+splits a request's rows, sp the DiT's latent frames and tp its attention
+heads and MLP width (`AceStepHandler.enable_mesh`); a tp that does not
+divide the heads or the MLP width raises on every rank. At tp above 1 every
+rank loads the planner and splits it over the same mesh
+(`LLMHandler.enable_tensor_parallel`, as JAX's `_apply_mesh`): its calls run
+on ranks 0 … tp−1, and rank 0 prints the planner's mesh once; otherwise rank
+0 alone loads it, whole.
 
 - `generate` runs the port's `service.inference.generate_music`;
   `--thinking` runs the 5 Hz LM planner (`LLMHandler()`, the 0.6B size)
@@ -122,13 +125,22 @@ def _load_dit(args):
 
 
 def _load_planner(args, dit):
-    """The planner on rank 0's card, whole: at tp above 1 it says so once."""
+    """The planner on this rank's device. At tp above 1 every rank calls
+    this: each loads the planner and splits it over the DiT's mesh, and rank
+    0 prints the planner's mesh once. Otherwise rank 0 alone calls it and
+    the planner stays whole."""
     from acestep_tpu_torch.lm.handler import LLMHandler
 
-    if args.tp > 1:
-        print(f"planner: whole on rank 0 at tp={args.tp} (its tensor parallelism is ROADMAP A.11c)", flush=True)
+    leader = dit.mesh is None or dit.mesh.is_leader
     llm = LLMHandler(device=dit.device)
-    print(llm.initialize(args.lm_checkpoint_dir, random_init=args.random_init or None), flush=True)
+    msg = llm.initialize(args.lm_checkpoint_dir, random_init=args.random_init or None)
+    if leader:
+        print(msg, flush=True)
+    if args.tp > 1:
+        llm.enable_tensor_parallel(dit.mesh)
+        if leader:
+            print(f"planner mesh: tp={args.tp} on ranks 0-{args.tp - 1} (dp group 0, sp 0; device collectives "
+                  f"on {dit.mesh.backend})", flush=True)
     return llm
 
 
@@ -141,11 +153,11 @@ def _generate(args, leader: bool) -> int:
     from acestep_tpu_torch.service.params import GenerationConfig, GenerationParams
 
     dit = _load_dit(args)
-    if not leader:
-        dit.serve_followers()
-        return 0
     try:
-        llm = _load_planner(args, dit) if args.thinking else None
+        llm = _load_planner(args, dit) if args.thinking and (leader or args.tp > 1) else None
+        if not leader:
+            dit.serve_followers()
+            return 0
         params = GenerationParams(
             caption=args.caption,
             lyrics=args.lyrics,
@@ -253,8 +265,9 @@ def cmd_serve(args) -> int:
 
 def _serve(args, leader: bool) -> int:
     """One rank of `serve`: rank 0 (or the only process) loads the planner
-    and the extra DiT models and serves HTTP until an interrupt (SIGTERM too
-    under a mesh) or `shutdown()`, then stops its followers."""
+    (every rank at tp above 1, which splits it) and the extra DiT models and
+    serves HTTP until an interrupt (SIGTERM too under a mesh) or
+    `shutdown()`, then stops its followers."""
     import signal
 
     from acestep_tpu_torch.pipeline.handler import AceStepHandler
@@ -262,6 +275,8 @@ def _serve(args, leader: bool) -> int:
 
     dit = _load_dit(args)
     if not leader:
+        if args.tp > 1:
+            _load_planner(args, dit)
         dit.serve_followers()
         return 0
     try:

@@ -20,18 +20,32 @@ Port of `acestep_tpu/lm/handler.py` (reference `acestep/llm_inference.py`):
 
 Weights come from the reference checkpoint layout (config.json, safetensors
 and `genres_vocab.txt`, which constrains the CoT's genres) or from a seed.
+
+Tensor parallelism (`enable_tensor_parallel`, JAX's method of that name)
+splits the planner over the tp ranks of a `parallel.mesh.Mesh` by the tp
+plan. The port runs it SPMD, as JAX runs one program: each public call that
+runs forwards is a mesh op on the planner's line, the ranks of dp group 0
+and sp 0 (ranks 0 … tp−1), which run the same call with the same arguments
+and seed. The rowwise products' fp32 partials are summed over the line and
+the embeddings, norms and head stay whole, so the logits, the draws and the
+host DFA agree bit for bit on every rank; rank 0 compares the tokens each
+rank drew and raises at the first that differs.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
+import pickle
 import re
+import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from acestep_tpu_torch.config import Qwen3Config
 from acestep_tpu_torch.device import resolve_device
@@ -39,6 +53,7 @@ from acestep_tpu_torch.lm import prefix_cache, sampling
 from acestep_tpu_torch.lm.constrained import ConstrainedDecoderFSM
 from acestep_tpu_torch.models import qwen3
 from acestep_tpu_torch.params import LM_CONFIGS, init_qwen3_params, load_safetensors_state
+from acestep_tpu_torch.parallel.mesh import make_mesh, shard_params_dp, shard_params_tp
 from acestep_tpu_torch.utils import debug
 from acestep_tpu_torch.utils.constants import (
     DEFAULT_LM_INSPIRED_INSTRUCTION,
@@ -61,6 +76,40 @@ def _device_fsm_enabled() -> bool:
     return os.environ.get("ACESTEP_TPU_NO_DEVICE_FSM", "0") != "1"
 
 
+# The environment switches a planner call reads; a mesh op takes rank 0's.
+_SWITCHES = {"device_fsm": _device_fsm_enabled, "prefix_cache": prefix_cache.enabled}
+
+
+def _mesh_op(method):
+    """A planner call that runs forwards. With the planner split over a mesh
+    (`enable_tensor_parallel`) rank 0 runs it as one mesh op on the
+    planner's line (`LLMHandler._lead`); inside such an op, and without a
+    mesh, it runs here."""
+
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        if self.mesh is None or self._in_op():
+            return method(self, *args, **kwargs)
+        return self._lead(method.__name__, args, kwargs)
+
+    return call
+
+
+def _first_difference(want: List[np.ndarray], got: List[np.ndarray]) -> Optional[str]:
+    """Where two ranks' token sequences first differ, or None."""
+    for i, (a, b) in enumerate(zip(want, got)):
+        n = min(len(a), len(b))
+        diff = np.flatnonzero(a[:n] != b[:n])
+        if diff.size:
+            j = int(diff[0])
+            return f"sequence {i}, step {j}: token {int(b[j])} where rank 0 drew {int(a[j])}"
+        if len(a) != len(b):
+            return f"sequence {i}, step {n}: {len(b)} tokens where rank 0 drew {len(a)}"
+    if len(want) != len(got):
+        return f"{len(got)} sequences where rank 0 drew {len(want)}"
+    return None
+
+
 class LLMHandler:
     """5 Hz planner LM: CoT metadata + audio-code generation."""
 
@@ -79,6 +128,8 @@ class LLMHandler:
         self._dfa_cache: Dict[tuple, Any] = {}
         self.initialized = False
         self.max_model_len = 4096
+        self.mesh = None  # set by enable_tensor_parallel
+        self._op = threading.local()  # the mesh op this thread runs: its switches and the tokens drawn
 
     def initialize(
         self,
@@ -92,6 +143,8 @@ class LLMHandler:
         its tokenizer where `transformers` can read one, `genres_vocab.txt`
         where present), or random weights from `seed` with the byte-level
         fallback tokenizer, as the JAX handler decides."""
+        if self.mesh is not None:
+            raise RuntimeError("the planner is split over a mesh: load it on every rank before enable_tensor_parallel")
         t0 = time.time()
         if random_init is None:
             random_init = checkpoint_dir is None or not os.path.isdir(checkpoint_dir)
@@ -216,13 +269,113 @@ class LLMHandler:
         ids, mask = tokenize_padded(self.tokenizer, prompts, self.max_model_len - budget, buckets=PROMPT_BUCKETS)
         return ids, mask, ids.shape[1]
 
+    def check_tensor_parallel(self, tp: int) -> None:
+        """Raise ValueError for a tp that does not divide the planner's
+        attention heads, key-value heads and MLP width."""
+        for name in ("num_attention_heads", "num_key_value_heads", "intermediate_size"):
+            if getattr(self.config, name) % tp:
+                raise ValueError(f"tp={tp} does not divide the planner's {name} ({getattr(self.config, name)})")
+
     def enable_tensor_parallel(self, mesh=None) -> None:
-        """Not ported: the planner's tensor parallelism needs rank 0's
-        sampling loop and the other ranks in lockstep at every forward
-        (ROADMAP A.11c). Until then the planner runs whole on one card."""
-        raise NotImplementedError(
-            "the planner's tensor parallelism is not ported yet (ROADMAP A.11c); it runs whole on rank 0"
-        )
+        """Split the planner over the tp axis of `mesh` (by default one tp
+        line over every rank of the process group, as JAX's `make_mesh(tp=n)`)
+        by the tp plan: q/k/v/gate/up keep this rank's output columns, o/down
+        its input rows (`parallel.mesh.shard_params_tp`). Every rank calls it.
+
+        A tp that does not divide the heads, the KV heads or the MLP width
+        raises ValueError on every rank before any group call. Then the whole
+        weights' digests are compared across the ranks (`shard_params_dp`),
+        the planner's line keeps its slices, the other ranks drop theirs, and
+        the prefill cache is cleared (its rows were whole).
+
+        From then on `generate_with_stop_condition`, the free-form APIs and
+        `on_line` (the LM score) are mesh ops: rank 0 sends each through the
+        mesh's one command channel, which the DiT handler's followers serve
+        (`AceStepHandler.serve_followers`, `Mesh.serve`): the planner
+        attaches itself to the mesh as "planner" beside the DiT's "dit"
+        (`Mesh.attach`), and one lock keeps their ops apart. The planner's
+        line runs each call, the other ranks return None at once."""
+        if not self.initialized:
+            raise RuntimeError("call initialize() first")
+        if mesh is None and not dist.is_initialized():
+            raise RuntimeError("enable_tensor_parallel needs a process group: run under mesh.launch")
+        tp = dist.get_world_size() if mesh is None else mesh.shape["tp"]
+        self.check_tensor_parallel(tp)
+        if mesh is None:
+            mesh = make_mesh(tp=tp, device=self.device)
+        shard_params_dp(mesh, self.params)
+        self.mesh = mesh
+        mesh.attach("planner", self)
+        self.params = shard_params_tp(mesh, self.params) if self._on_line() else None
+        if self.prefill_cache is not None:
+            self.prefill_cache.clear()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()  # the whole planner's blocks, for the ranks that share the card
+
+    def _on_line(self) -> bool:
+        """This rank computes the split planner's calls: dp group 0, sp 0."""
+        return self.mesh.coord["dp"] == 0 and self.mesh.coord["sp"] == 0
+
+    def _in_op(self) -> bool:
+        return getattr(self._op, "switches", None) is not None
+
+    @property
+    def _tp_sum(self):
+        """The fp32 sum over the planner's tp line, or None for a whole
+        planner. A split planner's forward outside a mesh op would wait on
+        ranks that never join it: refused."""
+        if self.mesh is None:
+            return None
+        if not self._in_op():
+            raise RuntimeError("the planner is split over a mesh: its forwards run only in a public call on rank 0")
+        if self.mesh.shape["tp"] == 1:
+            return None
+        return lambda x: self.mesh.reduce_sum(x, "tp")
+
+    def _switch(self, name: str) -> bool:
+        """An environment switch (`_SWITCHES`) as rank 0 read it for the mesh
+        op in progress, so every rank takes the same route; else as read here."""
+        return self._op.switches[name] if self._in_op() else _SWITCHES[name]()
+
+    def _note(self, rows) -> None:
+        """Keep the token ids a mesh op drew, for rank 0's lockstep check."""
+        if self._in_op():
+            self._op.tokens.extend(np.asarray(r, np.int64).reshape(-1) for r in rows)
+
+    def _lead(self, op: str, args: tuple, kwargs: Dict[str, Any]) -> Any:
+        """Rank 0: `op` as one mesh op (`Mesh.lead`) with this process's
+        switches; rank 0's value once every rank of the line drew the same
+        tokens (or, for a call that draws none, returned the same value)."""
+        payload = dict(args=args, kwargs=kwargs, switches={k: f() for k, f in _SWITCHES.items()})
+        line = self.mesh.lead("planner", op, payload)[: self.mesh.shape["tp"]]
+        value, tokens = line[0]
+        for r, (v, t) in enumerate(line[1:], start=1):
+            where = _first_difference(tokens, t)
+            if where is None and not tokens and pickle.dumps(v) != pickle.dumps(value):
+                where = f"it returned {v!r} where rank 0 returned {value!r}"
+            if where is not None:
+                raise RuntimeError(f"the planner's tp rank {r} is out of step with rank 0 in {op}: {where}")
+        return value
+
+    def _local(self, op: str, payload: Dict[str, Any]) -> Any:
+        """A mesh op on this rank: on the planner's line the call itself
+        under rank 0's switches, returning (value, tokens drawn); elsewhere
+        None at once."""
+        if not self._on_line():
+            return None
+        self._op.switches, self._op.tokens = payload["switches"], []
+        try:
+            return getattr(self, op)(*payload["args"], **payload["kwargs"]), self._op.tokens
+        finally:
+            self._op.switches = None
+
+    @_mesh_op
+    def on_line(self, fn, *args, **kwargs) -> Any:
+        """`fn(self, *args, **kwargs)` as one planner call: under a split
+        planner a mesh op on the line (`fn` travels by reference, so it is a
+        module-level function, and its value must be equal on every rank of
+        the line), else here. The LM score runs its forwards this way."""
+        return fn(self, *args, **kwargs)
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device, dtype=dtype)
@@ -233,12 +386,15 @@ class LLMHandler:
     def _prefill(self, ids: np.ndarray, mask: np.ndarray, total_len: int):
         """Prefill through the dedup/prefix cache; a plain batched prefill when
         it is disabled."""
-        if prefix_cache.enabled() and self.prefill_cache is not None:
+        tp_sum = self._tp_sum
+        if self._switch("prefix_cache") and self.prefill_cache is not None:
             return self.prefill_cache.prefill(
-                self.params, self.config, np.asarray(ids), np.asarray(mask), total_len, self.dtype, self.device
+                self.params, self.config, np.asarray(ids), np.asarray(mask), total_len, self.dtype, self.device,
+                tp_sum,
             )
-        cache = qwen3.KVCache.create(self.config, ids.shape[0], total_len, self.dtype, self.device)
-        return qwen3.prefill(self.params, self.config, self._tensor(ids), self._tensor(mask), cache)
+        cache = qwen3.KVCache.create(self.config, ids.shape[0], total_len, self.dtype, self.device,
+                                     qwen3.kv_heads(self.params, self.config))
+        return qwen3.prefill(self.params, self.config, self._tensor(ids), self._tensor(mask), cache, tp_sum)
 
     def _constrained_loop(
         self,
@@ -264,6 +420,7 @@ class LLMHandler:
         gen = generator if generator is not None else self._generator(0)
         generated: List[List[int]] = [[] for _ in range(b)]
         positions = positions.copy()
+        tp_sum = self._tp_sum
 
         for _ in range(max_new_tokens):
             if all(f.finished for f in fsms):
@@ -309,9 +466,10 @@ class LLMHandler:
                     generated[i].append(int(toks[i]))
             feed = np.concatenate([toks, toks]) if use_cfg else toks
             logits, cache = qwen3.decode_step(
-                self.params, self.config, self._tensor(feed), self._tensor(positions), cache
+                self.params, self.config, self._tensor(feed), self._tensor(positions), cache, tp_sum
             )
             positions = positions + 1
+        self._note(generated)
         return generated, logits, cache, positions
 
     # ------------------------------------------------------------------
@@ -387,8 +545,9 @@ class LLMHandler:
             max_steps=max_cot_tokens, eos_token=dfa.eos_token_id,
             newline_token=dfa.newline_token_id if bool(dfa.prob_end.any()) else -1,
             top_k=top_k, top_p=top_p, cfg_scale=cfg_scale if cfg_scale > 1.0 else 1.0,
-            repetition_penalty=repetition_penalty,
+            repetition_penalty=repetition_penalty, tp_sum=self._tp_sum,
         )
+        self._note(toks.cpu().numpy())
         out: List[List[int]] = []
         for row in toks.cpu().numpy():
             ids = []
@@ -403,6 +562,7 @@ class LLMHandler:
     # Public generation API (ref generate_with_stop_condition)
     # ------------------------------------------------------------------
 
+    @_mesh_op
     @torch.inference_mode()
     def generate_with_stop_condition(
         self,
@@ -474,7 +634,7 @@ class LLMHandler:
         logits, cache = self._prefill(ids, mask, bucket + max_cot_tokens)
         positions = mask.sum(axis=1).astype(np.int32)
         generated = None
-        if use_constrained_decoding and _device_fsm_enabled():
+        if use_constrained_decoding and self._switch("device_fsm"):
             generated = self._cot_device_generate(
                 b, logits, cache, positions,
                 user_metadata=user_metadata, max_cot_tokens=max_cot_tokens,
@@ -577,7 +737,9 @@ class LLMHandler:
         if code_start < 0:
             # Dev tokenizer: pseudo-codes, before any prefill.
             rng = np.random.default_rng(seed)
-            return [[int(x) for x in rng.integers(0, 64000, size=n_codes)] for _ in range(b)]
+            codes = [[int(x) for x in rng.integers(0, 64000, size=n_codes)] for _ in range(b)]
+            self._note(codes)
+            return codes
 
         ids, mask, bucket = self._encode_prompts(prompts, budget=n_codes + 8)
         logits, cache = self._prefill(ids, mask, bucket + n_codes + 8)
@@ -607,9 +769,10 @@ class LLMHandler:
             self.params, self.config, feed, positions, cache, gen, seen,
             n_steps=n_codes - 1, code_start=code_start, n_codes=n_vocab_codes,
             temperature=temperature, top_k=top_k, top_p=top_p,
-            cfg_scale=cfg_scale if use_cfg else 1.0, repetition_penalty=repetition_penalty,
+            cfg_scale=cfg_scale if use_cfg else 1.0, repetition_penalty=repetition_penalty, tp_sum=self._tp_sum,
         )
         codes = torch.cat([first[:, None], toks - code_start], dim=1).cpu().numpy()  # the one read-back
+        self._note(codes)
         return [[int(c) for c in row] for row in codes]
 
     # ------------------------------------------------------------------
@@ -631,6 +794,7 @@ class LLMHandler:
         metadata, _ = self.parse_lm_output(text)
         return {"metadata": metadata, "text": text, "route": route, "tokens": len(ids)}
 
+    @_mesh_op
     def understand_audio_from_codes(self, audio_codes: str, *, temperature: float = 0.85,
                                     max_new_tokens: int = 512, seed: int = 0) -> Dict[str, Any]:
         """Codes -> metadata + lyrics. Each free-form API returns the parsed
@@ -639,12 +803,14 @@ class LLMHandler:
         return self._free_api(self.build_formatted_prompt_for_understanding(audio_codes),
                               temperature, max_new_tokens, seed)
 
+    @_mesh_op
     def create_sample_from_query(self, query: str, *, temperature: float = 0.85,
                                  max_new_tokens: int = 512, seed: int = 0) -> Dict[str, Any]:
         """Query -> a drafted sample (caption, lyrics, metadata)."""
         return self._free_api(self._chat_prompt(DEFAULT_LM_INSPIRED_INSTRUCTION, query),
                               temperature, max_new_tokens, seed)
 
+    @_mesh_op
     def format_sample_from_input(self, user_input: str, *, temperature: float = 0.85,
                                  max_new_tokens: int = 512, seed: int = 0) -> Dict[str, Any]:
         """Free-form input -> a formatted sample."""
@@ -669,7 +835,7 @@ class LLMHandler:
         eos = getattr(self.tokenizer, "eos_token_id", None) or 2
 
         compiled = None
-        if _device_fsm_enabled():
+        if self._switch("device_fsm"):
             try:
                 compiled = self._cot_dfa_for(None, max_new_tokens, phase="understand", skip_genres=False)
             except (KeyError, IndexError, TypeError, ValueError, AttributeError):
@@ -682,15 +848,17 @@ class LLMHandler:
                 torch.full((1,), dfa.start_state, dtype=torch.int64, device=self.device),
                 float(temperature), max_steps=max_new_tokens, eos_token=dfa.eos_token_id,
                 newline_token=dfa.newline_token_id if bool(dfa.prob_end.any()) else -1,
-                top_k=0, top_p=0.9,
+                top_k=0, top_p=0.9, tp_sum=self._tp_sum,
             )
             route = "grammar"
         else:
             toks, _ = sampling.generate_free(
                 self.params, self.config, logits, positions, cache, self._generator(seed),
                 float(temperature), max_steps=max_new_tokens, eos_token=eos, top_k=0, top_p=0.9,
+                tp_sum=self._tp_sum,
             )
             route = "free"
+        self._note(toks.cpu().numpy())
         out = []
         for t in toks[0].cpu().numpy():
             if int(t) == eos:

@@ -11,13 +11,17 @@ Port of `acestep_tpu/lm/prefix_cache.py`:
 The returned cache is a fresh tensor gathered from the rows: the decode loop
 writes into it in place, so it never aliases a stored entry, and stored
 entries are copies. Disable with ACESTEP_TPU_LM_PREFIX_CACHE=0.
+
+Under tensor parallelism the entries hold this rank's KV heads (the weights'
+share, `qwen3.kv_heads`); every rank of the line makes the same calls, so
+their hits and misses agree. Splitting the planner clears the cache.
 """
 
 from __future__ import annotations
 
 import os
 from collections import OrderedDict
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +77,7 @@ class PrefillCache:
         total_len: int,  # KV capacity (bucket + generation budget)
         dtype: torch.dtype,
         device,
+        tp_sum: Optional[Callable] = None,
     ) -> Tuple[torch.Tensor, qwen3.KVCache]:
         """`KVCache.create` + `qwen3.prefill` with dedup and reuse.
 
@@ -110,10 +115,10 @@ class PrefillCache:
         if miss_rows:
             sub_ids = np.stack([ids[uniq_rows[ui]] for ui in miss_rows])
             sub_mask = np.stack([mask[uniq_rows[ui]] for ui in miss_rows])
-            cache = qwen3.KVCache.create(cfg, len(miss_rows), total_len, dtype, device)
+            cache = qwen3.KVCache.create(cfg, len(miss_rows), total_len, dtype, device, qwen3.kv_heads(params, cfg))
             logits, cache = qwen3.prefill(
                 params, cfg, torch.as_tensor(sub_ids, device=device),
-                torch.as_tensor(sub_mask, device=device), cache,
+                torch.as_tensor(sub_mask, device=device), cache, tp_sum,
             )
             for mi, ui in enumerate(miss_rows):
                 e = {

@@ -18,11 +18,14 @@ Randomness comes from an explicit `torch.Generator` on the logits' device and
 is drawn as a Gumbel-max, the way `jax.random.categorical` draws it; the
 numbers differ from JAX's for one seed (a recorded deviation). With
 temperature <= 0 every sampler is greedy and draws nothing.
+
+The loops take `tp_sum` for a planner split over tp ranks and hand it to
+every `qwen3.decode_step` (see `models/qwen3.py`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -188,6 +191,7 @@ def generate_cot_dfa(
     top_p: float = 1.0,
     cfg_scale: float = 1.0,
     repetition_penalty: float = 1.0,
+    tp_sum: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, int]:
     """The whole constrained CoT phase as one device loop.
 
@@ -238,7 +242,7 @@ def generate_cot_dfa(
         if use_rp:
             seen[rows, tok] = True
         feed = torch.cat([tok, tok]) if use_cfg else tok
-        logits, cache = qwen3.decode_step(params, cfg, feed, pos, cache)
+        logits, cache = qwen3.decode_step(params, cfg, feed, pos, cache, tp_sum)
         pos = pos + 1
         step += 1
     return out, step
@@ -257,6 +261,7 @@ def generate_free(
     eos_token: int,
     top_k: int = 0,
     top_p: float = 1.0,
+    tp_sum: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, int]:
     """Unconstrained decoding until every row has sampled EOS, as one device
     loop. Returns (tokens (B, max_steps) EOS-padded, steps run). A row that
@@ -276,7 +281,7 @@ def generate_free(
         tok = torch.where(done, eos_token, tok)
         done = done | (tok == eos_token)
         out[:, step] = tok.to(torch.int32)
-        logits, cache = qwen3.decode_step(params, cfg, tok, pos, cache)
+        logits, cache = qwen3.decode_step(params, cfg, tok, pos, cache, tp_sum)
         pos = pos + 1
         step += 1
     return out, step
@@ -299,6 +304,7 @@ def generate_codes_scan(
     top_p: float = 0.9,
     cfg_scale: float = 1.0,
     repetition_penalty: float = 1.0,
+    tp_sum: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, qwen3.KVCache]:
     """Generate `n_steps` audio-code tokens on the device; returns (token ids
     (B, n_steps) on the device, cache). Nothing is read back to the host.
@@ -319,7 +325,7 @@ def generate_codes_scan(
     out = torch.empty((b, n_steps), dtype=torch.int64, device=dev)
     toks, pos = first_tokens.long(), positions.clone()
     for i in range(n_steps):
-        logits, cache = qwen3.decode_step(params, cfg, toks, pos, cache)
+        logits, cache = qwen3.decode_step(params, cfg, toks, pos, cache, tp_sum)
         code_logits = logits[:, code_start : code_start + n_codes]
         if use_cfg:
             code_logits = cfg_combine(code_logits[:b], code_logits[b:], cfg_scale)

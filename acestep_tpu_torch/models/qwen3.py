@@ -15,26 +15,41 @@ Unlike the JAX version, which returns a new cache, `prefill` and
 layer) and return the same `KVCache`. Parameters are the JAX package's tree of
 tensors (see `params.py`); `convert_torch_qwen3_state` builds it from an HF
 Qwen3 state dict.
+
+Under tensor parallelism (`parallel.mesh.shard_params_tp`: q/k/v/gate/up
+hold this rank's output columns, o/down its input rows) the forwards take
+`tp_sum`, the fp32 sum over the tp ranks: attention runs on the local heads
+and the MLP on the local features, and each rowwise product's fp32 partial is
+summed before its one rounding (`ops.basic.linear_rowwise`), two sums a
+layer. Head counts come from the weights' widths, so the same code runs a
+whole model or a rank's slice; the embeddings, the norms and the head stay
+whole, so every rank of the line computes the same logits.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from acestep_tpu_torch.config import Qwen3Config
 from acestep_tpu_torch.ops.attention import attention, attention_xla
-from acestep_tpu_torch.ops.basic import linear, matmul_f32, mlp_swiglu, rms_norm
+from acestep_tpu_torch.ops.basic import linear, linear_rowwise, matmul_f32, mlp_swiglu, rms_norm
 from acestep_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from acestep_tpu_torch.params import leaf, np32
 
 Params = Dict[str, Any]
 
 
-def _split_heads(x: torch.Tensor, n: int, h: int) -> torch.Tensor:
-    return x.reshape(x.shape[0], x.shape[1], n, h)
+def _split_heads(x: torch.Tensor, h: int) -> torch.Tensor:
+    """(B, L, n·h) -> (B, L, n, h): n is the heads the weights hold."""
+    return x.reshape(x.shape[0], x.shape[1], -1, h)
+
+
+def kv_heads(params: Params, cfg: Qwen3Config) -> int:
+    """The key-value heads `params` hold: the config's, or a tp rank's share."""
+    return params["layers"][0]["self_attn"]["k_proj"]["kernel"].shape[-1] // cfg.head_dim
 
 
 @dataclass
@@ -46,8 +61,12 @@ class KVCache:
     length: torch.Tensor  # () int32: number of valid positions
 
     @staticmethod
-    def create(cfg: Qwen3Config, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> "KVCache":
-        shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
+    def create(cfg: Qwen3Config, batch: int, max_len: int, dtype=torch.bfloat16, device=None,
+               kv_heads: Optional[int] = None) -> "KVCache":
+        """Zeros for `kv_heads` heads (the config's by default; a tp rank's
+        share of them under tensor parallelism)."""
+        n_kv = cfg.num_key_value_heads if kv_heads is None else kv_heads
+        shape = (cfg.num_hidden_layers, batch, max_len, n_kv, cfg.head_dim)
         return KVCache(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
@@ -62,21 +81,22 @@ def _layer_forward(
     cos: torch.Tensor,
     sin: torch.Tensor,
     kv_mask: Optional[torch.Tensor],
+    tp_sum: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One Qwen3 decoder layer. Returns (x, (k, v)): the new K/V for caching."""
     h = rms_norm(p["input_layernorm"]["weight"], x, cfg.rms_norm_eps)
     a = p["self_attn"]
-    q = _split_heads(linear(a["q_proj"], h), cfg.num_attention_heads, cfg.head_dim)
+    q = _split_heads(linear(a["q_proj"], h), cfg.head_dim)
     q = rms_norm(a["q_norm"]["weight"], q, cfg.rms_norm_eps)
-    k = _split_heads(linear(a["k_proj"], h), cfg.num_key_value_heads, cfg.head_dim)
+    k = _split_heads(linear(a["k_proj"], h), cfg.head_dim)
     k = rms_norm(a["k_norm"]["weight"], k, cfg.rms_norm_eps)
-    v = _split_heads(linear(a["v_proj"], h), cfg.num_key_value_heads, cfg.head_dim)
+    v = _split_heads(linear(a["v_proj"], h), cfg.head_dim)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     o = attention(q, k, v, kv_mask=kv_mask, causal=True, scale=cfg.head_dim**-0.5)
-    x = x + linear(a["o_proj"], o.reshape(x.shape[0], x.shape[1], -1))
+    x = x + linear_rowwise(a["o_proj"], o.reshape(x.shape[0], x.shape[1], -1), tp_sum)
     h = rms_norm(p["post_attention_layernorm"]["weight"], x, cfg.rms_norm_eps)
-    return x + mlp_swiglu(p["mlp"], h), (k, v)
+    return x + mlp_swiglu(p["mlp"], h, tp_sum), (k, v)
 
 
 def forward_hidden(
@@ -84,12 +104,14 @@ def forward_hidden(
     cfg: Qwen3Config,
     input_ids: torch.Tensor,  # (B, L)
     attention_mask: Optional[torch.Tensor] = None,  # (B, L) key padding
+    tp_sum: Optional[Callable] = None,
 ) -> torch.Tensor:
-    """Full causal forward -> last_hidden_state (text-encoder role)."""
+    """Full causal forward -> last_hidden_state (text-encoder role; the
+    planner's teacher-forced scoring forward)."""
     x = embed_tokens(params, input_ids)
     cos, sin = rope_cos_sin(x.shape[1], cfg.head_dim, cfg.rope_theta, device=x.device)
     for lp in params["layers"]:
-        x, _ = _layer_forward(lp, cfg, x, cos, sin, attention_mask)
+        x, _ = _layer_forward(lp, cfg, x, cos, sin, attention_mask, tp_sum)
     return rms_norm(params["norm"]["weight"], x, cfg.rms_norm_eps)
 
 
@@ -118,6 +140,7 @@ def prefill(
     input_ids: torch.Tensor,  # (B, L) right-padded to a bucket
     prompt_mask: torch.Tensor,  # (B, L) 1 for real tokens
     cache: KVCache,
+    tp_sum: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Process the whole prompt; returns (logits at the last real token (B, V), cache).
 
@@ -127,7 +150,7 @@ def prefill(
     x = embed_tokens(params, input_ids)
     cos, sin = rope_cos_sin(l, cfg.head_dim, cfg.rope_theta, device=x.device)
     for i, lp in enumerate(params["layers"]):
-        x, (k, v) = _layer_forward(lp, cfg, x, cos, sin, prompt_mask)
+        x, (k, v) = _layer_forward(lp, cfg, x, cos, sin, prompt_mask, tp_sum)
         cache.k[i, :, :l] = k.to(cache.k.dtype)
         cache.v[i, :, :l] = v.to(cache.v.dtype)
     x = rms_norm(params["norm"]["weight"], x, cfg.rms_norm_eps)
@@ -149,6 +172,7 @@ def decode_step(
     token_ids: torch.Tensor,  # (B,) current tokens
     positions: torch.Tensor,  # (B,) positions of these tokens
     cache: KVCache,
+    tp_sum: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One autoregressive step -> (logits (B, V) fp32, the updated cache).
 
@@ -177,11 +201,11 @@ def decode_step(
     for i, lp in enumerate(params["layers"]):
         h = rms_norm(lp["input_layernorm"]["weight"], x, cfg.rms_norm_eps)
         a = lp["self_attn"]
-        q = _split_heads(linear(a["q_proj"], h), cfg.num_attention_heads, cfg.head_dim)
+        q = _split_heads(linear(a["q_proj"], h), cfg.head_dim)
         q = rms_norm(a["q_norm"]["weight"], q, cfg.rms_norm_eps)
-        k = _split_heads(linear(a["k_proj"], h), cfg.num_key_value_heads, cfg.head_dim)
+        k = _split_heads(linear(a["k_proj"], h), cfg.head_dim)
         k = rms_norm(a["k_norm"]["weight"], k, cfg.rms_norm_eps)
-        v = _split_heads(linear(a["v_proj"], h), cfg.num_key_value_heads, cfg.head_dim)
+        v = _split_heads(linear(a["v_proj"], h), cfg.head_dim)
         qf = (q.float() * cos + _rot_half(q.float()) * sin).to(q.dtype)
         kf = (k.float() * cos + _rot_half(k.float()) * sin).to(k.dtype)
 
@@ -192,9 +216,9 @@ def decode_step(
         vi[rows, slot] = torch.where(in_range, v[:, 0].to(vi.dtype), vi[rows, slot])
 
         o = attention_xla(qf, ki, vi, mask=kv_mask, scale=cfg.head_dim**-0.5)
-        x = x + linear(a["o_proj"], o.reshape(b, 1, -1))
+        x = x + linear_rowwise(a["o_proj"], o.reshape(b, 1, -1), tp_sum)
         h2 = rms_norm(lp["post_attention_layernorm"]["weight"], x, cfg.rms_norm_eps)
-        x = x + mlp_swiglu(lp["mlp"], h2)
+        x = x + mlp_swiglu(lp["mlp"], h2, tp_sum)
 
     x = rms_norm(params["norm"]["weight"], x, cfg.rms_norm_eps)
     logits = logits_from_hidden(params, cfg, x)[:, 0]

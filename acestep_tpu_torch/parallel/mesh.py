@@ -15,6 +15,14 @@ exchange runs under the mesh's `timeout`, except a follower's wait for rank
 it stays up, and a rank 0 that exits closes its connections, which ends the
 wait.
 
+The mesh holds the one command channel of every handler on it: a handler
+registers its ops under a name (`Mesh.attach`: the DiT's `AceStepHandler` as
+"dit", a split planner's `LLMHandler` as "planner"), rank 0 runs an op on
+every rank (`Mesh.lead`) and the followers wait in `Mesh.serve`. One lock
+keeps rank 0's ops one at a time across threads and handlers, so the
+collectives of two ops never interleave; an op started from inside another
+raises instead of waiting on itself.
+
 The port's kernels take local tensors, so every collective of sequence and
 tensor parallelism is written out, on the device groups: the tp group (the
 ranks that share dp and sp) sums a rowwise product's fp32 partials
@@ -43,9 +51,11 @@ import pickle
 import re
 import signal
 import socket
+import sys
 import tempfile
 import threading
 import time
+import traceback
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -101,6 +111,12 @@ class Mesh:
                     self._groups[axis] = g
         self.collective_s = 0.0  # host clock in device collectives
         self.collectives = 0
+        # The command channel: each handler's ops by name, rank 0's lock over
+        # them, the thread inside an op, and why the ranks are out of step.
+        self.targets: Dict[str, Any] = {}
+        self.lock = threading.Lock()
+        self._leading: Optional[int] = None
+        self.out_of_step: Optional[str] = None
 
     @property
     def is_leader(self) -> bool:
@@ -124,6 +140,72 @@ class Mesh:
         box = [None]
         dist.broadcast_object_list(box, src=0, group=self.command_group)
         return box[0]
+
+    def attach(self, name: str, target: Any) -> None:
+        """Run the ops that rank 0 sends to `name` on `target` (its
+        `_local(op, kwargs)`); every rank attaches the same names."""
+        self.targets[name] = target
+
+    def lead(self, target: str, op: str, kwargs: Dict[str, Any], *, read_only: bool = False) -> List[Any]:
+        """Rank 0: send `op` of `target` to the followers, run it here, and
+        return every rank's value in rank order (`run`). A `read_only` op
+        changes no rank's model, so its failure on some ranks leaves them in
+        step."""
+        if not self.is_leader:
+            raise RuntimeError(f"rank {self.rank} follows rank 0: run serve_followers() on it")
+        if self._leading == threading.get_ident():
+            raise RuntimeError(f"{target} op {op} was started inside another mesh op, whose lock it would wait on")
+        with self.lock:
+            self._leading = threading.get_ident()
+            try:
+                if self.out_of_step is not None:
+                    raise RuntimeError(self.out_of_step)
+                command = (target, op, kwargs, read_only)
+                self.send_command(command)
+                return self.run(*command)
+            finally:
+                self._leading = None
+
+    def run(self, target: str, op: str, kwargs: Dict[str, Any], read_only: bool) -> Optional[List[Any]]:
+        """`op` of `target` on this rank, then every rank's outcome gathered on
+        rank 0, which raises its own error, or else a follower's with that
+        rank's traceback. An op that is not read-only and failed on some
+        ranks and not on others leaves the ranks out of step: every later op
+        raises."""
+        try:
+            value, error = self.targets[target]._local(op, kwargs), None
+        except Exception as e:  # noqa: BLE001 — every rank reaches the gather; rank 0 raises
+            value, error = None, e
+        report = None if error is None else "".join(traceback.format_exception(error))
+        outcomes = self.gather((report, value))
+        if outcomes is None:
+            if report is not None:
+                print(f"rank {self.rank}: {op} failed\n{report}", file=sys.stderr, flush=True)
+            return None
+        failed = [r for r, (rep, _) in enumerate(outcomes) if rep is not None]
+        if not read_only and 0 < len(failed) < len(outcomes):
+            self.out_of_step = (f"{op} failed on ranks {failed} and not on the others, so the ranks no "
+                                "longer hold the same model: restart them")
+        if error is not None:
+            raise error
+        if failed:
+            raise RuntimeError(f"rank {failed[0]} failed in {op}:\n{outcomes[failed[0]][0]}")
+        return [v for _, v in outcomes]
+
+    def serve(self) -> None:
+        """A follower's loop: run each op rank 0 sends, until `stop_followers`.
+        A failure goes back to rank 0, which raises it; the loop goes on."""
+        while True:
+            command = self.receive_command()
+            if command is None:
+                return
+            self.run(*command)
+
+    def stop_followers(self) -> None:
+        """Rank 0: end every follower's `serve`."""
+        if self.is_leader:
+            with self.lock:
+                self.send_command(None)
 
     def gather(self, obj: Any) -> Optional[List[Any]]:
         """Every rank's `obj` in rank order on rank 0; None on the others."""

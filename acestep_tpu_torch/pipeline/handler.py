@@ -53,8 +53,16 @@ request, so a request's PCM does not depend on dp; as in JAX's mesh branch,
 the decode is not deferred across requests and a `chunk_sink` gets the whole
 PCM once. LoRA changes and a reload reach every rank the same way, and the
 lyric capture runs on dp group 0's first tp line (tp-sharded, the whole
-sequence); the planner, the lyric alignment, the scorers and training run on
-rank 0 alone, training on the decoder gathered whole (`training_params`).
+sequence); the lyric alignment and training run on rank 0 alone, training
+on the decoder gathered whole (`training_params`).
+
+The requests and changes travel the mesh's one command channel
+(`parallel.mesh.Mesh.lead` / `serve`), to which this handler attaches its
+ops as "dit". A planner split by `LLMHandler.enable_tensor_parallel` over the
+same mesh attaches its own as "planner": the followers' `serve_followers`
+runs both, one op at a time under the mesh's lock, and the planner's calls
+(the CoT and codes, the free-form APIs, the LM score) run on dp group 0's
+sp-0 tp line. A planner left whole runs on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -65,10 +73,8 @@ import os
 import queue
 import random
 import re
-import sys
 import threading
 import time
-import traceback
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -240,10 +246,6 @@ class AceStepHandler:
         self._decode_retries = 0
         self.lora = LoRARegistry(self.device)
         self.mesh: Optional[Mesh] = None
-        # Rank 0's exchanges with its followers, one at a time across threads.
-        self._mesh_lock = threading.Lock()
-        # Set when a change reached some ranks and failed on others.
-        self._out_of_step: Optional[str] = None
 
     # ------------------------------------------------------------------
     # LoRA lifecycle (on every rank under a mesh)
@@ -875,8 +877,7 @@ class AceStepHandler:
         if dp * sp * tp <= 1:
             return
         self.check_mesh_shape(sp, tp)  # before make_mesh, whose groups every rank must enter
-        self.mesh = make_mesh(dp=dp, sp=sp, tp=tp, timeout=timeout, device=self.device)
-        self._replicate()
+        self._use_mesh(make_mesh(dp=dp, sp=sp, tp=tp, timeout=timeout, device=self.device))
 
     def enable_data_parallel(self, mesh: Optional[Mesh] = None) -> None:
         """Split request batches over the mesh's dp axis (by default every
@@ -912,6 +913,7 @@ class AceStepHandler:
     def _use_mesh(self, mesh: Mesh) -> None:
         self.check_mesh_shape(mesh.shape["sp"], mesh.shape["tp"])
         self.mesh = mesh
+        mesh.attach("dit", self)
         self._replicate()
 
     def _replicate(self) -> None:
@@ -950,19 +952,15 @@ class AceStepHandler:
 
     def serve_followers(self) -> None:
         """A follower rank's loop: run each request or change rank 0 sends,
-        until rank 0 calls `stop_followers`. A failure goes back to rank 0,
-        which raises it; the loop goes on."""
-        while True:
-            command = self.mesh.receive_command()
-            if command is None:
-                return
-            self._run(*command)
+        until rank 0 calls `stop_followers` (`Mesh.serve`: the ops of every
+        handler on the mesh, a split planner's too). A failure goes back to
+        rank 0, which raises it; the loop goes on."""
+        self.mesh.serve()
 
     def stop_followers(self) -> None:
         """Rank 0: end every follower's `serve_followers`."""
         if self.mesh is not None and self.mesh.is_leader:
-            with self._mesh_lock:
-                self.mesh.send_command(None)
+            self.mesh.stop_followers()
 
     def _local(self, op: str, kwargs: Dict[str, Any]) -> Any:
         """`op` on this rank alone."""
@@ -994,40 +992,9 @@ class AceStepHandler:
         return self._lead(op, kwargs)[0]
 
     def _lead(self, op: str, kwargs: Dict[str, Any]) -> List[Any]:
-        """Rank 0: send `op` to the followers, run it here, and return every
-        rank's value in rank order (`_run`)."""
-        if not self.mesh.is_leader:
-            raise RuntimeError(f"rank {self.mesh.rank} follows rank 0: run serve_followers() on it")
-        with self._mesh_lock:
-            if self._out_of_step is not None:
-                raise RuntimeError(self._out_of_step)
-            self.mesh.send_command((op, kwargs))
-            return self._run(op, kwargs)
-
-    def _run(self, op: str, kwargs: Dict[str, Any]) -> Optional[List[Any]]:
-        """`op` on this rank, then every rank's outcome gathered on rank 0,
-        which raises its own error, or else a follower's with that rank's
-        traceback. A change that failed on some ranks and not on others
-        leaves the ranks out of step: every later request raises."""
-        try:
-            value, error = self._local(op, kwargs), None
-        except Exception as e:  # noqa: BLE001 — every rank reaches the gather; rank 0 raises
-            value, error = None, e
-        report = None if error is None else "".join(traceback.format_exception(error))
-        outcomes = self.mesh.gather((report, value))
-        if outcomes is None:
-            if report is not None:
-                print(f"rank {self.mesh.rank}: {op} failed\n{report}", file=sys.stderr, flush=True)
-            return None
-        failed = [r for r, (rep, _) in enumerate(outcomes) if rep is not None]
-        if op not in _READ_ONLY_OPS and 0 < len(failed) < len(outcomes):
-            self._out_of_step = (f"{op} failed on ranks {failed} and not on the others, so the ranks no "
-                                 "longer hold the same model: restart them")
-        if error is not None:
-            raise error
-        if failed:
-            raise RuntimeError(f"rank {failed[0]} failed in {op}:\n{outcomes[failed[0]][0]}")
-        return [v for _, v in outcomes]
+        """Rank 0: `op` on every rank through the mesh's command channel
+        (`Mesh.lead`); every rank's value in rank order."""
+        return self.mesh.lead("dit", op, kwargs, read_only=op in _READ_ONLY_OPS)
 
     def _lead_generate(self, request: Dict[str, Any]) -> Dict[str, Any]:
         """Rank 0's `generate_music` under a mesh. The seeds are fixed here,
@@ -1038,8 +1005,8 @@ class AceStepHandler:
         `chunk_sink` once, the float conversion, and with `async_finish`
         both deferred to `finish`. `time_costs` are rank 0's."""
         t_start = time.time()
-        if self._out_of_step is not None:
-            raise RuntimeError(self._out_of_step)
+        if self.mesh.out_of_step is not None:
+            raise RuntimeError(self.mesh.out_of_step)
         captions = request["captions"]
         b = request["batch_size"] or (1 if isinstance(captions, str) else len(captions))
         seeds, _ = self.prepare_seeds(b, request["seeds"], request["use_random_seed"] and request["seeds"] is None)

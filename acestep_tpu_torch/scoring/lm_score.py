@@ -6,7 +6,9 @@ through tanh; the composite reward mixes the PMI, the share of code tokens in
 the planner's top k, and the metadata recall. The log-probabilities come from
 one teacher-forced forward over prompt + codes (`qwen3.forward_hidden`, so
 the flash kernel on the card once the sequence reaches 256 tokens), fp32
-logits and `log_softmax`, with no per-token loop.
+logits and `log_softmax`, with no per-token loop. Each score's forward runs
+as one planner call (`LLMHandler.on_line`), so a planner split over a mesh
+computes it on its tp line.
 """
 
 from __future__ import annotations
@@ -32,10 +34,10 @@ def pmi_to_normalized_score(pmi: float, scale: float = 0.1) -> float:
 
 
 @torch.inference_mode()
-def _token_log_probs(params, cfg, input_ids: torch.Tensor, target_mask: torch.Tensor):
+def _token_log_probs(params, cfg, input_ids: torch.Tensor, target_mask: torch.Tensor, tp_sum=None):
     """Per-token log P(token | prefix), the mask of the scored positions and
     the logits that predict them (logits at position i predict token i+1)."""
-    hidden = qwen3.forward_hidden(params, cfg, input_ids)
+    hidden = qwen3.forward_hidden(params, cfg, input_ids, tp_sum=tp_sum)
     logits = qwen3.logits_from_hidden(params, cfg, hidden).float()
     logp = torch.log_softmax(logits, dim=-1)
     targets = input_ids[:, 1:].long()
@@ -50,12 +52,16 @@ def _scored(llm_handler, prompt: str, continuation_ids: List[int]):
     mask = np.zeros_like(ids)
     mask[0, len(prompt_ids):] = 1
     out = _token_log_probs(llm_handler.params, llm_handler.config, llm_handler._tensor(ids),
-                           llm_handler._tensor(mask))
+                           llm_handler._tensor(mask), llm_handler._tp_sum)
     return ids, out
 
 
 def sequence_log_prob(llm_handler, prompt: str, continuation_ids: List[int]) -> Tuple[float, float]:
     """(total log-prob, mean log-prob) of the continuation given the prompt."""
+    return llm_handler.on_line(_sequence_log_prob, prompt, continuation_ids)
+
+
+def _sequence_log_prob(llm_handler, prompt: str, continuation_ids: List[int]) -> Tuple[float, float]:
     _, (token_logp, m, _) = _scored(llm_handler, prompt, continuation_ids)
     total = float((token_logp * m).sum())
     n = float(m.sum())
@@ -64,6 +70,10 @@ def sequence_log_prob(llm_handler, prompt: str, continuation_ids: List[int]) -> 
 
 def topk_recall(llm_handler, prompt: str, continuation_ids: List[int], k: int = 10) -> float:
     """Share of the continuation's tokens within the planner's top k."""
+    return llm_handler.on_line(_topk_recall, prompt, continuation_ids, k)
+
+
+def _topk_recall(llm_handler, prompt: str, continuation_ids: List[int], k: int) -> float:
     ids, (_, m, logits) = _scored(llm_handler, prompt, continuation_ids)
     kth = torch.topk(logits, k, dim=-1).values[..., -1]
     targets = torch.as_tensor(ids[0, 1:], device=logits.device).long()

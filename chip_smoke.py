@@ -18,8 +18,9 @@ Phases, each fatal on failure:
      planner's prefill (causal + right-padded prompt, 2 x 1024 and 2 x 2048,
      32/8 heads) and at 1 x 7 500 DiT tokens (full, sliding w = 128, cross onto
      769 padded keys), whole and on one rank of dp1 x sp2 x tp2 (8/4 heads,
-     3 750 local queries, 4 006 halo'd sliding rows); the narrow route of kernels 2 and 3 in bf16 and fp32
-     (the tiny checkpoint's 16-channel blocks, a 384 -> 192 block, the chain
+     3 750 local queries, 4 006 halo'd sliding rows), and the planner's
+     prefill on one rank of tp = 2 (16/4 heads); the narrow route of
+     kernels 2 and 3 in bf16 and fp32 (the tiny checkpoint's 16-channel blocks, a 384 -> 192 block, the chain
      at 64 channels; in fp32 also the full-width chain and blocks 1-4 at the
      544-frame chunk, with the 3xTF32 bound; `run_narrow_phase`), then a
      full-width 1 x 60 s decode in fp32, the path of a handler built in fp32,
@@ -80,13 +81,22 @@ Phases, each fatal on failure:
      rank left);
   6. requests with thinking on through `service.inference.generate_music` and
      the 4B planner (`LLMHandler(LM_CONFIGS["4B"])`), 1 x 60 s and 2 x 60 s
-     after an untimed warm-up, and a profile of the planner's decode step;
+     after an untimed 1 x 10 s warm-up, and a profile of the planner's
+     decode step;
      then the planner's free-form APIs (`run_free_form`: create_sample,
      format_sample, understand on a thinking request's codes, 128 new
      tokens each; a `sample_mode` and an `analysis_only` request through the
      service): seconds, tokens per second, parsed metadata; then the LM
      reward score on a thinking request's codes (`run_scoring`), and the
-     narrow planner's `sequence_log_prob` on the card against the CPU;
+     narrow planner's `sequence_log_prob` on the card against the CPU; then
+     the planner's tensor parallelism (`run_planner_tensor_parallel`: two
+     ranks at dp1 x sp1 x tp2 on the one card, each with the full-width DiT
+     and the 4B planner split over both; a 1 x 10 s thinking request through
+     the service, `create_sample_from_query` and `sequence_log_prob` on the
+     split planner; each rank's slice shapes, launches, collectives and peak
+     memory; the ranks' token ids equal, the prefill logits within
+     `PLANNER_TP_LOGITS_TOL` of the whole planner; `cli generate --tp 2
+     --thinking`, no rank left);
   7. the probe's entry point (`acestep_tpu_torch.tools.probe_kernel_parts`);
   8. training: kernel 1's fp32 route against its plain version at the
      training path's shapes (`run_f32_attention_phase`, run with phase 3's
@@ -113,7 +123,7 @@ Phases, each fatal on failure:
      sum over the paths of phases 4 (checkpoint_tiny), 5 (text2music, audio
      inputs, base, serving, the serving phase's direct calls, lora, lrc, the
      two data-parallel ranks, the four sp / tp ranks), 6
-     (thinking, free-form, scoring), 8 (training, the trained adapter
+     (thinking, free-form, scoring, the two planner tp ranks), 8 (training, the trained adapter
      served; the fp32 route's launches are `flash_attention_f32`'s), 7 and
      phase 3's fp32 decode (the Oobleck kernels' narrow-route calls also in
      `narrow_launches`). Each
@@ -263,7 +273,8 @@ def attention_cases(dev, gen):
     three on one rank of dp1 x sp2 x tp2 (8 / 4 heads): 3 750 local queries
     against the 7 500 gathered keys, the sliding layer's 4 006 halo'd rows
     (rank 0's: its first 128 rows lie before the sequence, masked), and the
-    cross-attention's local queries."""
+    cross-attention's local queries; and the 4B planner's prefill buckets on
+    one rank of tp = 2 (16 / 4 heads)."""
 
     def qkv(b, lq, lk, nq=16, nkv=8):
         mk = lambda l, n: torch.randn((b, l, n, 128), generator=gen, device=dev).to(torch.bfloat16)
@@ -290,6 +301,10 @@ def attention_cases(dev, gen):
         ("lm4b_prefill_cot_2x1024", qkv(2, 1024, 1024, 32, 8),
          dict(kv_mask=prompt_mask([761, 703], 1024), causal=True)),
         ("lm4b_prefill_codes_2x2048", qkv(2, 2048, 2048, 32, 8),
+         dict(kv_mask=prompt_mask([1130, 778], 2048), causal=True)),
+        ("lm4b_prefill_cot_2x1024_tp2", qkv(2, 1024, 1024, 16, 4),
+         dict(kv_mask=prompt_mask([761, 703], 1024), causal=True)),
+        ("lm4b_prefill_codes_2x2048_tp2", qkv(2, 2048, 2048, 16, 4),
          dict(kv_mask=prompt_mask([1130, 778], 2048), causal=True)),
         ("dit_self_full_600s_b1", qkv(1, 7500, 7500), dict(kv_mask=lat_600)),
         ("dit_self_sliding_600s_b1", qkv(1, 7500, 7500), dict(kv_mask=lat_600, window=128)),
@@ -1929,11 +1944,18 @@ def _spawned_ranks(pid: int) -> list:
 
 
 def _dp_cli(tmp: str) -> dict:
-    """`cli generate --dp 2` (2 x 30 s), then `cli serve --dp 2` (one 2 x 10 s
-    job over loopback HTTP, then SIGTERM), each in a subprocess: walls, exit
-    codes, files, and whether any of the server's ranks was left."""
-    import signal
+    """`cli generate --dp 2` (2 x 30 s) and `cli serve --dp 2` (one 2 x 10 s
+    job over loopback HTTP, then SIGTERM), each in a subprocess, at once (to
+    keep the script inside its time): walls, exit codes, files, and whether
+    any of the server's ranks was left."""
+    from concurrent.futures import ThreadPoolExecutor
 
+    with ThreadPoolExecutor(2) as pool:
+        generate, serve = pool.submit(_dp_generate, tmp), pool.submit(_dp_serve, tmp)
+        return {**generate.result(), **serve.result()}
+
+
+def _dp_generate(tmp: str) -> dict:
     from acestep_tpu_torch.utils import native_audio
 
     out = {}
@@ -1953,7 +1975,15 @@ def _dp_cli(tmp: str) -> dict:
     shapes = [native_audio.flac_decode(open(os.path.join(tmp, "gen", f), "rb").read())[0].shape for f in files]
     out["generate_files_ok"] = shapes == [(2, 30 * 48000)] * 2
     out["generate_tail"] = text.splitlines()[-4:]
+    return out
 
+
+def _dp_serve(tmp: str) -> dict:
+    import signal
+
+    from acestep_tpu_torch.utils import native_audio
+
+    out = {}
     log_path = os.path.join(tmp, "serve.log")
     t0 = time.time()
     with open(log_path, "w") as log:
@@ -2131,27 +2161,28 @@ def _sp_tp_rank():
     return out
 
 
-def _sp_tp_cli(tmp: str) -> dict:
-    """`cli generate --sp 2 --tp 2` (1 x 30 s) in a subprocess: its wall,
-    exit code, file, mesh line, and whether any of its four ranks was left."""
+def _mesh_cli(tmp: str, flags: list, n_ranks: int, seconds: int) -> dict:
+    """`cli generate --random-init <flags> --duration <seconds>` (batch 1)
+    in a subprocess: its wall, exit code, file, its load and mesh lines, and
+    whether any of its `n_ranks` ranks was left."""
     from acestep_tpu_torch.utils import native_audio
 
     out = {}
     log_path = os.path.join(tmp, "generate.log")
     t0 = time.time()
     with open(log_path, "w") as log:
-        gen = subprocess.Popen([sys.executable, "-m", "acestep_tpu_torch.cli", "generate", "--random-init", "--sp",
-                                "2", "--tp", "2", "--duration", "30", "--seed", "5", "--caption", CAPTION,
+        gen = subprocess.Popen([sys.executable, "-m", "acestep_tpu_torch.cli", "generate", "--random-init", *flags,
+                                "--duration", str(seconds), "--seed", "5", "--caption", CAPTION,
                                 "--output-dir", os.path.join(tmp, "gen")],
                                cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log, stderr=subprocess.STDOUT)
     ranks: list = []
     try:
         while gen.poll() is None and time.time() - t0 < 300:
-            if len(ranks) < 4:
+            if len(ranks) < n_ranks:
                 ranks = _spawned_ranks(gen.pid)
             time.sleep(0.2)
         if gen.poll() is None:
-            raise SystemExit(f"cli generate --sp 2 --tp 2 ran past 300 s:\n{open(log_path).read()[-3000:]}")
+            raise SystemExit(f"cli generate {' '.join(flags)} ran past 300 s:\n{open(log_path).read()[-3000:]}")
     finally:
         if gen.poll() is None:
             gen.kill()
@@ -2161,11 +2192,12 @@ def _sp_tp_cli(tmp: str) -> dict:
     gen_dir = os.path.join(tmp, "gen")
     files = sorted(f for f in os.listdir(gen_dir) if f.endswith(".flac")) if os.path.isdir(gen_dir) else []
     shapes = [native_audio.flac_decode(open(os.path.join(gen_dir, f), "rb").read())[0].shape for f in files]
-    out["generate_files_ok"] = shapes == [(2, 30 * 48000)]
+    out["generate_files_ok"] = shapes == [(2, seconds * 48000)]
     out["generate_ranks"] = len(ranks)
     out["generate_ranks_left"] = [p for p in ranks if os.path.exists(f"/proc/{p}")]
     text = open(log_path).read()
-    out["generate_log"] = [ln for ln in text.splitlines() if ln.startswith(("initialized", "mesh enabled"))]
+    out["generate_log"] = [ln for ln in text.splitlines() if ln.startswith(("initialized", "mesh enabled",
+                                                                            "planner mesh"))]
     if gen.returncode:
         out["generate_tail"] = text.splitlines()[-20:]
     return out
@@ -2183,11 +2215,13 @@ def run_sequence_tensor_parallel(h, smi: str):
     memory, and its collectives (count, host clock: over gloo a call
     includes the wait for the slowest rank); the rows held against the same
     request at dp = 1 on the script's handler `h` (SP_TP_REL_L2_TOL) and
-    SP_TP_SEPARATION from the request at another seed; then `cli generate
-    --sp 2 --tp 2` in a subprocess (`_sp_tp_cli`). Returns the four ranks'
-    launches summed."""
+    SP_TP_SEPARATION from the request at another seed; `cli generate --sp 2
+    --tp 2` runs in a subprocess beside them (`_mesh_cli`, to keep the script
+    inside its time: the ranks' walls include its share of the card and the
+    host). Returns the four ranks' launches summed."""
     import shutil
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     from acestep_tpu_torch.parallel.mesh import launch
     from acestep_tpu_torch.service.inference import generate_music
@@ -2196,43 +2230,46 @@ def run_sequence_tensor_parallel(h, smi: str):
     torch.cuda.empty_cache()
     if h.lora_status():
         raise SystemExit(f"sp / tp: the dp = 1 handler still has adapters {h.lora_status()}")
-    t0 = time.time()
-    got = launch(_sp_tp_rank, 4, deadline_s=600.0)
-    launch_s = time.time() - t0
-    ranks = got["ranks"]
-    full_heads = h.config.num_attention_heads * h.config.head_dim
-    ranks_ok = (len(ranks) == 4 and all(r["device"] == "cuda:0" for r in ranks)
-                and [r["coord"] for r in ranks] == [dict(dp=0, sp=s, tp=t) for s in range(2) for t in range(2)]
-                and all(r["q_proj"] == [h.config.hidden_size, full_heads // 2] for r in ranks)
-                and all(r["launches"]["flash_attention"] > 0 and r["collectives"] > 0 for r in ranks)
-                and all((r["launches"][k] > 0) == (i == 0) for i, r in enumerate(ranks)
-                        for k in ("decoder_block", "res_units"))
-                and all(not any(r["narrow_launches"].values()) for r in ranks))
-
-    checks = {}
-    outs = []
-    for seed in SP_TP_SEEDS:
-        r1 = generate_music(h, None, GenerationParams(caption=CAPTION, lyrics=LYRICS, duration=SP_TP_SECONDS,
-                                                      thinking=False),
-                            GenerationConfig(batch_size=1, seeds=[seed]), save_audio=False)
-        if not r1.success:
-            raise SystemExit(f"sp / tp: the dp = 1 request failed: {r1.error}")
-        d1 = h.generate_music(CAPTION, LYRICS, batch_size=1, audio_duration=SP_TP_SECONDS, seeds=[seed],
-                              use_random_seed=False, normalize_db=-1.0, return_int16=True)
-        outs.append(dict(service_pcm=np.stack([x["audio"] for x in r1.audios]), latents=d1["latents"],
-                         pcm=d1["audios"]))
-    for name in ("service_pcm", "latents", "pcm"):
-        a = got[name]
-        finite = bool(np.isfinite(a.astype(np.float64)).all()) and a.shape == outs[0][name].shape
-        same = _rel_l2_rows(a, outs[0][name])[0][0] if finite else None
-        other = _rel_l2_rows(a, outs[1][name])[0][0] if finite else None
-        ok = finite and same <= SP_TP_REL_L2_TOL and other >= SP_TP_SEPARATION * same
-        checks[name] = dict(ok=ok, shape=list(a.shape), same_seed=same, other_seed=other)
-    rows_ok = all(c["ok"] for c in checks.values())
     tmp = tempfile.mkdtemp(prefix="chip_smoke_sp_tp_")
+    pool = ThreadPoolExecutor(1)
     try:
-        cli = _sp_tp_cli(tmp)
+        cli_run = pool.submit(_mesh_cli, tmp, ["--sp", "2", "--tp", "2"], 4, 30)
+        t0 = time.time()
+        got = launch(_sp_tp_rank, 4, deadline_s=600.0)
+        launch_s = time.time() - t0
+        ranks = got["ranks"]
+        full_heads = h.config.num_attention_heads * h.config.head_dim
+        ranks_ok = (len(ranks) == 4 and all(r["device"] == "cuda:0" for r in ranks)
+                    and [r["coord"] for r in ranks] == [dict(dp=0, sp=s, tp=t) for s in range(2) for t in range(2)]
+                    and all(r["q_proj"] == [h.config.hidden_size, full_heads // 2] for r in ranks)
+                    and all(r["launches"]["flash_attention"] > 0 and r["collectives"] > 0 for r in ranks)
+                    and all((r["launches"][k] > 0) == (i == 0) for i, r in enumerate(ranks)
+                            for k in ("decoder_block", "res_units"))
+                    and all(not any(r["narrow_launches"].values()) for r in ranks))
+
+        checks = {}
+        outs = []
+        for seed in SP_TP_SEEDS:
+            r1 = generate_music(h, None, GenerationParams(caption=CAPTION, lyrics=LYRICS, duration=SP_TP_SECONDS,
+                                                          thinking=False),
+                                GenerationConfig(batch_size=1, seeds=[seed]), save_audio=False)
+            if not r1.success:
+                raise SystemExit(f"sp / tp: the dp = 1 request failed: {r1.error}")
+            d1 = h.generate_music(CAPTION, LYRICS, batch_size=1, audio_duration=SP_TP_SECONDS, seeds=[seed],
+                                  use_random_seed=False, normalize_db=-1.0, return_int16=True)
+            outs.append(dict(service_pcm=np.stack([x["audio"] for x in r1.audios]), latents=d1["latents"],
+                             pcm=d1["audios"]))
+        for name in ("service_pcm", "latents", "pcm"):
+            a = got[name]
+            finite = bool(np.isfinite(a.astype(np.float64)).all()) and a.shape == outs[0][name].shape
+            same = _rel_l2_rows(a, outs[0][name])[0][0] if finite else None
+            other = _rel_l2_rows(a, outs[1][name])[0][0] if finite else None
+            ok = finite and same <= SP_TP_REL_L2_TOL and other >= SP_TP_SEPARATION * same
+            checks[name] = dict(ok=ok, shape=list(a.shape), same_seed=same, other_seed=other)
+        rows_ok = all(c["ok"] for c in checks.values())
+        cli = cli_run.result()
     finally:
+        pool.shutdown()
         shutil.rmtree(tmp, ignore_errors=True)
     cli_ok = (cli["generate_exit_code"] == 0 and cli["generate_files_ok"] and cli["generate_ranks"] == 4
               and not cli["generate_ranks_left"])
@@ -2298,6 +2335,254 @@ def run_scoring(dev, llm, codes: str):
     if not ok:
         raise SystemExit(f"narrow sequence_log_prob: {a} against {b}")
     return launches
+
+
+# The planner's tensor parallelism on the card (`run_planner_tensor_parallel`):
+# two ranks (dp1 x sp1 x tp2) share the one H100, so the phase proves the
+# path, not a speed-up. Each rank holds half of the 4B planner's q/k/v/gate/up
+# columns and o/down rows; each rowwise product's fp32 partials are summed
+# over the two ranks before the one rounding to bf16, as one card's GEMM
+# rounds its fp32 accumulators once, so the bf16 activations differ from the
+# whole planner's only where the order of an fp32 sum moves a rounding. The
+# prefill logits' relative L2 against the whole planner (the script's own, the
+# same seed) may be at most this: a bf16 rounding is 2^-9 of a value, and such
+# flips compound over 36 layers and their two sums each. Written before the
+# first call.
+PLANNER_TP_LOGITS_TOL = 5e-2
+PLANNER_TP_SEED = 91  # the thinking request's seed
+PLANNER_TP_SECONDS = 10.0
+
+
+def _prefill_logits(llm, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """The planner's prefill logits (fp32, on the host) of a right-padded
+    prompt batch; a split planner runs it through `LLMHandler.on_line`."""
+    from acestep_tpu_torch.models import qwen3
+
+    cache = qwen3.KVCache.create(llm.config, ids.shape[0], ids.shape[1], llm.dtype, llm.device,
+                                 qwen3.kv_heads(llm.params, llm.config))
+    with torch.inference_mode():
+        logits, _ = qwen3.prefill(llm.params, llm.config, llm._tensor(ids), llm._tensor(mask), cache, llm._tp_sum)
+    return logits.float().cpu().numpy()
+
+
+def _planner_prompt(llm):
+    """The thinking request's CoT prompts with their CFG row: ids and mask."""
+    prompts = [llm.build_formatted_prompt(CAPTION, LYRICS, generation_phase="cot"),
+               llm.build_formatted_prompt(CAPTION, LYRICS, is_negative_prompt=True, generation_phase="cot")]
+    ids, mask, _ = llm._encode_prompts(prompts, budget=350)
+    return ids, mask
+
+
+def _planner_4b(dev):
+    """The 4B planner of `run_thinking_requests` (seed 0), its code range
+    pointed at the top 64 000 ids."""
+    from acestep_tpu_torch.lm.handler import LLMHandler
+    from acestep_tpu_torch.params import LM_CONFIGS
+
+    llm = LLMHandler(LM_CONFIGS["4B"], device=dev)
+    llm.initialize(random_init=True, seed=0)
+    llm.fsm.num_code_tokens = 64_000
+    llm.fsm.code_token_start = llm.config.vocab_size - 64_000
+    return llm
+
+
+def _planner_tp_request(h, llm) -> dict:
+    """The phase's calls on the planner `llm` (split or whole) and the DiT
+    `h` that the whole planner repeats: the CoT prompt's prefill logits, a
+    1 x 10 s thinking request through the service and its codes' sequence
+    log-prob; with each call's wall."""
+    from acestep_tpu_torch.lm.constrained import _encode
+    from acestep_tpu_torch.scoring.lm_score import sequence_log_prob
+    from acestep_tpu_torch.service.inference import generate_music
+    from acestep_tpu_torch.service.params import GenerationConfig, GenerationParams
+
+    out, walls = {}, {}
+    ids, mask = _planner_prompt(llm)
+    t0 = time.time()
+    out["logits"] = llm.on_line(_prefill_logits, ids, mask)
+    walls["prefill_s"] = time.time() - t0
+    t0 = time.time()
+    r = generate_music(h, llm, GenerationParams(caption=CAPTION, lyrics=LYRICS, duration=PLANNER_TP_SECONDS,
+                                                seed=PLANNER_TP_SEED, thinking=True),
+                       GenerationConfig(batch_size=1, use_random_seed=False, seeds=[PLANNER_TP_SEED]),
+                       save_audio=False)
+    torch.cuda.synchronize()
+    walls["thinking_request_s"] = time.time() - t0
+    if not r.success:
+        raise RuntimeError(f"thinking request failed: {r.error}")
+    out["pcm"] = r.audios[0]["audio"]
+    out["cot_text"], out["codes"] = r.extra_outputs.get("cot_text", ""), r.extra_outputs["audio_codes"]
+    out["time_costs"] = r.extra_outputs["time_costs"]
+    prompt = llm.build_formatted_prompt(CAPTION, LYRICS, generation_phase="codes")
+    t0 = time.time()
+    out["log_prob"] = sequence_log_prob(llm, prompt, _encode(llm.tokenizer, out["codes"])[:1024])
+    walls["log_prob_s"] = time.time() - t0
+    out["walls"] = walls
+    return out
+
+
+def _planner_tp_rank():
+    """One of the two ranks of `run_planner_tensor_parallel`, spawned by the
+    port's launcher: the full-width DiT (seed 0, bf16) at dp1 x sp1 x tp2,
+    then the 4B planner split over the same mesh (its digest check and the
+    tp plan timed); rank 0 runs `_planner_tp_request` while rank 1 follows.
+    Every rank hashes the token ids its planner drew (`LLMHandler._note`) and
+    reads its slice shapes, launch counters, collectives, peak memory and
+    device; rank 0 returns them with the results."""
+    import hashlib
+
+    from acestep_tpu_torch.parallel.mesh import rank_device
+    from acestep_tpu_torch.pipeline.handler import AceStepHandler
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the script's own process
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device()
+    t0 = time.time()
+    h = AceStepHandler(device=dev)
+    h.initialize_service(random_init=True, seed=0)
+    h.enable_mesh(dp=1, sp=1, tp=2)
+    dit_s = time.time() - t0
+    t0 = time.time()
+    llm = _planner_4b(dev)
+    init_s = time.time() - t0
+    t0 = time.time()
+    llm.enable_tensor_parallel(h.mesh)
+    split_s = time.time() - t0
+    drawn = hashlib.sha256()
+    counts = {"sequences": 0, "tokens": 0}
+    note = llm._note
+
+    def hashed(rows):
+        for row in rows:
+            row = np.asarray(row, np.int64).reshape(-1)
+            drawn.update(row.tobytes() + b"|")
+            counts["sequences"] += 1
+            counts["tokens"] += int(row.size)
+        note(rows)
+
+    llm._note = hashed
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counters()
+    h.mesh.collective_s, h.mesh.collectives = 0.0, 0
+    out = {}
+    if h.mesh.is_leader:
+        try:
+            out = _planner_tp_request(h, llm)
+            before = (h.mesh.collectives, h.mesh.collective_s)
+            t0 = time.time()
+            draft = llm.create_sample_from_query("a melancholic piano ballad about the sea", temperature=0.85,
+                                                 max_new_tokens=64, seed=11)
+            # Its prefill and decode steps alone: 2 sums a layer each.
+            out["draft"] = dict({k: draft[k] for k in ("text", "route", "tokens")}, seconds=time.time() - t0,
+                                collectives=h.mesh.collectives - before[0],
+                                collective_s=h.mesh.collective_s - before[1])
+        finally:
+            h.stop_followers()
+    else:
+        h.serve_followers()
+    counters = _counters()
+    layer = llm.params["layers"][0]
+    mine = dict(device=str(dev), coord=h.mesh.coord, backend=h.mesh.backend, dit_init_and_mesh_s=dit_s,
+                planner_init_s=init_s, enable_tensor_parallel_s=split_s,
+                q_proj=list(layer["self_attn"]["q_proj"]["kernel"].shape),
+                down_proj=list(layer["mlp"]["down_proj"]["kernel"].shape),
+                drawn_sha256=drawn.hexdigest(), drawn=counts,
+                collectives=h.mesh.collectives, collective_s=h.mesh.collective_s,
+                launches={k: fn.launches for k, fn in counters.items()},
+                narrow_launches={k: counters[k].narrow_launches for k in _OOBLECK},
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    mine["launches"]["flash_attention_f32"] = counters["flash_attention"].f32_launches
+    out["ranks"] = h.mesh.gather(mine)
+    return out
+
+
+def _common_prefix(a, b) -> int:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def run_planner_tensor_parallel(dit, llm, smi: str):
+    """The planner's tensor parallelism on the card: two ranks spawned
+    through the port's launcher, both on the one H100, each with the
+    full-width DiT and the 4B planner split over dp1 x sp1 x tp2
+    (`_planner_tp_rank`); rank 0 runs `_planner_tp_request` (a 1 x 10 s
+    thinking request through the service, a sequence log-prob) and a
+    64-token draft as mesh ops on the planner's line. Beside the ranks, to
+    keep the script inside its time, run `cli generate --tp 2 --thinking` in
+    a subprocess (`_mesh_cli`) and the whole planner's requests on a thread
+    of this process: every wall of the phase includes their share of the
+    card and the host. Held: each rank's q_proj and down_proj
+    at half width, kernel 1 launched on both ranks, kernels 2 and 3 on rank 0
+    only, no narrow-route call, the collectives above 0, and the token ids
+    the two ranks drew equal (their hashes); the prefill logits within
+    PLANNER_TP_LOGITS_TOL of the script's whole 4B planner `llm` (the same
+    seed), whose own `_planner_tp_request` on the script's DiT `dit` gives
+    the common prefix of the CoT and of the codes and the log-prob
+    difference (reported, not held). Returns the two ranks' launches
+    summed."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from acestep_tpu_torch.parallel.mesh import launch
+
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_planner_tp_")
+    try:
+        with ThreadPoolExecutor(2) as pool:
+            cli_run = pool.submit(_mesh_cli, tmp, ["--tp", "2", "--thinking"], 2, 10)
+            whole_run = pool.submit(_planner_tp_request, dit, llm)
+            t0 = time.time()
+            got = launch(_planner_tp_rank, 2, deadline_s=600.0)
+            launch_s = time.time() - t0
+            whole, cli = whole_run.result(), cli_run.result()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ranks = got["ranks"]
+    cfg = llm.config
+    half_q = [cfg.hidden_size, cfg.num_attention_heads * cfg.head_dim // 2]
+    half_down = [cfg.intermediate_size // 2, cfg.hidden_size]
+    ranks_ok = (len(ranks) == 2 and all(r["device"] == "cuda:0" for r in ranks)
+                and all(r["q_proj"] == half_q and r["down_proj"] == half_down for r in ranks)
+                and all(r["launches"]["flash_attention"] > 0 and r["collectives"] > 0 for r in ranks)
+                and all((r["launches"][k] > 0) == (i == 0) for i, r in enumerate(ranks)
+                        for k in ("decoder_block", "res_units"))
+                and all(not any(r["narrow_launches"].values()) for r in ranks))
+    same_tokens = ranks[0]["drawn"]["tokens"] > 0 and len({(r["drawn_sha256"], r["drawn"]["tokens"])
+                                                           for r in ranks}) == 1
+
+    a, b = got["logits"].astype(np.float64), whole["logits"].astype(np.float64)
+    rel = [float(np.linalg.norm(a[i] - b[i]) / np.linalg.norm(b[i])) for i in range(len(b))]
+    logits_ok = bool(np.isfinite(a).all()) and a.shape == b.shape and max(rel) <= PLANNER_TP_LOGITS_TOL
+    code_ids = [dit.parse_audio_codes(c) for c in (got["codes"], whole["codes"])]
+    pcm = got["pcm"]
+    pcm_ok = pcm.shape == (2, int(PLANNER_TP_SECONDS * 48000)) and int(np.abs(pcm.astype(np.int32)).max()) > 0
+    lp = (got["log_prob"][0], whole["log_prob"][0])
+    lp_ok = all(np.isfinite(x) for x in lp)
+    cli_ok = (cli["generate_exit_code"] == 0 and cli["generate_files_ok"] and cli["generate_ranks"] == 2
+              and not cli["generate_ranks_left"]
+              and sum(ln.startswith("planner mesh") for ln in cli["generate_log"]) == 1)
+    ok = ranks_ok and same_tokens and logits_ok and pcm_ok and lp_ok and cli_ok
+    collectives_per_token = 2 * cfg.num_hidden_layers
+    print(json.dumps(dict(
+        phase="planner tensor parallel dp1 x sp1 x tp2, the 4B planner split over two ranks on one card (proves "
+              "the path, not a speed-up)", ok=ok, card=smi, launch_wall_s=launch_s, ranks=ranks,
+        same_token_ids=same_tokens, collectives_per_decode_step=collectives_per_token,
+        prefill_logits_rel_l2=rel, tol=PLANNER_TP_LOGITS_TOL,
+        cot_common_prefix_chars=_common_prefix(got["cot_text"], whole["cot_text"]),
+        cot_chars=[len(got["cot_text"]), len(whole["cot_text"])],
+        codes_common_prefix=_common_prefix(*code_ids), codes=[len(c) for c in code_ids],
+        log_prob_tp_whole=lp, log_prob_rel_diff=abs(lp[0] - lp[1]) / abs(lp[1]) if lp[1] else None,
+        draft=got["draft"], rank0_walls=got["walls"], whole_walls=whole["walls"],
+        rank0_time_costs=got["time_costs"], whole_time_costs=whole["time_costs"], cli=cli)), flush=True)
+    if not ok:
+        raise SystemExit(f"planner tensor parallel: ranks {ranks_ok}, same tokens {same_tokens}, logits {logits_ok} "
+                         f"({rel}), pcm {pcm_ok}, log-prob {lp_ok}, cli {cli_ok}")
+    return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
 
 
 def _encode_kind(name: str) -> str:
@@ -2537,8 +2822,8 @@ def run_thinking_requests(dev, dit):
 
     llm.generate_with_stop_condition = counted_lm
 
-    def request(caption, b, seed):
-        params = GenerationParams(caption=caption, lyrics=LYRICS, duration=60.0, seed=seed, thinking=True)
+    def request(caption, b, seed, seconds=60.0):
+        params = GenerationParams(caption=caption, lyrics=LYRICS, duration=seconds, seed=seed, thinking=True)
         cfg = GenerationConfig(batch_size=b, allow_lm_batch=True, use_random_seed=False,
                                seeds=[seed + j for j in range(b)])
         torch.cuda.synchronize()
@@ -2547,10 +2832,11 @@ def run_thinking_requests(dev, dit):
         torch.cuda.synchronize()
         return r, time.time() - t
 
-    r, wall = request(THINKING_CAPTION, 1, 7)
+    # A 10 s warm-up: the same steps as the timed requests, fewer codes.
+    r, wall = request(THINKING_CAPTION, 1, 7, seconds=10.0)
     if not r.success:
         raise SystemExit(f"thinking warm-up failed: {r.error}")
-    print(json.dumps(dict(phase="warm-up thinking request b1x60s, other caption (untimed below)",
+    print(json.dumps(dict(phase="warm-up thinking request b1x10s, other caption (untimed below)",
                           seconds=wall)), flush=True)
 
     _reset_counters()
@@ -3481,6 +3767,7 @@ def main() -> int:
     thinking, llm, codes = _timed_phase(seconds, "run_thinking_requests", run_thinking_requests, dev, dit)
     free_form = _timed_phase(seconds, "run_free_form", run_free_form, dit, llm, codes)
     scoring = _timed_phase(seconds, "run_scoring", run_scoring, dev, llm, codes)
+    planner_tp = _timed_phase(seconds, "run_planner_tensor_parallel", run_planner_tensor_parallel, dit, llm, smi)
     rest = _timed_phase(seconds, "run_rest_training", run_rest_training, dit, llm, smi)
     del llm
     torch.cuda.empty_cache()
@@ -3490,7 +3777,7 @@ def main() -> int:
     del dit
     torch.cuda.empty_cache()
     paths = (text2music, audio, base, serving, serving_direct, lora, lrc, data_parallel, sp_tp, thinking, free_form,
-             scoring, probe, checkpoint, fp32_decode, training, trained, *rest)
+             scoring, planner_tp, probe, checkpoint, fp32_decode, training, trained, *rest)
     launches = {k: sum(p[k] for p in paths) for k in text2music}
 
     narrow_src = "acestep_tpu_torch/csrc/oobleck_generic.cu"

@@ -101,11 +101,9 @@ def test_flash_kernel_matches_plain(dev, b, lq, lk, nq, nkv, kw):
     assert (got.float() - want).abs().max().item() < 1e-2
 
 
-@pytest.mark.parametrize("lq", [700, 1024, 2048])
-def test_flash_kernel_at_the_lm_prefill_shape(dev, lq):
-    """4B planner prefill: causal plus a right-padded prompt mask, GQA 32/8
-    (700: a length that is not a multiple of the 128-row tile)."""
-    q, k, v = _randn((2, lq, 32, 128), 6, dev), _randn((2, lq, 8, 128), 7, dev), _randn((2, lq, 8, 128), 8, dev)
+def _lm_prefill_case(dev, lq: int, nq: int, nkv: int) -> None:
+    """Causal attention with a right-padded prompt mask against the plain version."""
+    q, k, v = _randn((2, lq, nq, 128), 6, dev), _randn((2, lq, nkv, 128), 7, dev), _randn((2, lq, nkv, 128), 8, dev)
     mask = torch.ones((2, lq), dtype=torch.int32, device=dev)
     mask[0, lq - 300:] = 0
     mask[1, lq // 2:] = 0
@@ -116,6 +114,20 @@ def test_flash_kernel_at_the_lm_prefill_shape(dev, lq):
     # output alone rounds by up to 2^-9 * |out|: the bound has a relative term.
     excess = ((got.float() - want).abs() - 2.0**-7 * want.abs()).max().item()
     assert excess < 1e-2, excess
+
+
+@pytest.mark.parametrize("lq", [700, 1024, 2048])
+def test_flash_kernel_at_the_lm_prefill_shape(dev, lq):
+    """4B planner prefill: causal plus a right-padded prompt mask, GQA 32/8
+    (700: a length that is not a multiple of the 128-row tile)."""
+    _lm_prefill_case(dev, lq, 32, 8)
+
+
+@pytest.mark.parametrize("lq", [1024, 2048])
+def test_flash_kernel_at_a_tp_rank_lm_prefill_shape(dev, lq):
+    """The 4B planner's prefill on one rank of tp = 2: its local heads, 16
+    query and 4 key-value, at the CoT and codes buckets."""
+    _lm_prefill_case(dev, lq, 16, 4)
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -187,20 +187,18 @@ def test_dp2_stream_delivers_once(dp2):
 
 def test_dp2_errors_and_refusals(dp2):
     """A rank that raises makes rank 0's call raise with its message, and
-    the next request runs; the refusals that remain: a tp that does not
-    divide the DiT's heads, an sp that splits no latent bucket, and the
-    planner's tensor parallelism (ROADMAP A.11c); 1 x 1 x 1 changes nothing;
-    every rank ran on the CPU and is gone."""
-    from acestep_tpu_torch.config import Qwen3Config
-    from acestep_tpu_torch.lm.handler import LLMHandler
-
+    the next request runs; the refusals: a tp that does not divide the DiT's
+    heads, an sp that splits no latent bucket, and on every rank the
+    planner's tensor parallelism at a tp (the default mesh's, 2) that does
+    not divide its KV heads; 1 x 1 x 1 changes nothing; every rank ran on
+    the CPU and is gone."""
     assert "rank 1 failed in generate_music" in dp2["fault"] and "injected fault on rank 1" in dp2["fault"]
     assert dp2["after_fault"]["latents"].shape == (2, 50, 64)
     tp3, sp3 = dp2["refused"]
     assert "tp=3 does not divide the DiT's num_attention_heads (4)" in tp3
     assert "sp=3: no latent bucket of (64, 128, 256) divides by sp * patch_size (6)" in sp3
-    with pytest.raises(NotImplementedError, match="A.11c"):
-        LLMHandler(Qwen3Config(**R.TEXT), dtype=torch.float32, device="cpu").enable_tensor_parallel()
+    assert [r["planner_refused"] for r in dp2["ranks"]] == [
+        "tp=2 does not divide the planner's num_key_value_heads (1)"] * 2
     assert dp2["unchanged_at_1x1x1"]
     assert [r["device"] for r in dp2["ranks"]] == ["cpu", "cpu"]
     assert not {r["pid"] for r in dp2["ranks"]} & set(_ranks_of_this_process())

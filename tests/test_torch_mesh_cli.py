@@ -4,10 +4,12 @@ configs, and `--dp 2` spawns two gloo ranks of it.
 
 `generate --dp 2` and `generate --sp 2 --tp 2` (four ranks) write the PCM of
 `--dp 1` (within the pipeline tests' 2.5 PCM steps), and `ACESTEP_TPU_DP=2`
-without the flag does what `--dp 2` does; a `--tp` that does not divide the
-DiT's heads fails on every rank; `serve --dp 2` and `serve --tp 2` answer a
-batch-2 job over loopback HTTP, then stop on SIGTERM with every rank gone.
-Every wait is bounded.
+without the flag does what `--dp 2` does; `generate --tp 2 --thinking` splits
+the planner too and writes the PCM of `--thinking` on one process; a `--tp`
+that does not divide the DiT's heads fails on every rank; `serve --dp 2` and
+`serve --tp 2` (a thinking job, on the split planner) answer a batch-2 job
+over loopback HTTP, then stop on SIGTERM with every rank gone. Every wait is
+bounded.
 """
 
 import http.client
@@ -71,11 +73,13 @@ def _alive(pid: int) -> bool:
 
 @pytest.fixture(scope="module")
 def generated(tmp_path_factory):
-    """`generate` at --dp 1, at --dp 2, with ACESTEP_TPU_DP=2, and at
-    --sp 2 --tp 2, all at once: {name: (exit code, stdout, stderr, output dir)}."""
+    """`generate` at --dp 1, at --dp 2, with ACESTEP_TPU_DP=2, at --sp 2
+    --tp 2, and with --thinking at 1 x 1 x 1 and at --tp 2, all at once:
+    {name: (exit code, stdout, stderr, output dir)}."""
     d = tmp_path_factory.mktemp("cli")
     runs = {"dp1": (["--dp", "1"], {}), "dp2": (["--dp", "2"], {}), "env": ([], {"ACESTEP_TPU_DP": "2"}),
-            "sp2tp2": (["--sp", "2", "--tp", "2"], {})}
+            "sp2tp2": (["--sp", "2", "--tp", "2"], {}), "think1": (["--thinking"], {}),
+            "think_tp2": (["--tp", "2", "--thinking"], {})}
     procs = {name: subprocess.Popen(CLI + GENERATE + ["--output-dir", str(d / name)] + flags, env=_env(**env),
                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for name, (flags, env) in runs.items()}
@@ -130,6 +134,29 @@ def test_generate_sp2_tp2_writes_the_pcm_of_dp1(generated):
         assert np.abs(got[name].astype(int) - pcm.astype(int)).max() <= 2, name
 
 
+def test_generate_tp2_thinking_splits_the_planner(generated):
+    """`generate --tp 2 --thinking`: both ranks load the planner and split it
+    over the mesh (rank 0 prints the planner's mesh once); the planner's
+    plan and the DiT's PCM equal one process's (PCM within 2 steps)."""
+    rc1, out1, err1, d1 = generated["think1"]
+    rc, out, err, d = generated["think_tp2"]
+    assert rc1 == 0, err1
+    assert rc == 0, err
+    assert [ln for ln in out.splitlines() if ln.startswith("planner mesh")] == [
+        "planner mesh: tp=2 on ranks 0-1 (dp group 0, sp 0; device collectives on gloo)"]
+    assert "planner mesh" not in out1 and out.count("Generated 2 audio(s)") == 1
+    want, got = _wavs(d1), _wavs(d)
+    assert len(want) == 2 and sorted(got) == sorted(want)
+    for name, pcm in want.items():
+        assert got[name].shape == pcm.shape and np.abs(pcm).max() > 0
+        assert np.abs(got[name].astype(int) - pcm.astype(int)).max() <= 2, name
+    for name in want:
+        sidecar = name[:-len(".wav")] + ".json"
+        with open(os.path.join(d1, sidecar)) as f1, open(os.path.join(d, sidecar)) as f2:
+            a, b = json.load(f1), json.load(f2)
+        assert a["metas"] and a["audio_codes"] and (a["metas"], a["audio_codes"]) == (b["metas"], b["audio_codes"])
+
+
 def test_generate_refuses_sp_and_tp():
     """The refusal that remains on the command line: a tp that does not
     divide the DiT's 4 heads fails on every rank, before any request."""
@@ -153,9 +180,10 @@ def _call(port, path, body):
     return r.status, out
 
 
-def _serve_round(tmp_path, flags) -> list:
-    """`serve` with `flags` on two ranks: one batch-2 job over loopback HTTP,
-    then SIGTERM; every rank gone. Returns the server's output lines."""
+def _serve_round(tmp_path, flags, thinking: bool = False) -> list:
+    """`serve` with `flags` on two ranks: one batch-2 job over loopback HTTP
+    (with the planner's `thinking` or not), then SIGTERM; every rank gone.
+    Returns the server's output lines."""
     p = subprocess.Popen(CLI + ["serve", "--device", "cpu", "--random-init", *flags, "--host", "127.0.0.1",
                                 "--port", "0", "--output-dir", str(tmp_path)],
                          env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -172,7 +200,7 @@ def _serve_round(tmp_path, flags) -> list:
                 port = int(line.rsplit(":", 1)[1])
         ranks = _ranks_of(p.pid)
         assert len(ranks) == 2, seen
-        status, out = _call(port, "/release_task", dict(caption="warm lofi beat", duration=2.0, thinking=False,
+        status, out = _call(port, "/release_task", dict(caption="warm lofi beat", duration=2.0, thinking=thinking,
                                                         batch_size=2, seed=3))
         assert status == 200, out
         tid = out["task_id"]
@@ -200,12 +228,12 @@ def test_serve_dp2_answers_and_stops_clean(tmp_path):
 
 
 def test_serve_tp2_answers_and_stops_clean(tmp_path):
-    """`serve --tp 2`: the decoder split over two ranks, the planner whole
-    on rank 0, which says so once."""
-    seen = _serve_round(tmp_path, ["--tp", "2"])
+    """`serve --tp 2`: the decoder and the planner split over two ranks;
+    rank 0 prints the planner's mesh once, and a thinking job runs on it."""
+    seen = _serve_round(tmp_path, ["--tp", "2"], thinking=True)
     assert any(ln.startswith("mesh enabled: dp=1 sp=1 tp=2") for ln in seen), seen
-    assert [ln for ln in seen if "A.11c" in ln] == ["planner: whole on rank 0 at tp=2 (its tensor parallelism "
-                                                    "is ROADMAP A.11c)\n"]
+    assert [ln for ln in seen if ln.startswith("planner mesh")] == [
+        "planner mesh: tp=2 on ranks 0-1 (dp group 0, sp 0; device collectives on gloo)\n"]
 
 
 def test_dp2_without_a_card_needs_device_cpu(monkeypatch):

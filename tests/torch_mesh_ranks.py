@@ -123,18 +123,33 @@ def _fault_on_rank_1(h: TH.AceStepHandler) -> None:
     tdit.generate_audio, h.lora.load = faulty, faulty_load
 
 
+def _planner_refusal() -> str:
+    """`enable_tensor_parallel()` on every rank for a planner with one KV
+    head: the default mesh's tp = 2 does not divide it."""
+    from acestep_tpu_torch.lm.handler import LLMHandler
+
+    llm = LLMHandler(Qwen3Config(**{**TEXT, "num_key_value_heads": 1}), dtype=torch.float32, device="cpu")
+    llm.initialize(random_init=True)
+    try:
+        llm.enable_tensor_parallel()
+    except ValueError as e:
+        return str(e)
+    return "not refused"
+
+
 def dp2_cases(weights_path: str, adapter_path: str):
     """Rank 0 runs every request of REQUESTS at dp = 2 (the LoRA one with the
     adapter on, then toggled off), a streamed one, one that fails on rank 1
     and one after it, the mesh shapes refused before a mesh is built (a tp
     that does not divide the DiT's heads, an sp that splits no latent
     bucket), a reload of every rank, then an adapter that fails to load on
-    rank 1 alone and the request after it; returns them with each rank's pid
-    and device."""
+    rank 1 alone and the request after it; returns them with each rank's pid,
+    device and refusal of a planner's tp that does not divide."""
     torch.set_num_threads(1)
     tdit.prepare_noise = prepare_noise
     h = tiny_handler(weights_path)
     h.enable_mesh(dp=2, timeout=TIMEOUT_S)
+    planner_refused = _planner_refusal()
     out = {}
     if h.mesh.rank == 1:
         _fault_on_rank_1(h)
@@ -177,7 +192,7 @@ def dp2_cases(weights_path: str, adapter_path: str):
                     out[key] = str(e)
         finally:
             h.stop_followers()
-    out["ranks"] = h.mesh.gather(dict(pid=os.getpid(), device=str(h.device)))
+    out["ranks"] = h.mesh.gather(dict(pid=os.getpid(), device=str(h.device), planner_refused=planner_refused))
     return out
 
 
